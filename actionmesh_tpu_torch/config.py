@@ -1,0 +1,135 @@
+"""Pipeline configuration: the ``actionmesh`` preset as Python dataclasses.
+
+Mirrors ``actionmesh_tpu/config.py`` with the values of
+``actionmesh_tpu/configs/actionmesh.yaml`` written in as defaults, so the
+port needs no yaml reader. Knobs that exist only for the TPU runtime
+(``steps_per_launch``, ``split_cfg_batch``, ``attn_impl``, ``compute_dtype``,
+``clear_autocast``) and the TripoSG decode knobs of the not yet ported
+Stage 0 are left out; ``tests/test_torch_pipeline.py`` pins the rest
+against the JAX ``load_config("actionmesh")``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+PRESETS = ("actionmesh",)
+
+
+@dataclasses.dataclass
+class SchedulerConfig:
+    num_inference_steps: int = 30
+    num_train_timesteps: int = 1000
+    shift: float = 3.0
+    is_additive: bool = True
+
+
+@dataclasses.dataclass
+class GuidanceConfig:
+    inference_enabled: bool = True
+    guidance_at_inference: list = dataclasses.field(
+        default_factory=lambda: [[0, 1], [1, 1]]
+    )
+    guidance_scales: list = dataclasses.field(default_factory=lambda: [7.5])
+
+
+@dataclasses.dataclass
+class MeshProcessConfig:
+    face_decimation: int = 40000
+    floaters_threshold: float = 0.02
+
+
+@dataclasses.dataclass
+class Stage0Config:
+    num_inference_steps: int = 100
+    guidance_scale: float = 7.5
+
+
+@dataclasses.dataclass
+class DenoiserModelConfig:
+    num_tokens_nominal: int = 2048
+    temporal_context_size: int = 16
+    num_attention_heads: int = 16
+    width: int = 2048
+    in_channels: int = 64
+    num_layers: int = 21
+    cross_attention_dim: int = 1024
+    mlp_ratio: float = 4.0
+    inflated_layers: list = dataclasses.field(
+        default_factory=lambda: list(range(21))
+    )
+    # tanh GELU, the JAX package's default (actionmesh_tpu/models/denoiser.py)
+    gelu_approx: bool = True
+
+
+@dataclasses.dataclass
+class AutoencoderModelConfig:
+    temporal_context_size: int = 16
+    in_channels: int = 3
+    in_extra_channels: int = 3
+    out_dim: int = 3
+    latent_channels: int = 64
+    width: int = 1024
+    num_attention_heads: int = 8
+    num_layers: int = 16
+    embed_frequency: int = 8
+    embed_include_pi: bool = False
+    prediction_mode: str = "direct"
+    gelu_approx: bool = True
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    stage_0: Stage0Config = dataclasses.field(default_factory=Stage0Config)
+    mesh_process: MeshProcessConfig = dataclasses.field(
+        default_factory=MeshProcessConfig
+    )
+    temporal_3D_denoiser: DenoiserModelConfig = dataclasses.field(
+        default_factory=DenoiserModelConfig
+    )
+    scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    cf_guidance: GuidanceConfig = dataclasses.field(default_factory=GuidanceConfig)
+    temporal_3D_vae: AutoencoderModelConfig = dataclasses.field(
+        default_factory=AutoencoderModelConfig
+    )
+    anchor_idx: int = 0
+    sliding_window_denoiser: int = 15
+    sliding_window_autoencoder: int = 15
+    subsampling_level: int = 1
+    # Stage II decodes target timesteps in chunks of this many
+    decode_target_chunk: int = 5
+
+    @property
+    def denoiser_latent_shape(self) -> tuple[int, int]:
+        return (
+            self.temporal_3D_denoiser.num_tokens_nominal,
+            self.temporal_3D_denoiser.in_channels,
+        )
+
+
+def _apply_updates(obj: Any, updates: dict) -> None:
+    """Apply {'a.b.c': v} dotted-path updates onto nested dataclasses."""
+    for path, value in updates.items():
+        parts = path.split(".")
+        target = obj
+        for p in parts[:-1]:
+            target = getattr(target, p)
+        if not hasattr(target, parts[-1]):
+            raise KeyError(f"Unknown config key: {path}")
+        setattr(target, parts[-1], value)
+
+
+def load_config(
+    config_name: str = "actionmesh", updates: Optional[dict] = None
+) -> PipelineConfig:
+    """The named preset plus dotted-path overrides."""
+    name = config_name.removesuffix(".yaml")
+    if name not in PRESETS:
+        raise ValueError(
+            f"Unknown preset {config_name!r}; the port has {PRESETS}"
+        )
+    cfg = PipelineConfig()
+    if updates:
+        _apply_updates(cfg, updates)
+    return cfg

@@ -1,0 +1,82 @@
+"""Image conditioning encoder: DINOv2-L features per frame.
+
+Counterpart of ``actionmesh_tpu/models/image_encoder.py``. Preprocessing
+follows HF BitImageProcessor for dinov2 (resize the shortest edge to 256
+bicubic, centre-crop 224, ImageNet normalisation) -> 257 tokens per frame;
+all frames encode in one batched forward. The JAX package resizes with PIL;
+here ``F.interpolate(mode="bicubic", antialias=True)`` does it (PyTorch's
+antialiased bicubic uses PIL's a = -0.5 kernel), in PIL's two passes with
+PIL's rounding to uint8 after each. ``tests/test_torch_ops.py`` holds the
+two against each other.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from actionmesh_tpu_torch.models.dinov2 import DinoV2Config, dinov2_forward, init_dinov2
+
+logger = logging.getLogger(__name__)
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def preprocess_for_dino(
+    frames: list[np.ndarray], resize_shortest: int = 256, crop_size: int = 224
+) -> np.ndarray:
+    """(H, W, 3|4) uint8 frames -> (T, crop, crop, 3) float32 normalised."""
+    out = []
+    for frame in frames:
+        img = torch.from_numpy(np.ascontiguousarray(frame[..., :3]))
+        h, w = img.shape[:2]
+        scale = resize_shortest / min(w, h)
+        new_w, new_h = round(w * scale), round(h * scale)
+        if (new_h, new_w) != (h, w):  # PIL returns an unchanged copy otherwise
+            x = img.permute(2, 0, 1)[None].float()
+            # PIL resamples width then height, rounding to uint8 in between
+            for size in ((h, new_w), (new_h, new_w)):
+                x = F.interpolate(
+                    x, size=size, mode="bicubic", antialias=True, align_corners=False
+                )
+                x = (x + 0.5).floor().clamp(0, 255)
+            img = x[0].permute(1, 2, 0).to(torch.uint8)
+        left = (new_w - crop_size) // 2
+        top = (new_h - crop_size) // 2
+        arr = img[top : top + crop_size, left : left + crop_size].numpy()
+        arr = arr.astype(np.float32) / 255.0
+        out.append((arr - IMAGENET_MEAN) / IMAGENET_STD)
+    return np.stack(out)
+
+
+class ImageEncoder:
+    """DINOv2-large producing (T, S, 1024) context embeddings."""
+
+    def __init__(
+        self,
+        device: torch.device,
+        dtype: torch.dtype = torch.bfloat16,
+        config: Optional[DinoV2Config] = None,
+        init_seed: int = 1,
+        params=None,
+    ):
+        self.config = config or DinoV2Config()
+        self.device = device
+        self._dtype = dtype
+        if params is None:
+            logger.warning(
+                "DINOv2 weights not given — using seeded random "
+                "initialization (development mode)."
+            )
+            gen = torch.Generator(device=device).manual_seed(init_seed)
+            params = init_dinov2(gen, self.config, dtype=dtype, device=device)
+        self.params = params
+
+    def encode_images(self, images: list[np.ndarray]) -> torch.Tensor:
+        pixels = torch.as_tensor(preprocess_for_dino(images), device=self.device)
+        return dinov2_forward(self.params, self.config, pixels.to(self._dtype))

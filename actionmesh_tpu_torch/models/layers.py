@@ -1,0 +1,293 @@
+"""Functional layers over parameter dicts (JAX key names, torch weights).
+
+Counterpart of ``actionmesh_tpu/models/layers.py``. Parameters are the JAX
+package's trees with torch tensors; a linear holds ``weight`` (out, in) and
+optional ``bias`` (see ``utils/weights.py``). Precision policy as in JAX:
+linears in the weights' dtype, layer norms, qk rms-norm, RoPE and softmax
+in fp32.
+
+Two JAX switches are not ported as switches: q, k and v are never
+concatenated into one projection, and the cross-attention of CFG branches
+with all-zero image context is always skipped (it is bitwise-exact).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from actionmesh_tpu_torch.ops.attention import dot_product_attention
+from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope
+from actionmesh_tpu_torch.ops.tensor_ops import (
+    flat_batch_to_flat_seq,
+    flat_seq_to_flat_batch,
+)
+
+Params = dict
+
+
+# ---------------------------------------------------------------------------
+# Initializers (uniform +-1/sqrt(in), as torch.nn.Linear)
+# ---------------------------------------------------------------------------
+
+def init_linear(
+    gen: torch.Generator,
+    in_dim: int,
+    out_dim: int,
+    bias: bool = True,
+    dtype: torch.dtype = torch.float32,
+    device: Optional[torch.device] = None,
+) -> Params:
+    bound = 1.0 / math.sqrt(in_dim)
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        return (u * (2 * bound) - bound).to(dtype)
+
+    params = {"weight": uniform((out_dim, in_dim))}
+    if bias:
+        params["bias"] = uniform((out_dim,))
+    return params
+
+
+def init_layer_norm(dim: int, device: Optional[torch.device] = None) -> Params:
+    return {
+        "scale": torch.ones(dim, dtype=torch.float32, device=device),
+        "bias": torch.zeros(dim, dtype=torch.float32, device=device),
+    }
+
+
+def init_rms_norm(dim: int, device: Optional[torch.device] = None) -> Params:
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device)}
+
+
+def init_feed_forward(gen, dim, inner_dim, dtype, device) -> Params:
+    return {
+        "net_0": init_linear(gen, dim, inner_dim, dtype=dtype, device=device),
+        "net_2": init_linear(gen, inner_dim, dim, dtype=dtype, device=device),
+    }
+
+
+def init_attention(
+    gen: torch.Generator,
+    query_dim: int,
+    heads: int,
+    cross_attention_dim: Optional[int] = None,
+    qk_norm: bool = False,
+    cross_norm: Optional[str] = None,
+    bias: bool = False,
+    out_bias: bool = True,
+    dtype: torch.dtype = torch.float32,
+    device: Optional[torch.device] = None,
+) -> Params:
+    kv_dim = cross_attention_dim if cross_attention_dim is not None else query_dim
+    dim_head = query_dim // heads
+    params: Params = {
+        "to_q": init_linear(gen, query_dim, query_dim, bias, dtype, device),
+        "to_k": init_linear(gen, kv_dim, query_dim, bias, dtype, device),
+        "to_v": init_linear(gen, kv_dim, query_dim, bias, dtype, device),
+        "to_out": init_linear(gen, query_dim, query_dim, out_bias, dtype, device),
+    }
+    if qk_norm:
+        params["norm_q"] = init_rms_norm(dim_head, device)
+        params["norm_k"] = init_rms_norm(dim_head, device)
+    if cross_norm == "layer_norm":
+        params["norm_cross"] = init_layer_norm(kv_dim, device)
+    return params
+
+
+def init_flow_matching_block(
+    gen: torch.Generator,
+    dim: int,
+    num_attention_heads: int,
+    use_self_attention: bool = True,
+    use_cross_attention: bool = True,
+    cross_attention_dim: Optional[int] = None,
+    cross_attention_norm: Optional[str] = None,
+    attention_qk_norm: bool = True,
+    attention_bias: bool = True,
+    attention_out_bias: bool = True,
+    ff_inner_dim: Optional[int] = None,
+    skip: bool = False,
+    dtype: torch.dtype = torch.float32,
+    device: Optional[torch.device] = None,
+) -> Params:
+    params: Params = {}
+    if use_self_attention:
+        params["norm_s_attn"] = init_layer_norm(dim, device)
+        params["s_attn"] = init_attention(
+            gen, dim, num_attention_heads, qk_norm=attention_qk_norm,
+            bias=attention_bias, out_bias=attention_out_bias,
+            dtype=dtype, device=device,
+        )
+    if use_cross_attention:
+        params["norm_x_attn"] = init_layer_norm(dim, device)
+        params["x_attn"] = init_attention(
+            gen, dim, num_attention_heads,
+            cross_attention_dim=cross_attention_dim,
+            qk_norm=attention_qk_norm, cross_norm=cross_attention_norm,
+            bias=attention_bias, out_bias=attention_out_bias,
+            dtype=dtype, device=device,
+        )
+    params["norm_ff"] = init_layer_norm(dim, device)
+    params["ff"] = init_feed_forward(
+        gen, dim, ff_inner_dim if ff_inner_dim is not None else 4 * dim,
+        dtype, device,
+    )
+    if skip:
+        params["norm_skip"] = init_layer_norm(dim, device)
+        params["linear_skip"] = init_linear(gen, 2 * dim, dim, True, dtype, device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Apply functions
+# ---------------------------------------------------------------------------
+
+def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
+    w = params["weight"]
+    return F.linear(x.to(w.dtype), w, params.get("bias"))
+
+
+def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 layer norm, one-pass variance E[x^2] - E[x]^2 (as the JAX
+    package computes it); returns x.dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    msq = (xf * xf).mean(dim=-1, keepdim=True)
+    var = torch.clamp(msq - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def feed_forward(
+    params: Params, x: torch.Tensor, gelu_approx: bool = False
+) -> torch.Tensor:
+    """Linear -> GELU (tanh approximation if ``gelu_approx``, else erf) -> Linear."""
+    h = F.gelu(
+        linear(params["net_0"], x), approximate="tanh" if gelu_approx else "none"
+    )
+    return linear(params["net_2"], h)
+
+
+def attention(
+    params: Params,
+    hidden_states: torch.Tensor,
+    heads: int,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
+    freqs_rot: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    uncond_prefix: int = 0,
+) -> torch.Tensor:
+    """Multi-head (self or cross) attention on (B, S, D) activations.
+
+    Optional per-head rms qk-norm and half-layout RoPE on q and k (one fused
+    kernel per tensor), flash attention, output projection.
+
+    ``uncond_prefix``: leading batch entries whose ``encoder_hidden_states``
+    are all zero (CFG branches without the image). With bias-free k/v
+    projections and no ``norm_cross``, their k = v = 0, the softmax is
+    uniform over zero values, and the output is exactly the out-projection
+    bias, so their cross-attention is skipped.
+    """
+    B, S, _ = hidden_states.shape
+    if (
+        encoder_hidden_states is not None
+        and 0 < uncond_prefix < B
+        and "norm_cross" not in params
+        and "bias" not in params["to_k"]
+        and "bias" not in params["to_v"]
+    ):
+        cond = attention(
+            params,
+            hidden_states[uncond_prefix:],
+            heads,
+            encoder_hidden_states[uncond_prefix:],
+            freqs_rot=freqs_rot,
+            kv_mask=kv_mask[uncond_prefix:] if kv_mask is not None else None,
+        )
+        out_bias = params["to_out"].get("bias")
+        if out_bias is None:
+            uncond = cond.new_zeros((uncond_prefix, S, cond.shape[-1]))
+        else:
+            uncond = out_bias.to(cond.dtype).expand(uncond_prefix, S, cond.shape[-1])
+        return torch.cat([uncond, cond], dim=0)
+
+    kv_src = hidden_states if encoder_hidden_states is None else encoder_hidden_states
+    if encoder_hidden_states is not None and "norm_cross" in params:
+        kv_src = layer_norm(params["norm_cross"], kv_src)
+
+    q = linear(params["to_q"], hidden_states)
+    k = linear(params["to_k"], kv_src)
+    v = linear(params["to_v"], kv_src)
+
+    dim_head = q.shape[-1] // heads
+    # (B, S, H*Dh) -> (B, H, S, Dh) views
+    q = q.view(B, S, heads, dim_head).transpose(1, 2)
+    k = k.view(B, -1, heads, dim_head).transpose(1, 2)
+    v = v.view(B, -1, heads, dim_head).transpose(1, 2)
+
+    has_norm = "norm_q" in params
+    if has_norm or freqs_rot is not None:
+        cos, sin = freqs_rot if freqs_rot is not None else (None, None)
+        q = fused_rms_rope(q, params["norm_q"]["scale"] if has_norm else None, cos, sin)
+        k = fused_rms_rope(k, params["norm_k"]["scale"] if has_norm else None, cos, sin)
+
+    out = dot_product_attention(q, k, v, kv_mask=kv_mask)
+    out = out.transpose(1, 2).reshape(B, S, heads * dim_head)
+    return linear(params["to_out"], out)
+
+
+def flow_matching_block(
+    params: Params,
+    hidden_states: torch.Tensor,
+    num_attention_heads: int,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
+    freqs_rot: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    skip: Optional[torch.Tensor] = None,
+    inflate_n_frames: Optional[int] = None,
+    gelu_approx: bool = False,
+    uncond_prefix: int = 0,
+) -> torch.Tensor:
+    """Pre-norm transformer block with optional U-skip concat.
+
+    With ``inflate_n_frames=T`` the self-attention runs over the cross-frame
+    sequence (B, T*N, D) built from the per-frame layout (B*T, N, D);
+    cross-attention and FF stay per frame. ``freqs_rot`` must match the
+    self-attention layout.
+    """
+    if "linear_skip" in params:
+        if skip is None:
+            raise ValueError("a skip block needs its U-skip input")
+        cat = torch.cat([skip, hidden_states], dim=-1)
+        hidden_states = layer_norm(params["norm_skip"], linear(params["linear_skip"], cat))
+
+    if "s_attn" in params:
+        normed = layer_norm(params["norm_s_attn"], hidden_states)
+        if inflate_n_frames is not None:
+            normed = flat_batch_to_flat_seq(normed, inflate_n_frames)
+        att = attention(
+            params["s_attn"], normed, heads=num_attention_heads, freqs_rot=freqs_rot
+        )
+        if inflate_n_frames is not None:
+            att = flat_seq_to_flat_batch(att, inflate_n_frames)
+        hidden_states = hidden_states + att
+
+    if "x_attn" in params:
+        hidden_states = hidden_states + attention(
+            params["x_attn"],
+            layer_norm(params["norm_x_attn"], hidden_states),
+            heads=num_attention_heads,
+            encoder_hidden_states=encoder_hidden_states,
+            uncond_prefix=uncond_prefix,
+        )
+
+    return hidden_states + feed_forward(
+        params["ff"],
+        layer_norm(params["norm_ff"], hidden_states),
+        gelu_approx=gelu_approx,
+    )

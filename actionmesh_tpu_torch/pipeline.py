@@ -1,0 +1,372 @@
+"""ActionMesh pipeline in PyTorch: video -> animated 3D mesh (4D).
+
+Counterpart of ``actionmesh_tpu/pipeline.py``, with the same phases:
+alpha check + crop -> Stage 0 (anchor latent + mesh) -> DINOv2 encode ->
+Stage I over AR windows -> Stage II -> meshes. Not ported: device meshes
+and sharding, segmented launches, profiler traces and the static-shape
+vertex bucketing (padded query rows are independent, so dropping it changes
+no result); RMBG matting and the TripoSG Stage 0 come later.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from actionmesh_tpu_torch.config import PipelineConfig, load_config
+from actionmesh_tpu_torch.io.mesh import Mesh
+from actionmesh_tpu_torch.io.video_input import ActionMeshInput
+from actionmesh_tpu_torch.models.autoencoder import (
+    AutoencoderConfig,
+    apply_displacement,
+    autoencoder_forward,
+    init_autoencoder,
+)
+from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
+from actionmesh_tpu_torch.models.image_encoder import ImageEncoder
+from actionmesh_tpu_torch.models.stage0 import make_image_to_3d
+from actionmesh_tpu_torch.ops.chunking import chunk_from
+from actionmesh_tpu_torch.ops.embeddings import (
+    apply_scaling,
+    get_scaling,
+    interpolate_timesteps,
+)
+from actionmesh_tpu_torch.preprocessing.background import check_alpha
+from actionmesh_tpu_torch.preprocessing.image import ImagePreprocessor
+from actionmesh_tpu_torch.preprocessing.mesh import MeshPostprocessor, get_mesh_features
+from actionmesh_tpu_torch.sampling.denoise_loop import denoise_window, get_noise
+from actionmesh_tpu_torch.sampling.flow_schedule import get_schedule
+from actionmesh_tpu_torch.sampling.guidance import make_guidance
+from actionmesh_tpu_torch.utils.banks import LatentBank, MeshBank
+
+logger = logging.getLogger(__name__)
+
+
+class ActionMeshPipeline:
+    """Video -> 4D pipeline (three-stage cascade) on one device."""
+
+    def __init__(
+        self,
+        config_name: str = "actionmesh",
+        weights_dir: Optional[str | Path] = None,
+        device: torch.device = torch.device("cuda"),
+        dtype: torch.dtype = torch.bfloat16,
+        init_seed: int = 0,
+        config_updates: Optional[dict] = None,
+    ):
+        self.cfg: PipelineConfig = load_config(config_name, updates=config_updates)
+        self.device = torch.device(device)
+        self._dtype = dtype
+        self._weights_dir = Path(weights_dir) if weights_dir else None
+
+        dc = self.cfg.temporal_3D_denoiser
+        self.denoiser_config = DenoiserConfig(
+            num_tokens_nominal=dc.num_tokens_nominal,
+            temporal_context_size=dc.temporal_context_size,
+            in_channels=dc.in_channels,
+            num_layers=dc.num_layers,
+            num_attention_heads=dc.num_attention_heads,
+            width=dc.width,
+            mlp_ratio=dc.mlp_ratio,
+            cross_attention_dim=dc.cross_attention_dim,
+            inflated_layers=tuple(dc.inflated_layers),
+            gelu_approx=dc.gelu_approx,
+        )
+        ac = self.cfg.temporal_3D_vae
+        self.autoencoder_config = AutoencoderConfig(
+            temporal_context_size=ac.temporal_context_size,
+            in_channels=ac.in_channels,
+            in_extra_channels=ac.in_extra_channels,
+            out_dim=ac.out_dim,
+            latent_channels=ac.latent_channels,
+            width=ac.width,
+            num_layers=ac.num_layers,
+            num_attention_heads=ac.num_attention_heads,
+            embed_frequency=ac.embed_frequency,
+            embed_include_pi=ac.embed_include_pi,
+            prediction_mode=ac.prediction_mode,
+            gelu_approx=ac.gelu_approx,
+        )
+        self.image_process = ImagePreprocessor()
+        self.mesh_process = MeshPostprocessor(
+            face_decimation=self.cfg.mesh_process.face_decimation,
+            floaters_threshold=self.cfg.mesh_process.floaters_threshold,
+        )
+
+        if self._weights_dir is not None and (self._weights_dir / "ActionMesh").exists():
+            raise NotImplementedError(
+                "loading ActionMesh checkpoints is not ported yet; "
+                "utils.weights.load_npz reads the JAX package's npz exports"
+            )
+        logger.warning(
+            "ActionMesh weights not given — using seeded random initialization "
+            "(development mode)."
+        )
+        gen = torch.Generator(device=self.device).manual_seed(init_seed)
+        self.denoiser_params = init_denoiser(gen, self.denoiser_config, dtype, self.device)
+        self.autoencoder_params = init_autoencoder(
+            gen, self.autoencoder_config, dtype, self.device
+        )
+        self.image_encoder = ImageEncoder(device=self.device, dtype=dtype)
+        self.image_to_3d = make_image_to_3d(
+            self._weights_dir / "TripoSG" if self._weights_dir else None,
+            latent_shape=self.cfg.denoiser_latent_shape,
+            device=self.device,
+        )
+        self.phase_seconds: dict[str, float] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- Stage 0 ---------------------------------------------------------
+
+    def init_banks_from_anchor(
+        self, input: ActionMeshInput, seed: int = 44
+    ) -> tuple[LatentBank, MeshBank]:
+        """Anchor frame -> 3D latent + mesh via the image-to-3D backend."""
+        anchor_latent, anchor_mesh = self.image_to_3d(
+            image=input.frames[self.cfg.anchor_idx],
+            seed=seed,
+            num_inference_steps=self.cfg.stage_0.num_inference_steps,
+            guidance_scale=self.cfg.stage_0.guidance_scale,
+        )
+        anchor_mesh = self.mesh_process.process_mesh(anchor_mesh)
+        latent_bank = LatentBank(
+            empty_dims=self.cfg.denoiser_latent_shape, device=self.device, verbose=True
+        )
+        mesh_bank = MeshBank(verbose=True)
+        anchor_timestep = input.timesteps[[self.cfg.anchor_idx]]
+        latent_bank.update(timesteps=anchor_timestep, latents=anchor_latent)
+        mesh_bank.update(meshes=[anchor_mesh], timesteps=anchor_timestep)
+        return latent_bank, mesh_bank
+
+    # -- Stage I ---------------------------------------------------------
+
+    def encode_all_frames(self, input: ActionMeshInput) -> torch.Tensor:
+        """(T, S, D_ctx) conditioning features for all frames."""
+        return self.image_encoder.encode_images(input.frames)
+
+    def _denoise_latents(
+        self,
+        input: ActionMeshInput,
+        context: torch.Tensor,
+        latent_bank: LatentBank,
+        seed: int = 44,
+    ) -> torch.Tensor:
+        """Denoise one AR window."""
+        cond_latents, cond_mask = latent_bank.get(timesteps=input.timesteps, add_batch_dim=True)
+        # a CPU generator: the same seed gives the same noise on any device
+        init_noise = get_noise(
+            torch.Generator().manual_seed(seed), self.cfg.denoiser_latent_shape,
+            batch_size=1, n_timesteps=input.n_frames, device=self.device,
+        )
+        mask_f = cond_mask.float()[..., None, None]
+        init_latent = (
+            cond_latents.float() * mask_f + init_noise * (1.0 - mask_f)
+        ).to(self._dtype)
+        timesteps, distances = get_schedule(
+            self.cfg.scheduler.num_inference_steps,
+            self.cfg.scheduler.num_train_timesteps,
+            self.cfg.scheduler.shift,
+        )
+        guidance = make_guidance(
+            self.cfg.cf_guidance.guidance_at_inference,
+            self.cfg.cf_guidance.guidance_scales,
+            self.cfg.cf_guidance.inference_enabled,
+        )
+        return denoise_window(
+            self.denoiser_params,
+            self.denoiser_config,
+            guidance,
+            init_latent,
+            context[None].to(self._dtype),
+            cond_mask,
+            torch.as_tensor(input.timesteps, device=self.device)[None],
+            torch.as_tensor(timesteps, device=self.device),
+            torch.as_tensor(distances, device=self.device),
+            is_additive=self.cfg.scheduler.is_additive,
+        )
+
+    def generate_3d_latents(
+        self,
+        input: ActionMeshInput,
+        context: torch.Tensor,
+        latent_bank: LatentBank,
+        seed: int = 44,
+    ) -> LatentBank:
+        """Stage I over AR windows, conditioning on previously banked latents."""
+        ar_windows = chunk_from(
+            start=self.cfg.anchor_idx,
+            total=input.n_frames,
+            size=self.cfg.temporal_3D_denoiser.temporal_context_size,
+            slide=self.cfg.sliding_window_denoiser,
+        )
+        for i, window_indices in enumerate(ar_windows):
+            window_input = input.get(window_indices)
+            t0 = time.perf_counter()
+            window_latents = self._denoise_latents(
+                input=window_input,
+                context=context[torch.as_tensor(window_indices, device=context.device)],
+                latent_bank=latent_bank,
+                seed=seed + i,
+            )
+            self._sync()
+            logger.info(
+                "Stage I window %d/%d: %.2fs", i + 1, len(ar_windows), time.perf_counter() - t0
+            )
+            latent_bank.update(latents=window_latents.float(), timesteps=window_input.timesteps)
+        return latent_bank
+
+    # -- Stage II --------------------------------------------------------
+
+    def _decode_displacement(
+        self,
+        latents: torch.Tensor,
+        window_timesteps: np.ndarray,
+        source_alpha: np.ndarray,
+        target_alphas: np.ndarray,
+        anchor_mesh: Mesh,
+    ) -> list[Mesh]:
+        """Decode one window of latents into deformed meshes."""
+        n_targets = target_alphas.shape[1]
+        if anchor_mesh.n_vertices == 0 or anchor_mesh.n_faces == 0:
+            raise ValueError(
+                "Anchor mesh is empty — Stage 0 produced no surface (check "
+                "the image-to-3D backend / SDF extraction level)."
+            )
+        vertex_features = torch.as_tensor(
+            get_mesh_features(anchor_mesh, with_normals=True), device=self.device
+        )[None]
+        chunk = self.cfg.decode_target_chunk or n_targets
+        dev = self.device
+        outs = [
+            autoencoder_forward(
+                self.autoencoder_params,
+                self.autoencoder_config,
+                latents.to(self._dtype),
+                torch.as_tensor(window_timesteps, device=dev),
+                torch.as_tensor(source_alpha, device=dev),
+                torch.as_tensor(target_alphas[:, start : start + chunk], device=dev),
+                vertex_features,
+                compute_dtype=self._dtype,
+            )
+            for start in range(0, n_targets, chunk)
+        ]
+        deformed = apply_displacement(
+            self.autoencoder_config, vertex_features[..., :3], torch.cat(outs, dim=1)
+        )
+        deformed_np = deformed.float().cpu().numpy()
+        return [
+            Mesh(vertices=deformed_np[0, i], faces=anchor_mesh.faces)
+            for i in range(n_targets)
+        ]
+
+    def generate_mesh_animation(
+        self, latent_bank: LatentBank, mesh_bank: MeshBank
+    ) -> MeshBank:
+        """Stage II over AR windows: latents -> deformed meshes.
+
+        As in the JAX package (and the reference): interpolate_timesteps
+        spans min->max and ``drop_first`` drops the minimum, so for
+        anchor_idx > 0 the left windows drop their earliest frame.
+        """
+        ar_windows = chunk_from(
+            start=self.cfg.anchor_idx,
+            total=latent_bank.n_timesteps,
+            size=self.cfg.temporal_3D_vae.temporal_context_size,
+            slide=self.cfg.sliding_window_autoencoder,
+        )
+        all_timesteps = latent_bank.get_ordered_timesteps()
+        for window_idx, window_indices in enumerate(ar_windows):
+            window_timesteps = all_timesteps[np.asarray(window_indices)][None]
+            window_latents, _ = latent_bank.get(
+                timesteps=window_timesteps[0], add_batch_dim=True
+            )
+            anchor_mesh = mesh_bank.get(timesteps=window_timesteps[:, 0])[0]
+            if anchor_mesh is None:
+                raise RuntimeError("the window's anchor mesh is missing from the mesh bank")
+            output_timesteps = interpolate_timesteps(
+                window_timesteps, subsampling_level=self.cfg.subsampling_level,
+                drop_first=True,
+            )
+            t_min, t_range = get_scaling(window_timesteps)
+            source_alpha = apply_scaling(window_timesteps[:, 0], t_min, t_range)
+            target_alphas = apply_scaling(output_timesteps, t_min, t_range)
+            t0 = time.perf_counter()
+            window_meshes = self._decode_displacement(
+                latents=window_latents,
+                window_timesteps=window_timesteps,
+                source_alpha=source_alpha,
+                target_alphas=target_alphas,
+                anchor_mesh=anchor_mesh,
+            )
+            logger.info(
+                "Stage II window %d/%d: %.2fs",
+                window_idx + 1, len(ar_windows), time.perf_counter() - t0,
+            )
+            mesh_bank.update(meshes=window_meshes, timesteps=output_timesteps[0])
+        return mesh_bank
+
+    # -- Full pipeline -----------------------------------------------------
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        input: ActionMeshInput,
+        seed: int = 44,
+        stage_0_steps: Optional[int] = None,
+        face_decimation: Optional[int] = None,
+        floaters_threshold: Optional[float] = None,
+        stage_1_steps: Optional[int] = None,
+        guidance_scales: Optional[list[float]] = None,
+        anchor_idx: Optional[int] = None,
+    ) -> list[Mesh]:
+        """Run the video -> 4D pipeline. Returns meshes ordered by timestep.
+
+        Per-phase wall times (device work synchronised) are logged and kept
+        in ``self.phase_seconds``.
+        """
+        if stage_0_steps is not None:
+            self.cfg.stage_0.num_inference_steps = stage_0_steps
+        if stage_1_steps is not None:
+            self.cfg.scheduler.num_inference_steps = stage_1_steps
+        if guidance_scales is not None:
+            self.cfg.cf_guidance.guidance_scales = guidance_scales
+        if face_decimation is not None:
+            self.mesh_process.face_decimation = face_decimation
+        if floaters_threshold is not None:
+            self.mesh_process.floaters_threshold = floaters_threshold
+        if anchor_idx is not None:
+            self.cfg.anchor_idx = anchor_idx
+
+        # Work on a copy: the caller's frames keep their alpha.
+        input = ActionMeshInput(frames=list(input.frames), timesteps=input.timesteps.copy())
+        phases = {}
+        t = time.perf_counter()
+
+        def phase(name):
+            nonlocal t
+            self._sync()
+            now = time.perf_counter()
+            phases[name] = now - t
+            logger.info("phase %s: %.2fs", name, now - t)
+            t = now
+
+        input.frames = self.image_process.process_images(check_alpha(input.frames))
+        phase("preprocess")
+        latent_bank, mesh_bank = self.init_banks_from_anchor(input, seed)
+        phase("stage0")
+        context = self.encode_all_frames(input)
+        phase("encode")
+        latent_bank = self.generate_3d_latents(input, context, latent_bank, seed=seed)
+        phase("stage1")
+        mesh_bank = self.generate_mesh_animation(latent_bank, mesh_bank)
+        phase("stage2")
+        self.phase_seconds = phases
+        return mesh_bank.get_ordered()[0]

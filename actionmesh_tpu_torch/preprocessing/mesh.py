@@ -1,0 +1,115 @@
+"""Mesh features and post-Stage-0 cleanup (host numpy).
+
+Copy of the parts of ``actionmesh_tpu/preprocessing/mesh.py`` the main path
+runs: vertex features, merge/cleanup, floater removal. Decimation (needed
+only above ``face_decimation`` faces, i.e. for TripoSG meshes) is not ported
+yet and raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+
+from actionmesh_tpu_torch.io.mesh import Mesh
+
+logger = logging.getLogger(__name__)
+
+
+def get_mesh_features(mesh: Mesh, with_normals: bool) -> np.ndarray:
+    """(V, 3|6) float32 vertex positions (+ unit normals)."""
+    features = mesh.vertices.astype(np.float32)
+    if with_normals:
+        normals = mesh.vertex_normals.astype(np.float32)
+        norm = np.linalg.norm(normals, axis=-1, keepdims=True)
+        features = np.concatenate([features, normals / np.maximum(norm, 1e-12)], axis=-1)
+    return features
+
+
+def merge_vertices(mesh: Mesh, digits: int = 8) -> Mesh:
+    """Merge exactly-coincident vertices (rounded to `digits`)."""
+    rounded = np.round(mesh.vertices, digits)
+    _, first_idx, inverse = np.unique(
+        rounded, axis=0, return_index=True, return_inverse=True
+    )
+    return Mesh(vertices=mesh.vertices[first_idx], faces=inverse.reshape(-1)[mesh.faces])
+
+
+def remove_degenerate_and_duplicate_faces(mesh: Mesh) -> Mesh:
+    f = mesh.faces
+    f = f[(f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2]) & (f[:, 0] != f[:, 2])]
+    # duplicates regardless of winding: sort vertex ids per face
+    _, unique_idx = np.unique(np.sort(f, axis=1), axis=0, return_index=True)
+    return Mesh(vertices=mesh.vertices, faces=f[np.sort(unique_idx)])
+
+
+def remove_unreferenced_vertices(mesh: Mesh) -> Mesh:
+    referenced = np.zeros(len(mesh.vertices), dtype=bool)
+    referenced[mesh.faces.reshape(-1)] = True
+    remap = np.cumsum(referenced) - 1
+    return Mesh(vertices=mesh.vertices[referenced], faces=remap[mesh.faces])
+
+
+def connected_components(mesh: Mesh) -> np.ndarray:
+    """Face component labels via union-find over shared vertices."""
+    parent = np.arange(len(mesh.vertices))
+
+    def find(i):
+        root = i
+        while parent[root] != root:
+            root = parent[root]
+        while parent[i] != root:
+            parent[i], i = root, parent[i]
+        return root
+
+    for face in mesh.faces:
+        a = find(face[0])
+        for v in face[1:]:
+            b = find(v)
+            if a != b:
+                parent[b] = a
+    roots = np.array([find(v) for v in mesh.faces[:, 0]])
+    _, labels = np.unique(roots, return_inverse=True)
+    return labels
+
+
+def remove_floaters(mesh: Mesh, threshold: float = 0.02) -> Mesh:
+    """Drop connected components with fewer than threshold * largest faces."""
+    labels = connected_components(mesh)
+    counts = np.bincount(labels)
+    keep_labels = np.nonzero(counts >= threshold * counts.max())[0]
+    keep = np.isin(labels, keep_labels)
+    n_removed = int((~keep).sum())
+    if n_removed:
+        logger.info(
+            "Removed %d floater faces in %d components",
+            n_removed, len(counts) - len(keep_labels),
+        )
+    return remove_unreferenced_vertices(Mesh(vertices=mesh.vertices, faces=mesh.faces[keep]))
+
+
+def decimate_mesh(mesh: Mesh, target_faces: int) -> Mesh:
+    raise NotImplementedError(
+        f"mesh decimation ({mesh.n_faces} -> {target_faces} faces) is not "
+        "ported yet; it comes with the TripoSG Stage 0 port"
+    )
+
+
+@dataclasses.dataclass
+class MeshPostprocessor:
+    """Post-Stage-0 cleanup: merge, clean, decimate, drop floaters."""
+
+    face_decimation: int = 40000
+    floaters_threshold: float = 0.02
+
+    def process_mesh(self, mesh: Mesh) -> Mesh:
+        mesh = merge_vertices(mesh)
+        mesh = remove_degenerate_and_duplicate_faces(mesh)
+        mesh = remove_unreferenced_vertices(mesh)
+        if self.face_decimation and mesh.n_faces > self.face_decimation:
+            mesh = decimate_mesh(mesh, self.face_decimation)
+        if self.floaters_threshold > 0:
+            mesh = remove_floaters(mesh, self.floaters_threshold)
+        return mesh

@@ -1,0 +1,100 @@
+"""Stage I flow-matching Euler sampler for one AR window.
+
+Counterpart of ``actionmesh_tpu/sampling/denoise_loop.py``: a Python loop
+over steps (PyTorch runs eagerly; JAX scans). The CFG branch batch and the
+RoPE tables are built once per window. The schedule and the Euler update
+are fp32; frames with mask=1 are frozen.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from actionmesh_tpu_torch.models.denoiser import (
+    DenoiserConfig,
+    denoiser_forward,
+    precompute_freqs_rot,
+)
+from actionmesh_tpu_torch.sampling.guidance import ClassifierFreeGuidance
+
+
+def get_noise(
+    generator: torch.Generator,
+    latent_shape: tuple[int, ...],
+    batch_size: int,
+    n_timesteps: int,
+    corr_noise: float = 0.0,
+    dtype: torch.dtype = torch.float32,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """Noise with optional temporal correlation: a shared draw (B, 1, ...)
+    then an independent one, from ``generator`` on its own device, moved to
+    ``device``. A CPU generator gives the same noise on every device."""
+    if not 0.0 <= corr_noise <= 1.0:
+        raise ValueError(f"corr_noise must lie in [0, 1], got {corr_noise}")
+    shape = (batch_size, n_timesteps) + tuple(latent_shape)
+    same = torch.randn(
+        (batch_size, 1) + tuple(latent_shape), generator=generator,
+        dtype=dtype, device=generator.device,
+    )
+    ind = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+    noise = math.sqrt(corr_noise) * same.expand(shape) + math.sqrt(1.0 - corr_noise) * ind
+    return noise.to(device)
+
+
+def denoise_window(
+    params,
+    dcfg: DenoiserConfig,
+    guidance: ClassifierFreeGuidance,
+    init_latent: torch.Tensor,
+    context: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    framestep: torch.Tensor,
+    timesteps: torch.Tensor,
+    distances: torch.Tensor,
+    is_additive: bool = True,
+) -> torch.Tensor:
+    """Denoise one AR window.
+
+    init_latent (B, T, N, D): conditioning latents where mask=1, noise
+    elsewhere; context (B, T, S, Dc); mask (B, T); framestep (B, T);
+    timesteps (steps+1,) and distances (steps,) fp32. Returns (B, T, N, D).
+    """
+    B, T, N, _ = init_latent.shape
+    compute_dtype = init_latent.dtype
+    _, context_g, mask_g, framestep_g = guidance.cfg_at_inference(
+        init_latent, context, mask, framestep
+    )
+    unobserved = guidance.get_unobserved_mask(mask)
+    freqs_rot = precompute_freqs_rot(dcfg, framestep_g, N)
+    g = guidance.n_branches
+    mask_f = mask_g.to(compute_dtype) if mask_g is not None else None
+    timesteps = timesteps.to(torch.float32)
+    distances = distances.to(torch.float32)
+
+    latents = init_latent
+    for i in range(distances.shape[0]):
+        hidden = torch.cat([latents] * g, dim=0)
+        pred = denoiser_forward(
+            params,
+            dcfg,
+            hidden,
+            context_g,
+            framestep_g,
+            timesteps[i].expand(g * B),
+            mask=mask_f,
+            freqs_rot=freqs_rot,
+            uncond_batch=guidance.leading_uncond_image_branches * B,
+        )
+        pred32 = guidance.aggregate_cfg(pred).float()
+        lat32 = latents.float()
+        sign = 1.0 if is_additive else -1.0
+        stepped = (lat32 + sign * distances[i] * pred32).to(compute_dtype)
+        if unobserved is not None:
+            latents = torch.where(unobserved[..., None, None], stepped, latents)
+        else:
+            latents = stepped
+    return latents

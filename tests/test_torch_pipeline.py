@@ -1,0 +1,239 @@
+"""The port's whole slice vs the JAX pipeline, plus bookkeeping checks.
+
+The slice test runs both ``ActionMeshPipeline``s at tiny widths on CPU with
+the same weights (JAX-initialised, bridged into the port), the same Stage-0
+latent and sphere, and the same Stage-I noise (each module's ``get_noise``
+is replaced in this test only: jax.random and torch.Generator cannot draw
+the same bits).
+"""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import actionmesh_tpu.pipeline as jpipeline_mod
+import actionmesh_tpu_torch.pipeline as tpipeline_mod
+from actionmesh_tpu.config import load_config as jload_config
+from actionmesh_tpu.io.video_input import ActionMeshInput as JInput
+from actionmesh_tpu.models.dinov2 import DinoV2Config as JDinoCfg
+from actionmesh_tpu.models.image_encoder import ImageEncoder as JImageEncoder
+from actionmesh_tpu.models.stage0 import make_uv_sphere as jsphere
+from actionmesh_tpu_torch.config import load_config as tload_config
+from actionmesh_tpu_torch.io.video_input import ActionMeshInput as TInput
+from actionmesh_tpu_torch.models.dinov2 import DinoV2Config as TDinoCfg
+from actionmesh_tpu_torch.models.image_encoder import ImageEncoder as TImageEncoder
+from actionmesh_tpu_torch.models.stage0 import make_uv_sphere as tsphere
+from actionmesh_tpu_torch.ops.flash_attention import flash_attention
+from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope
+from actionmesh_tpu_torch.utils.weights import load_npz, params_from_jax
+
+REPO = Path(__file__).resolve().parent.parent
+
+# tests/test_pipeline.py's TINY_UPDATES, less the two JAX runtime keys
+# (attn_impl, compute_dtype) the port has no use for.
+TINY_UPDATES = {
+    "temporal_3D_denoiser.num_tokens_nominal": 16,
+    "temporal_3D_denoiser.width": 64,
+    "temporal_3D_denoiser.num_layers": 3,
+    "temporal_3D_denoiser.num_attention_heads": 2,
+    "temporal_3D_denoiser.in_channels": 8,
+    "temporal_3D_denoiser.cross_attention_dim": 32,
+    "temporal_3D_denoiser.inflated_layers": [0, 1, 2],
+    "temporal_3D_denoiser.temporal_context_size": 16,
+    "temporal_3D_vae.latent_channels": 8,
+    "temporal_3D_vae.width": 64,
+    "temporal_3D_vae.num_layers": 2,
+    "temporal_3D_vae.num_attention_heads": 2,
+    "scheduler.num_inference_steps": 2,
+}
+TINY_DINO = dict(hidden_size=32, num_layers=2, num_heads=2, patch_size=14, image_size=70)
+
+
+def make_frames(n=16, size=64, seed=0):
+    """tests/test_pipeline.py's frames: a moving square on transparency."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n):
+        rgba = np.zeros((size, size, 4), dtype=np.uint8)
+        x = 8 + i
+        rgba[16:48, x : x + 24, :3] = rng.integers(64, 255, size=3, dtype=np.uint8)
+        rgba[16:48, x : x + 24, 3] = 255
+        frames.append(rgba)
+    return frames
+
+
+@pytest.fixture(scope="module")
+def slice_outputs():
+    """Run both pipelines on the same inputs; return (jax meshes, port meshes)."""
+    mp = pytest.MonkeyPatch()
+    try:
+        jpipe = jpipeline_mod.ActionMeshPipeline(
+            config_name="actionmesh", weights_dir=None,
+            config_updates=dict(TINY_UPDATES, attn_impl="chunked", compute_dtype="float32"),
+            dtype=jnp.float32,
+        )
+        jpipe.image_encoder = JImageEncoder(
+            weights_dir=None, dtype=jnp.float32, config=JDinoCfg(**TINY_DINO)
+        )
+        tpipe = tpipeline_mod.ActionMeshPipeline(
+            config_name="actionmesh", weights_dir=None, device=torch.device("cpu"),
+            dtype=torch.float32, config_updates=dict(TINY_UPDATES),
+        )
+        tpipe.image_encoder = TImageEncoder(
+            torch.device("cpu"), torch.float32, TDinoCfg(**TINY_DINO),
+            params=params_from_jax(jax.tree.map(np.asarray, jpipe.image_encoder.params)),
+        )
+        tpipe.denoiser_params = params_from_jax(jax.tree.map(np.asarray, jpipe.denoiser_params))
+        tpipe.autoencoder_params = params_from_jax(jax.tree.map(np.asarray, jpipe.autoencoder_params))
+
+        latent = np.random.default_rng(1).standard_normal((1, 16, 8)).astype(np.float32)
+        jpipe.image_to_3d = lambda image, **_: (jnp.asarray(latent), jsphere(n_lat=8, n_lon=16))
+        tpipe.image_to_3d = lambda image, **_: (torch.from_numpy(latent), tsphere(n_lat=8, n_lon=16))
+
+        def noise(shape, batch_size, n_timesteps):
+            return np.random.default_rng(2).standard_normal(
+                (batch_size, n_timesteps) + tuple(shape)
+            ).astype(np.float32)
+
+        mp.setattr(jpipeline_mod, "get_noise", lambda key, shape, batch_size, n_timesteps, **_: jnp.asarray(noise(shape, batch_size, n_timesteps)))
+        mp.setattr(tpipeline_mod, "get_noise", lambda gen, shape, batch_size, n_timesteps, **_: torch.from_numpy(noise(shape, batch_size, n_timesteps)))
+
+        frames = make_frames()
+        ts = np.arange(16, dtype=np.float32)
+        flash_attention.launches = fused_rms_rope.launches = 0
+        jmeshes = jpipe(JInput(frames=[Image.fromarray(f) for f in frames], timesteps=ts), seed=44)
+        tmeshes = tpipe(TInput(frames=frames, timesteps=ts), seed=44)
+        return jmeshes, tmeshes
+    finally:
+        mp.undo()
+
+
+def test_slice_matches_jax_pipeline(slice_outputs):
+    """16 frames, one AR window, 2 Stage-I steps, Stage II in 3 target chunks.
+
+    Tolerance 1e-5 on vertex positions in [-1, 1] (measured 3.6e-7 on a
+    CPU): fp32 throughout, sums in another order; the DINOv2 input resize
+    agrees with PIL's to within one uint8 level (test_torch_ops.py).
+    """
+    jmeshes, tmeshes = slice_outputs
+    assert len(tmeshes) == len(jmeshes) == 16
+    for jm, tm in zip(jmeshes, tmeshes):
+        np.testing.assert_array_equal(tm.faces, jm.faces)
+        np.testing.assert_allclose(tm.vertices, jm.vertices, atol=1e-5)
+    verts = np.stack([m.vertices for m in tmeshes])
+    assert np.isfinite(verts).all() and verts.min() >= -1 and verts.max() <= 1
+    assert np.abs(verts[1:] - verts[0]).max() > 0
+
+
+def test_two_ar_windows_freeze_banked_frames(monkeypatch):
+    """18 frames -> Stage-I windows [0..15] and [2..17]: the second window
+    is conditioned on the 14 frames the first one banked, and keeps them
+    bitwise frozen; Stage II then decodes all 18 frames."""
+    from actionmesh_tpu_torch.utils import banks
+
+    records = []
+    orig_update = banks.LatentBank.update
+
+    def spy(self, timesteps, latents):
+        records.append((np.asarray(timesteps).reshape(-1).copy(), latents.clone()))
+        return orig_update(self, timesteps, latents)
+
+    monkeypatch.setattr(banks.LatentBank, "update", spy)
+    pipe = tpipeline_mod.ActionMeshPipeline(
+        device=torch.device("cpu"), dtype=torch.float32, config_updates=dict(TINY_UPDATES)
+    )
+    pipe.image_encoder = TImageEncoder(torch.device("cpu"), torch.float32, TDinoCfg(**TINY_DINO))
+    meshes = pipe(TInput(frames=make_frames(18), timesteps=np.arange(18)), seed=5)
+    assert len(meshes) == 18
+    (ts1, lat1), (ts2, lat2) = [r for r in records if len(r[0]) == 16]
+    assert list(ts1) == list(range(16)) and list(ts2) == list(range(2, 18))
+    torch.testing.assert_close(lat2[0, :14], lat1[0, 2:], rtol=0, atol=0)
+
+
+def test_launch_counters_stay_zero_on_cpu(slice_outputs):
+    """On CPU tensors the wrappers run their plain versions, never a kernel."""
+    assert flash_attention.launches == 0
+    assert fused_rms_rope.launches == 0
+
+
+def test_config_matches_jax_preset():
+    """The port's preset equals the JAX ``load_config("actionmesh")`` on
+    every field it keeps; the fields it leaves out are exactly the TPU
+    runtime knobs and the not yet ported TripoSG decode knobs."""
+    omitted = {
+        "stage_0.prefilter_octree_depth", "stage_0.coarse_decode_dtype",
+        "temporal_3D_denoiser.clear_autocast", "scheduler.split_cfg_batch",
+        "scheduler.steps_per_launch", "compute_dtype", "attn_impl",
+    }
+
+    def flat(d, prefix=""):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}."))
+            else:
+                out[f"{prefix}{k}"] = v
+        return out
+
+    port = flat(dataclasses.asdict(tload_config("actionmesh")))
+    ref = flat(dataclasses.asdict(jload_config("actionmesh")))
+    assert set(ref) - set(port) == omitted
+    assert set(port) <= set(ref)
+    assert port == {k: v for k, v in ref.items() if k in port}
+    assert tload_config("actionmesh").temporal_3D_denoiser.gelu_approx is True
+    with pytest.raises(KeyError):
+        tload_config("actionmesh", updates={"attn_impl": "flash"})
+
+
+def test_npz_bridge_roundtrip(tmp_path):
+    """An npz written by the JAX package (bf16 leaves as ::bf16 uint16)
+    loads into the port bit for bit, kernels transposed; non-finite leaves,
+    bf16 included, are refused."""
+    from actionmesh_tpu.models.denoiser import DenoiserConfig, init_denoiser
+    from actionmesh_tpu.utils.weights import save_params
+
+    cfg = DenoiserConfig(num_tokens_nominal=8, in_channels=8, num_layers=3,
+                         num_attention_heads=2, width=32, cross_attention_dim=16)
+    params = init_denoiser(jax.random.PRNGKey(0), cfg, dtype=jnp.bfloat16)
+    save_params(params, tmp_path / "denoiser.npz")
+    loaded = load_npz(tmp_path / "denoiser.npz")
+    direct = params_from_jax(jax.tree.map(np.asarray, params))
+
+    w = loaded["blocks"][1]["s_attn"]["to_q"]["weight"]
+    assert w.dtype == torch.bfloat16
+    kernel = np.asarray(params["blocks"][1]["s_attn"]["to_q"]["kernel"].astype(jnp.float32))
+    np.testing.assert_array_equal(w.float().numpy(), kernel.T)
+    assert loaded["blocks"][0]["norm_s_attn"]["scale"].dtype == torch.float32
+    flat_a = jax.tree.leaves(jax.tree.map(lambda t: t.float().numpy(), loaded))
+    flat_b = jax.tree.leaves(jax.tree.map(lambda t: t.float().numpy(), direct))
+    assert len(flat_a) == len(flat_b) == len(jax.tree.leaves(params))
+    for a, b in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(a, b)
+
+    params["proj_in"]["kernel"] = params["proj_in"]["kernel"].at[0, 0].set(jnp.inf)
+    save_params(params, tmp_path / "bad.npz")
+    with pytest.raises(ValueError, match="proj_in.kernel"):
+        load_npz(tmp_path / "bad.npz")
+
+
+def test_port_imports_no_jax():
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX package."""
+    files = sorted((REPO / "actionmesh_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "actionmesh_tpu", "flax"), f"{path}: {name}"
