@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from actionmesh_tpu_torch.models.layers import (
     Params,
@@ -124,6 +125,8 @@ def denoiser_forward(
     mask: Optional[torch.Tensor] = None,
     freqs_rot: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     uncond_batch: int = 0,
+    trainable: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """One denoising step (velocity prediction).
 
@@ -131,6 +134,11 @@ def denoiser_forward(
     diffusion_time (B,); mask (B, T), 1 = ground-truth frame; ``uncond_batch``
     leading batch entries have all-zero context (their cross-attention is
     skipped). Returns (B, T, N, D_in).
+
+    Training: ``trainable`` takes the attention with the O(S)-memory flash
+    backward; ``remat`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX package),
+    which runs every block's kernels a second time.
     """
     B, T, N, _ = hidden_states.shape
     if freqs_rot is None:
@@ -160,17 +168,26 @@ def denoiser_forward(
     for layer, block_params in enumerate(params["blocks"]):
         skip = None if layer <= half else skips.pop()
         inflate = T if layer in cfg.inflated_layers else None
-        x = flow_matching_block(
-            block_params,
-            x,
-            num_attention_heads=cfg.num_attention_heads,
-            encoder_hidden_states=context_merged,
-            freqs_rot=freqs_rot if inflate is not None else None,
-            skip=skip,
-            inflate_n_frames=inflate,
-            gelu_approx=cfg.gelu_approx,
-            uncond_prefix=uncond_batch * T,  # batch-major merge_batch_time
-        )
+
+        def block(x, ctx, freqs, skip, _params=block_params, _inflate=inflate):
+            return flow_matching_block(
+                _params,
+                x,
+                num_attention_heads=cfg.num_attention_heads,
+                encoder_hidden_states=ctx,
+                freqs_rot=freqs,
+                skip=skip,
+                inflate_n_frames=_inflate,
+                gelu_approx=cfg.gelu_approx,
+                uncond_prefix=uncond_batch * T,  # batch-major merge_batch_time
+                trainable=trainable,
+            )
+
+        args = (x, context_merged, freqs_rot if inflate is not None else None, skip)
+        if remat:
+            x = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(*args)
         if layer < half:
             skips.append(x)
 

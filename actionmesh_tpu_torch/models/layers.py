@@ -182,11 +182,14 @@ def attention(
     freqs_rot: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     kv_mask: Optional[torch.Tensor] = None,
     uncond_prefix: int = 0,
+    trainable: bool = False,
 ) -> torch.Tensor:
     """Multi-head (self or cross) attention on (B, S, D) activations.
 
     Optional per-head rms qk-norm and half-layout RoPE on q and k (one fused
-    kernel per tensor), flash attention, output projection.
+    kernel per tensor), flash attention, output projection. ``trainable``
+    takes the attention with the O(S)-memory flash backward (JAX's
+    ``attn_impl="auto_train"``).
 
     ``uncond_prefix``: leading batch entries whose ``encoder_hidden_states``
     are all zero (CFG branches without the image). With bias-free k/v
@@ -209,6 +212,7 @@ def attention(
             encoder_hidden_states[uncond_prefix:],
             freqs_rot=freqs_rot,
             kv_mask=kv_mask[uncond_prefix:] if kv_mask is not None else None,
+            trainable=trainable,
         )
         out_bias = params["to_out"].get("bias")
         if out_bias is None:
@@ -237,7 +241,7 @@ def attention(
         q = fused_rms_rope(q, params["norm_q"]["scale"] if has_norm else None, cos, sin)
         k = fused_rms_rope(k, params["norm_k"]["scale"] if has_norm else None, cos, sin)
 
-    out = dot_product_attention(q, k, v, kv_mask=kv_mask)
+    out = dot_product_attention(q, k, v, kv_mask=kv_mask, trainable=trainable)
     out = out.transpose(1, 2).reshape(B, S, heads * dim_head)
     return linear(params["to_out"], out)
 
@@ -252,6 +256,7 @@ def flow_matching_block(
     inflate_n_frames: Optional[int] = None,
     gelu_approx: bool = False,
     uncond_prefix: int = 0,
+    trainable: bool = False,
 ) -> torch.Tensor:
     """Pre-norm transformer block with optional U-skip concat.
 
@@ -271,7 +276,8 @@ def flow_matching_block(
         if inflate_n_frames is not None:
             normed = flat_batch_to_flat_seq(normed, inflate_n_frames)
         att = attention(
-            params["s_attn"], normed, heads=num_attention_heads, freqs_rot=freqs_rot
+            params["s_attn"], normed, heads=num_attention_heads, freqs_rot=freqs_rot,
+            trainable=trainable,
         )
         if inflate_n_frames is not None:
             att = flat_seq_to_flat_batch(att, inflate_n_frames)
@@ -284,6 +290,7 @@ def flow_matching_block(
             heads=num_attention_heads,
             encoder_hidden_states=encoder_hidden_states,
             uncond_prefix=uncond_prefix,
+            trainable=trainable,
         )
 
     return hidden_states + feed_forward(

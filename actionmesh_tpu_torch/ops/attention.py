@@ -1,8 +1,10 @@
-"""Multi-head attention dispatch and its plain PyTorch version.
+"""Multi-head attention dispatch and its plain PyTorch versions.
 
 Counterpart of ``actionmesh_tpu/ops/attention.py``. ``dot_product_attention``
-sends CUDA tensors to the hand-written flash kernel
-(``ops/flash_attention.py``) and CPU tensors to ``chunked_attention``.
+sends CUDA tensors to the hand-written flash kernels
+(``ops/flash_attention.py``) and CPU tensors to the plain versions here:
+``chunked_attention`` for the forward, ``attention_bwd_reference`` for the
+backward, and ``chunked_attention_trainable`` joining the two.
 
 Stage I's inflated self-attention spans 16 x 2049 = 32,784 tokens; a
 materialised fp32 score matrix there would be 2 x 16 x 32,784^2 x 4 bytes
@@ -73,18 +75,109 @@ def chunked_attention(
     return out
 
 
+def bwd_row_stats(o, m, l, do):
+    """Per-row L = m + log l (1e30 for rows with l = 0, so that their
+    exp(s - L) is 0) and delta = sum_d dO*O, (B, H, Sq) fp32."""
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)), -NEG_INF)
+    return lse, (do.float() * o.float()).sum(dim=-1)
+
+
+def attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+    q_chunk: int = 2048,
+    k_chunk: int = 1024,
+):
+    """Plain O(S)-memory attention backward from the forward's stats.
+
+    Port of ``actionmesh_tpu/ops/attention.py:_chunked_trainable_bwd``, in
+    (q_chunk, k_chunk) tiles: P = exp(scale * q.k - L) with L = m + log l
+    recomputed per tile, dV = P^T dO with P rounded to v's dtype,
+    dS = P * (dO.v - delta) * scale with delta = sum dO*O, dQ = dS K and
+    dK = dS^T Q with dS rounded to q's dtype; fp32 accumulation. Returns
+    (dq, dk, dv) in the dtypes of q, k, v.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    Sq, Sk = q.shape[2], k.shape[2]
+    lse, delta = bwd_row_stats(o, m, l, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, Sk, k_chunk):
+        kb = k[:, :, k0 : k0 + k_chunk].float()
+        vb = v[:, :, k0 : k0 + k_chunk].float()
+        for q0 in range(0, Sq, q_chunk):
+            qs = slice(q0, q0 + q_chunk)
+            qb = q[:, :, qs]
+            dob = do[:, :, qs].to(v.dtype).float()
+            s = torch.matmul(qb.float(), kb.transpose(-1, -2)) * scale
+            p = torch.exp(s - lse[:, :, qs, None])
+            dv[:, :, k0 : k0 + k_chunk] += torch.matmul(
+                p.to(v.dtype).float().transpose(-1, -2), dob
+            )
+            dp = torch.matmul(dob, vb.transpose(-1, -2))
+            ds = p * (dp - delta[:, :, qs, None]) * scale
+            dq[:, :, qs] += torch.matmul(ds.to(k.dtype).float(), kb)
+            dk[:, :, k0 : k0 + k_chunk] += torch.matmul(
+                ds.to(q.dtype).float().transpose(-1, -2), qb.float()
+            )
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _ChunkedAttentionTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, (m, l) = chunked_attention(q, k, v, scale=scale, return_stats=True)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*attention_bwd_reference(*ctx.saved_tensors, do, ctx.scale), None)
+
+
+def chunked_attention_trainable(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """``chunked_attention`` with the O(S)-memory recomputing backward.
+
+    Port of ``actionmesh_tpu/ops/attention.py:chunked_attention_trainable``:
+    the plain version of kernels A, C and D together. No kv mask (training
+    needs none).
+    """
+    return _ChunkedAttentionTrainable.apply(q, k, v, scale)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,
+    trainable: bool = False,
 ) -> torch.Tensor:
     """Fused multi-head attention, q (B,H,Sq,D), k/v (B,H,Sk,D) -> q.dtype.
 
-    CUDA tensors go to the flash kernel (which raises on what it does not
-    take); CPU tensors to the plain chunked version.
+    CUDA tensors go to the flash kernels (which raise on what they do not
+    take); CPU tensors to the plain chunked versions. ``trainable`` gives
+    the O(S)-memory backward (kernels C and D on the card), as JAX's
+    ``auto_train``; it takes no kv mask.
     """
-    from actionmesh_tpu_torch.ops.flash_attention import flash_attention
+    from actionmesh_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_trainable,
+    )
 
+    if trainable:
+        if kv_mask is not None:
+            raise ValueError("trainable attention takes no kv_mask")
+        return flash_attention_trainable(q, k, v, scale=scale)
     return flash_attention(q, k, v, scale=scale, kv_mask=kv_mask)

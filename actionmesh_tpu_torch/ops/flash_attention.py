@@ -1,11 +1,16 @@
-"""Flash attention forward: wrapper of the Hopper kernel in ``csrc/flash_fwd.cu``.
+"""Flash attention: wrappers of the Hopper kernels in ``csrc/flash_fwd.cu``
+(kernel A, forward) and ``csrc/flash_bwd.cu`` (kernels C and D, backward).
 
-Replaces ``actionmesh_tpu/ops/flash_attention.py:flash_attention_pipelined``
-and ``flash_attention`` (the Pallas TPU kernels) with one CUDA kernel that
-meets both contracts; see the note at the top of the CUDA source for its
-design. On CPU tensors the wrapper runs the plain version,
-``ops/attention.py:chunked_attention``; on CUDA tensors it launches the
-kernel or raises. ``flash_attention.launches`` counts kernel launches.
+Kernel A replaces ``actionmesh_tpu/ops/flash_attention.py:
+flash_attention_pipelined`` and ``flash_attention`` (the Pallas TPU kernels)
+and meets both contracts. Kernels C (dK, dV) and D (dQ) replace the two
+kernels of ``actionmesh_tpu/ops/flash_attention_bwd.py:flash_attention_bwd``;
+``flash_attention_trainable`` joins A with C and D as that module's
+``custom_vjp`` does. See the notes at the top of the CUDA sources for their
+design. On CPU tensors each wrapper runs its plain version from
+``ops/attention.py``; on CUDA tensors it launches its kernel or raises.
+``flash_attention.launches``, ``flash_attention_bwd.dkv_launches`` and
+``flash_attention_bwd.dq_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -15,11 +20,17 @@ from typing import Optional
 
 import torch
 
-from actionmesh_tpu_torch.ops.attention import chunked_attention
+from actionmesh_tpu_torch.ops.attention import (
+    attention_bwd_reference,
+    bwd_row_stats,
+    chunked_attention,
+    chunked_attention_trainable,
+)
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (64, 128)
 _lib = None
+_bwd_lib = None
 
 
 def _library():
@@ -37,6 +48,28 @@ def _library():
         lib.flash_fwd.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        from actionmesh_tpu_torch.utils.cuda_build import load_library
+
+        lib = load_library("flash_bwd")
+        # q, k, v, dO, lse, delta, then 2 (dk, dv) or 1 (dq) outputs, strides
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + tail
+        lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.flash_bwd_dkv.restype = lib.flash_bwd_dq.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def kernel_takes_layout(x: torch.Tensor) -> bool:
+    """Whether the kernels can read ``x`` (B, H, S, D) through its strides:
+    a contiguous last axis, and 16-byte aligned row strides and address
+    (16-byte vector loads of rows, 4-byte loads of pairs)."""
+    return x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
 
 
 def _check(q, k, v, kv_mask):
@@ -64,13 +97,10 @@ def _check(q, k, v, kv_mask):
     if B > 65535 or H > 65535:  # grid z and y
         raise ValueError(f"flash_attention: batch {B} or heads {H} above 65535")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name}'s last axis must be contiguous")
-        # 16-byte vector loads of K/V rows and 4-byte loads of Q pairs
-        if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+        if not kernel_takes_layout(x):
             raise ValueError(
-                f"flash_attention: {name} strides {x.stride()} or its address "
-                "are not 16-byte aligned"
+                f"flash_attention: {name} (strides {x.stride()}) needs a contiguous "
+                "last axis and 16-byte aligned strides and address"
             )
     if kv_mask is not None and (kv_mask.shape != (B, k.shape[2]) or kv_mask.device != q.device):
         raise ValueError(
@@ -132,3 +162,122 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+):
+    """Gradients (dq, dk, dv) from the forward's residuals and stats.
+
+    q, o, do (B, H, Sq, D); k, v (B, H, Sk, D); m, l (B, H, Sq) fp32 as
+    ``flash_attention(return_stats=True)`` gives them. The row log-sum-exp
+    L = m + log l and delta = sum_d dO*O are computed here in plain torch
+    (as XLA does for the TPU kernels); kernel C then writes dk and dv,
+    kernel D dq. Gradients take the dtypes and, where dense, the strides of
+    q, k and v. dO must have q's dtype and a layout the kernels read
+    (``kernel_takes_layout``).
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, o, m, l, do, scale)
+    _check(q, k, v, None)
+    B, H, Sq, _ = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"flash_attention_bwd: {name} {tuple(x.shape)} {x.dtype} must match "
+                f"q {tuple(q.shape)} {q.dtype} on {q.device}"
+            )
+    if not kernel_takes_layout(do):
+        raise ValueError(
+            f"flash_attention_bwd: do (strides {do.stride()}) needs a contiguous "
+            "last axis and 16-byte aligned strides and address"
+        )
+    for name, x in (("m", m), ("l", l)):
+        if x.shape != (B, H, Sq) or x.dtype != torch.float32 or x.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be (B, H, Sq) fp32")
+    lse, delta = (x.contiguous() for x in bwd_row_stats(o, m, l, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale)
+    return dq, dk, dv
+
+
+def launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, which=("dkv", "dq")):
+    """Launch kernel C (writes dk, dv) and/or kernel D (writes dq) on
+    checked inputs, lse and delta (B, H, Sq) fp32 contiguous; each launch
+    adds one to its counter. ``flash_attention_bwd`` is the checked entry;
+    this one lets a benchmark time the two kernels apart."""
+    B, H, Sq, D = q.shape
+    strides = (ctypes.c_longlong * 21)(
+        *(s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3])
+    )
+    common = (
+        ctypes.cast(strides, ctypes.c_void_p), B, H, Sq, k.shape[2], D,
+        _DTYPE_CODES[q.dtype], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    inputs = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+    )
+    lib = _bwd_library()
+    if "dkv" in which:
+        err = lib.flash_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *common)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
+        flash_attention_bwd.dkv_launches += 1
+    if "dq" in which:
+        err = lib.flash_bwd_dq(*inputs, dq.data_ptr(), *common)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
+        flash_attention_bwd.dq_launches += 1
+
+
+flash_attention_bwd.dkv_launches = 0
+flash_attention_bwd.dq_launches = 0
+
+
+class _FlashAttentionTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, (m, l) = flash_attention(q, k, v, scale=scale, return_stats=True)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        # The gradient of out.transpose(1, 2).reshape(B, S, H*D) arrives as a
+        # strided view with a contiguous last axis, which the kernels read in
+        # place; any other layout is copied to a contiguous one here.
+        do = do.to(q.dtype)
+        if not kernel_takes_layout(do):
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, m, l, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention_trainable(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """Attention with the O(S)-memory flash backward, no kv mask.
+
+    Port of ``actionmesh_tpu/ops/flash_attention_bwd.py:
+    flash_attention_trainable``. On CUDA tensors the forward is kernel A
+    with its stats and the backward kernels C and D; on CPU tensors the
+    plain version, ``chunked_attention_trainable``.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return chunked_attention_trainable(q, k, v, scale)
+    return _FlashAttentionTrainable.apply(q, k, v, scale)

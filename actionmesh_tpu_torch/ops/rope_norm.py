@@ -10,8 +10,11 @@ device memory once and from L2 for the other heads.
 
 On CPU tensors the wrapper runs the plain version, ``rms_rope_reference``;
 on CUDA tensors it launches the kernel or raises.
-``fused_rms_rope.launches`` counts kernel launches. No backward: the port
-runs inference only.
+``fused_rms_rope.launches`` counts kernel launches. Where a gradient is
+needed the op is a ``torch.autograd.Function`` whose backward is the vjp of
+``rms_rope_reference``, recomputed from the saved inputs, as the JAX custom
+VJP is (``actionmesh_tpu/ops/rope_norm.py:_fused_bwd``): the TPU has no
+Pallas backward for it either.
 """
 
 from __future__ import annotations
@@ -127,6 +130,30 @@ def _check(x, scale, cos, sin):
                 )
 
 
+class _RmsRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, cos, sin, eps):
+        ctx.save_for_backward(x, scale, cos, sin)
+        ctx.eps = eps
+        return _rms_rope_forward(x, scale, cos, sin, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [
+                None if t is None else t.detach().requires_grad_(need)
+                for t, need in zip(saved, ctx.needs_input_grad)
+            ]
+            out = rms_rope_reference(*inputs, ctx.eps)
+            wrt = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return (
+            *(next(grads) if t is not None and t.requires_grad else None for t in inputs),
+            None,
+        )
+
+
 def fused_rms_rope(
     x: torch.Tensor,
     scale: Optional[torch.Tensor],
@@ -139,9 +166,18 @@ def fused_rms_rope(
     x (B, H, S, D), any strides with a contiguous last axis; scale (D,)
     fp32 or None; cos/sin fp32 (S, D) or (cb, S, D), table b % cb serving
     batch entry b, or None. Returns x.dtype with x's strides.
+    Differentiable in x, scale, cos and sin.
     """
     if scale is None and cos is None:
         return x
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, scale, cos, sin)
+    ):
+        return _RmsRope.apply(x, scale, cos, sin, eps)
+    return _rms_rope_forward(x, scale, cos, sin, eps)
+
+
+def _rms_rope_forward(x, scale, cos, sin, eps):
     if x.device.type == "cpu":
         return rms_rope_reference(x, scale, cos, sin, eps)
     if not x.is_cuda:

@@ -1,0 +1,258 @@
+"""Training loop: optimizer schedule, step loop, logging, checkpoints.
+
+Counterpart of ``actionmesh_tpu/training/loop.py`` for the Stage-I flow
+stage: ``TrainLoopConfig``, ``make_optimizer`` (``training/optim.py``), the
+shared ``_run_loop`` and ``run_flow_training``. Same contract: a JSONL log
+(``log.jsonl``) with ``stage_steps_per_s``, a checkpoint every
+``ckpt_every`` steps and at the end (``ckpt_latest.npz``), resume from it,
+held-out eval on the EMA weights with no context dropout, and a profiler
+trace over ``profile_steps`` (``torch.profiler`` in place of
+``jax.profiler``). Losses are fetched from the device only at log
+boundaries. Decoder, VAE and distillation training are not ported yet
+(ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
+from actionmesh_tpu_torch.training.checkpoint import restore_train_state, save_train_state
+from actionmesh_tpu_torch.training.data import DevicePrefetcher, to_device
+from actionmesh_tpu_torch.training.flow_train import (
+    flow_matching_loss,
+    init_train_state,
+    make_train_step,
+)
+from actionmesh_tpu_torch.training.optim import AdamW, warmup_cosine_decay_schedule
+
+logger = logging.getLogger(__name__)
+
+FINAL_LR_RATIO = 0.1  # the cosine decays peak_lr -> peak_lr * ratio
+
+
+@dataclass(frozen=True)
+class TrainLoopConfig:
+    """Hyperparameters of the outer loop (the architecture is the
+    DenoiserConfig passed alongside)."""
+
+    total_steps: int = 1000  # micro-steps (batches consumed), see grad_accum
+    peak_lr: float = 1e-4
+    warmup_steps: int = 100
+    clip_norm: float = 1.0
+    weight_decay: float = 0.01
+    grad_accum: int = 1  # optimizer updates every grad_accum micro-steps
+    ema_decay: Optional[float] = 0.999  # per optimizer update
+    p_uncond: float = 0.1  # CFG context dropout
+    compute_dtype: Optional[str] = None  # None = fp32; "bfloat16"
+    seed: int = 0
+    log_every: int = 10
+    ckpt_every: int = 500
+    eval_every: int = 0  # 0 = no held-out evaluation
+    out_dir: str = "train_out"
+    resume: bool = True
+    profile_steps: Optional[tuple[int, int]] = None  # [start, end) micro-steps, to out_dir/profile
+    time_phases: bool = False  # synchronised forward/backward/update seconds per step
+
+    def __post_init__(self):
+        if self.total_steps < 1:
+            raise ValueError(f"total_steps={self.total_steps} must be >= 1")
+        if self.warmup_steps >= self.total_steps:
+            raise ValueError(
+                f"warmup_steps={self.warmup_steps} must be < total_steps={self.total_steps}"
+            )
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum={self.grad_accum} must be >= 1")
+
+
+def make_optimizer(cfg: TrainLoopConfig) -> AdamW:
+    """Global-norm clip -> AdamW on a warmup + cosine schedule that counts
+    optimizer updates (``total_steps // grad_accum``), as the JAX loop."""
+    updates = max(1, cfg.total_steps // cfg.grad_accum)
+    schedule = warmup_cosine_decay_schedule(
+        init_value=0.0,
+        peak_value=cfg.peak_lr,
+        warmup_steps=min(cfg.warmup_steps, max(0, updates - 1)),
+        decay_steps=updates,
+        end_value=cfg.peak_lr * FINAL_LR_RATIO,
+    )
+    return AdamW(schedule, cfg.clip_norm, cfg.weight_decay, grad_accum=cfg.grad_accum)
+
+
+def loop_ema_decay(cfg: TrainLoopConfig) -> Optional[float]:
+    """Per-micro-step EMA decay, so that the decay per optimizer update is
+    ``cfg.ema_decay`` whatever ``grad_accum`` is."""
+    if cfg.ema_decay is None:
+        return None
+    return float(cfg.ema_decay ** (1.0 / cfg.grad_accum))
+
+
+def compute_dtype(cfg: TrainLoopConfig) -> Optional[torch.dtype]:
+    return None if cfg.compute_dtype is None else getattr(torch, cfg.compute_dtype)
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of micro-step ``step``: a function of (seed, step)
+    only, so a resumed run draws what an uninterrupted one would."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def _run_loop(
+    state: dict,
+    step_fn: Callable,
+    batches: Iterator[dict],
+    cfg: TrainLoopConfig,
+    device: torch.device,
+    *,
+    on_log: Optional[Callable[[dict], None]] = None,
+    eval_fn: Optional[Callable[[dict], float]] = None,
+) -> tuple[dict, list[dict]]:
+    """Prefetch, step, log JSONL, checkpoint; resumes from ``state['step']``."""
+    out_dir = Path(cfg.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log_path = out_dir / "log.jsonl"
+    start = int(state["step"])
+    history: list[dict] = []
+    prefetch = DevicePrefetcher(batches, device)
+    pending: list[tuple[int, torch.Tensor, Optional[dict]]] = []
+    t0 = time.perf_counter()
+
+    def write(rec: dict) -> None:
+        with log_path.open("a") as fh:
+            fh.write(json.dumps(rec) + "\n")
+        history.append(rec)
+        if on_log is not None:
+            on_log(rec)
+
+    def flush() -> None:
+        nonlocal t0
+        if not pending:
+            return
+        losses = [float(l) for _, l, _ in pending]  # one sync for the lot
+        dt = time.perf_counter() - t0
+        rate = len(pending) / dt if dt > 0 else None
+        for (s, _, timing), loss in zip(pending, losses):
+            write({"step": s, "loss": loss, "stage_steps_per_s": rate, **(timing or {})})
+        pending.clear()
+        t0 = time.perf_counter()
+
+    last_eval = -1
+
+    def run_eval(step: int) -> None:
+        nonlocal last_eval
+        if step == last_eval:
+            return
+        last_eval = step
+        flush()
+        write({"step": step, "eval_loss": eval_fn(state)})
+
+    profiler = None
+    try:
+        for step in range(start, cfg.total_steps):
+            try:
+                batch = next(prefetch)
+            except StopIteration:
+                break  # finite dataset exhausted: checkpoint and return
+            if cfg.profile_steps and step == cfg.profile_steps[0]:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=activities)
+                profiler.__enter__()
+            state, loss = step_fn(state, batch, step_generator(cfg.seed, step))
+            if profiler is not None and step + 1 >= cfg.profile_steps[1]:
+                _stop_profiler(profiler, out_dir, device)
+                profiler = None
+            pending.append((step + 1, loss, getattr(step_fn, "last_timing", None)))
+            if (step + 1) % cfg.log_every == 0:
+                flush()
+            if eval_fn is not None and cfg.eval_every and (step + 1) % cfg.eval_every == 0:
+                run_eval(step + 1)
+            if cfg.ckpt_every and (step + 1) % cfg.ckpt_every == 0:
+                flush()
+                save_train_state(state, out_dir / "ckpt_latest.npz")
+    finally:
+        if profiler is not None:
+            _stop_profiler(profiler, out_dir, device)
+        prefetch.close()
+    flush()
+    if eval_fn is not None and cfg.eval_every:
+        run_eval(int(state["step"]))
+    save_train_state(state, out_dir / "ckpt_latest.npz")
+    return state, history
+
+
+def _stop_profiler(profiler, out_dir: Path, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.__exit__(None, None, None)
+    trace_dir = out_dir / "profile"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    profiler.export_chrome_trace(str(trace_dir / "trace.json"))
+
+
+def run_flow_training(
+    model_cfg: DenoiserConfig,
+    batches: Iterator[dict],
+    cfg: TrainLoopConfig,
+    *,
+    device: Optional[torch.device] = None,
+    params=None,
+    on_log: Optional[Callable[[dict], None]] = None,
+    eval_batches: Optional[list[dict]] = None,
+) -> tuple[dict, list[dict]]:
+    """Train the Stage-I denoiser with the rectified-flow objective.
+
+    ``batches`` yields numpy dicts in the ``training/data.flow_batches``
+    layout. Params are drawn from ``cfg.seed`` unless given. Resumes from
+    ``out_dir/ckpt_latest.npz`` when present (``cfg.resume``).
+    ``eval_batches`` (held-out numpy batches) adds ``eval_loss`` records
+    every ``cfg.eval_every`` steps: the loss of the EMA weights (when kept)
+    with fixed draws and no context dropout. Returns (final state, log).
+    """
+    device = torch.device(device or "cpu")
+    if params is None:
+        params = init_denoiser(torch.Generator(device).manual_seed(cfg.seed), model_cfg, device=device)
+    optimizer = make_optimizer(cfg)
+    state = init_train_state(params, optimizer, ema_decay=cfg.ema_decay)
+    del params
+    ckpt = Path(cfg.out_dir) / "ckpt_latest.npz"
+    if cfg.resume and ckpt.exists():
+        state = restore_train_state(ckpt, state)
+        logger.info("resumed from %s at step %d", ckpt, state["step"])
+    step_fn = make_train_step(
+        model_cfg,
+        optimizer,
+        p_uncond=cfg.p_uncond,
+        compute_dtype=compute_dtype(cfg),
+        ema_decay=loop_ema_decay(cfg),
+        time_phases=cfg.time_phases,
+    )
+
+    eval_fn = None
+    if eval_batches:
+        held_out = [to_device(b, device) for b in eval_batches]
+
+        @torch.no_grad()
+        def eval_fn(current: dict) -> float:
+            eval_params = current.get("ema_params", current["params"])
+            losses = [
+                flow_matching_loss(
+                    eval_params, model_cfg, b, step_generator(cfg.seed + 1, i),
+                    p_uncond=0.0, remat=False,
+                    compute_dtype=compute_dtype(cfg),
+                )
+                for i, b in enumerate(held_out)
+            ]
+            return float(sum(float(l) for l in losses) / len(losses))
+
+    return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)

@@ -1,9 +1,11 @@
-"""Build a CUDA source of the port into a shared library and load it.
+"""Build CUDA sources of the port into shared libraries and load them.
 
 ``nvcc`` compiles ``csrc/<name>.cu`` for ``sm_90a`` (Hopper) into
 ``actionmesh_tpu_torch/_build/<name>-<hash>.so``, keyed by a hash of the
-source, at first use. The library exposes a plain C interface and is loaded
-with ``ctypes``: no PyTorch headers, so a build takes seconds, not minutes.
+source and the shared headers (``csrc/*.cuh``), at first use. The library
+exposes a plain C interface and is loaded with ``ctypes``: no PyTorch
+headers, so a build takes seconds, not minutes. ``build`` starts one
+``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SOURCES = ("flash_fwd", "flash_bwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -37,31 +40,49 @@ def find_nvcc() -> str:
     )
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile (once per source hash) and load ``csrc/<name>.cu``."""
-    if name in _loaded:
-        return _loaded[name]
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(ARCH_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{name}-{digest}.so"
-    if not lib_path.exists():
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by its and the headers' bytes."""
+    digest = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> None:
+    """Compile every source in ``names`` that is not built yet, in parallel."""
+    jobs = []
+    for name in names:
+        lib_path = library_path(name)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a temporary name, then rename: never a half-written .so
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        src = CSRC_DIR / f"{name}.cu"
         cmd = [
             find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-o", tmp, str(src),
         ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        jobs.append((src, lib_path, tmp, proc))
+    failures = []
+    for src, lib_path, tmp, proc in jobs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed for {src} ({proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    _loaded[name] = ctypes.CDLL(str(lib_path))
+            failures.append(f"nvcc failed for {src} ({proc.returncode}):\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile (once per source hash) and load ``csrc/<name>.cu``."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX parameter pytrees and npz checkpoints -> the port.
+"""Weight bridge between JAX parameter pytrees / npz checkpoints and the port.
 
 The port keeps the JAX package's parameter trees (nested dicts and lists,
 same key names) with torch tensors at the leaves, with one change: a JAX
@@ -6,7 +6,9 @@ linear ``kernel`` of shape (in, out) becomes a torch ``weight`` of shape
 (out, in), the layout ``torch.nn.functional.linear`` takes. A 4-D HWIO conv
 kernel (the DINOv2 patch embedding) becomes the (out, kh*kw*in) weight of
 the equivalent linear over flattened patches. q/k projection columns are
-already in the half-RoPE permutation and are not touched.
+already in the half-RoPE permutation and are not touched. ``params_to_jax``
+and ``save_npz`` go the other way, so trained weights load in the JAX
+package (``actionmesh_tpu.utils.weights.load_params``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from actionmesh_tpu_torch.utils.tree import named_leaves
 
 BF16_SUFFIX = "::bf16"  # actionmesh_tpu/utils/weights.py:save_params
 
@@ -52,6 +56,50 @@ def params_from_jax(tree, device: Optional[torch.device] = None):
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return _to_tensor(tree, device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """CPU numpy copy; bf16 comes back as its uint16 bit patterns."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    return t.numpy().copy()
+
+
+def params_to_jax(tree):
+    """The port's params -> a JAX params tree of numpy leaves.
+
+    Inverse of ``params_from_jax`` for linears: ``weight`` (out, in) becomes
+    ``kernel`` (in, out). bf16 leaves come back as uint16 bit patterns (numpy
+    has no bf16); ``save_npz`` marks them. A conv weight comes back in the
+    equivalent linear's (kh*kw*in, out) layout, not HWIO.
+    """
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            if key == "weight":
+                out["kernel"] = _to_numpy(value.t())
+            else:
+                out[key] = params_to_jax(value)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [params_to_jax(v) for v in tree]
+    return _to_numpy(tree)
+
+
+def save_npz(params, path: str | Path) -> None:
+    """Write the port's params in the layout of the JAX package's
+    ``save_params``: dotted keys, JAX kernels, and bf16 leaves as uint16 bit
+    patterns under a ``::bf16`` key suffix. ``load_npz`` and the JAX
+    ``load_params`` both read it."""
+    dtypes = {name: leaf.dtype for name, leaf in named_leaves(params)}
+    flat = {}
+    for name, value in named_leaves(params_to_jax(params)):
+        src = name[: -len("kernel")] + "weight" if name.endswith("kernel") else name
+        if dtypes[src] == torch.bfloat16:
+            name += BF16_SUFFIX
+        flat[name] = value
+    np.savez(path, **flat)
 
 
 def check_finite(tree) -> None:

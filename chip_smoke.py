@@ -5,17 +5,26 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card (nvidia-smi name, power limit)
      and the toolchain versions;
-  2. build: compiles kernel A (csrc/flash_fwd.cu) with nvcc from this
-     checkout; Triton compiles kernel B at its first launch;
+  2. build: compiles kernel A (csrc/flash_fwd.cu) and kernels C and D
+     (csrc/flash_bwd.cu) with nvcc from this checkout, one process each,
+     in parallel; Triton compiles kernel B at its first launch;
   3. kernels vs their plain PyTorch versions on the card, at the main
-     path's shapes: max abs error against the stated tolerance, and
-     CUDA-event times (median of warm runs) of both;
-  4. small reference: the slice at a small fp32 width on the card and on
-     the CPU (plain versions) with the same weights agree;
-  5. the slice: ActionMeshPipeline at the full widths of the default preset
-     (random weights from seed 0, 2 Stage-I steps) on 16 synthetic RGBA
-     frames; checks the meshes and that the launch counters equal what the
-     path implies.
+     paths' shapes: max abs error against the stated tolerance, and
+     CUDA-event times (median of warm runs) of both; the backward kernels
+     C and D at the Stage-I training shapes, and kernel B's backward;
+  4. small reference: the inference slice at a small fp32 width on the
+     card and on the CPU (plain versions) with the same weights agree;
+  5. small train reference: 3 fp32 train steps of a small denoiser on the
+     card and on the CPU, same weights, batches and draws, agree;
+  6. the inference slice: ActionMeshPipeline at the full widths of the
+     default preset (random weights from seed 0, 2 Stage-I steps) on 16
+     synthetic RGBA frames; checks the meshes and that the launch counters
+     equal what the path implies;
+  7. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
+     at the production DenoiserConfig (window 16, batch 2, bf16 compute,
+     EMA, remat, 3 steps on synthetic clips of production size); checks a
+     finite loss, moved params, a checkpoint that restores, and launch
+     counts equal to what the path implies.
 The line before the last is a JSON object with the per-kernel results; the
 last line is the device JSON.
 """
@@ -25,29 +34,47 @@ from __future__ import annotations
 import json
 import logging
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from actionmesh_tpu_torch.io.video_input import ActionMeshInput
 from actionmesh_tpu_torch.models.dinov2 import DinoV2Config
+from actionmesh_tpu_torch import train as train_entry
+from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
 from actionmesh_tpu_torch.models.image_encoder import ImageEncoder
 from actionmesh_tpu_torch.models.stage0 import make_uv_sphere
-from actionmesh_tpu_torch.ops.attention import chunked_attention
+from actionmesh_tpu_torch.ops.attention import (
+    attention_bwd_reference,
+    bwd_row_stats,
+    chunked_attention,
+)
 from actionmesh_tpu_torch.ops.chunking import chunk_from
-from actionmesh_tpu_torch.ops.flash_attention import flash_attention
+from actionmesh_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    launch_bwd_kernels,
+)
 from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope, rms_rope_reference
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
 from actionmesh_tpu_torch.preprocessing.mesh import MeshPostprocessor
+from actionmesh_tpu_torch.training.checkpoint import restore_train_state
+from actionmesh_tpu_torch.training.flow_train import init_train_state, make_train_step
+from actionmesh_tpu_torch.training.loop import TrainLoopConfig, make_optimizer, step_generator
 from actionmesh_tpu_torch.utils import cuda_build
+from actionmesh_tpu_torch.utils.tree import leaves, named_leaves, tree_map
 
 STAGE1_STEPS = 2
 N_FRAMES = 16
+TRAIN_STEPS = 3
+OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"  # git-ignored; removed at the end
 
 
 def log(msg: str) -> None:
@@ -77,11 +104,13 @@ def phase_device() -> dict:
 
 def phase_build() -> float:
     t0 = time.perf_counter()
-    from actionmesh_tpu_torch.ops.flash_attention import _library
+    from actionmesh_tpu_torch.ops.flash_attention import _bwd_library, _library
 
+    cuda_build.build()  # one nvcc per source, in parallel
     _library()
+    _bwd_library()
     seconds = time.perf_counter() - t0
-    log(f"build: flash_fwd.cu compiled with nvcc and loaded in {seconds:.1f} s")
+    log(f"build: flash_fwd.cu and flash_bwd.cu compiled with nvcc and loaded in {seconds:.1f} s")
     return seconds
 
 
@@ -202,6 +231,102 @@ def phase_kernels() -> tuple[list, list]:
     return flash, rope
 
 
+# Stage-I training shapes of kernels C and D: the inflated self-attention
+# (2 samples x 16 frames x 2049 tokens) and the per-frame cross-attention
+# (32 frames onto 257 DINOv2 tokens), both head dim 128; plus small ragged
+# fp32 and D=64 shapes, so every instantiation runs.
+BWD_CASES = [
+    ("stage1_self", (2, 16, 32784, 32784, 128), torch.bfloat16),
+    ("stage1_cross", (32, 16, 2049, 257, 128), torch.bfloat16),
+    ("small_f32", (2, 4, 1000, 1100, 128), torch.float32),
+    ("small_d64", (2, 4, 777, 1029, 64), torch.bfloat16),
+]
+
+
+def check_flash_bwd(gen, name, shape, dtype, reps=2) -> dict:
+    """Kernels C and D against the plain backward (chunked_attention_
+    trainable's), from the same q, k, v, o, m, l and dO."""
+    B, H, Sq, Sk, D = shape
+    q, do = heads_view(gen, B, Sq, H, D, dtype), heads_view(gen, B, Sq, H, D, dtype)
+    k, v = heads_view(gen, B, Sk, H, D, dtype), heads_view(gen, B, Sk, H, D, dtype)
+    o, (m, l) = flash_attention(q, k, v, return_stats=True)
+    got = flash_attention_bwd(q, k, v, o, m, l, do)
+    ref = attention_bwd_reference(q, k, v, o, m, l, do)
+    torch.cuda.synchronize()
+    # bf16: P and dS rounded to bf16 at other entries than the plain
+    # version's (sums in another order), plus one rounding of the result
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    errs, tols = {}, {}
+    for n, a, b in zip(("dq", "dk", "dv"), got, ref):
+        errs[n] = (a.float() - b.float()).abs().max().item()
+        tols[n] = rel * b.float().abs().max().item()
+    scale = D ** -0.5
+    lse, delta = (x.contiguous() for x in bwd_row_stats(o, m, l, do))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    ms_c = cuda_ms(lambda: launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, ("dkv",)), reps)
+    ms_d = cuda_ms(lambda: launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, ("dq",)), reps)
+    plain_ms = cuda_ms(lambda: attention_bwd_reference(q, k, v, o, m, l, do), reps)
+    work = B * H * Sq * Sk * D
+    tf_c, tf_d = 6 * work / (ms_c * 1e-3) / 1e12, 4 * work / (ms_d * 1e-3) / 1e12
+    log(f"flash_bwd {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}: max_abs_err "
+        + ", ".join(f"{n} {errs[n]:.3e} (tol {tols[n]:.3e})" for n in errs)
+        + f" | kernel C {ms_c:.3f} ms ({tf_c:.1f} TFLOP/s), kernel D {ms_d:.3f} ms "
+        f"({tf_d:.1f} TFLOP/s) | plain (dq, dk, dv together) {plain_ms:.3f} ms")
+    bad = [n for n in errs if not errs[n] <= tols[n]]
+    if bad:
+        raise AssertionError(f"flash_bwd {name}: {bad} above tolerance: {errs} vs {tols}")
+    return {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
+            "max_abs_err": errs, "tol": tols, "ms_dkv": ms_c, "ms_dq": ms_d,
+            "plain_ms": plain_ms, "tflops_dkv": tf_c, "tflops_dq": tf_d}
+
+
+def check_rms_rope_bwd(gen, name, shape, tables, reps=3) -> dict:
+    """Kernel B's backward (the autograd.Function: kernel forward, vjp of the
+    plain composition) against autograd of the plain composition."""
+    B, H, S, D = shape
+    x = heads_view(gen, B, S, H, D, torch.bfloat16).detach()
+    scale = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    cos = sin = None
+    if tables:
+        pos = torch.rand((tables, S // 2049 + 1), generator=gen, device="cuda") * 15
+        pos = pos.repeat_interleave(2049, dim=1)[:, :S]
+        cs = [compute_rotary_embeddings(D, p) for p in pos]
+        cos = torch.stack([c for c, _ in cs]).contiguous()
+        sin = torch.stack([s for _, s in cs]).contiguous()
+    g = heads_view(gen, B, S, H, D, torch.bfloat16)
+
+    def grads(fn):
+        xs, ss = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        return torch.autograd.grad(fn(xs, ss, cos, sin), (xs, ss), g)
+
+    got, ref = grads(fused_rms_rope), grads(rms_rope_reference)
+    torch.cuda.synchronize()
+    err_x = (got[0].float() - ref[0].float()).abs().max().item()
+    err_s = (got[1] - ref[1]).abs().max().item()
+    # the same plain vjp on the same saved inputs: equal up to the sums' order
+    tol_x = 2.0**-7 * ref[0].float().abs().max().item()
+    tol_s = 1e-4 * ref[1].abs().max().item()
+    ms = cuda_ms(lambda: grads(fused_rms_rope), reps)
+    plain_ms = cuda_ms(lambda: grads(rms_rope_reference), reps)
+    log(f"rms_rope backward {name} {shape}: max_abs_err dx {err_x:.3e} (tol {tol_x:.3e}), "
+        f"dscale {err_s:.3e} (tol {tol_s:.3e}) | forward+backward through the kernel "
+        f"{ms:.3f} ms | plain {plain_ms:.3f} ms")
+    if not (err_x <= tol_x and err_s <= tol_s):
+        raise AssertionError(f"rms_rope backward {name}: {err_x}, {err_s}")
+    return {"name": name, "shape": list(shape), "max_abs_err": max(err_x, err_s),
+            "tol": {"dx": tol_x, "dscale": tol_s}, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_backward() -> tuple[list, list]:
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    bwd = [check_flash_bwd(gen, n, s, d) for n, s, d in BWD_CASES]
+    rope = [
+        check_rms_rope_bwd(gen, "stage1_self_qk", (2, 16, 32784, 128), 2),
+        check_rms_rope_bwd(gen, "stage1_cross_q", (32, 16, 2049, 128), 0),
+    ]
+    return bwd, rope
+
+
 # A small configuration with head dim 64, so every kernel runs on it.
 SMALL_UPDATES = {
     "temporal_3D_denoiser.num_tokens_nominal": 32,
@@ -257,6 +382,83 @@ def phase_small_reference() -> float:
     return err
 
 
+SMALL_DENOISER = DenoiserConfig(
+    num_tokens_nominal=32, temporal_context_size=4, in_channels=8, num_layers=3,
+    num_attention_heads=2, width=128, mlp_ratio=2.0, cross_attention_dim=64,
+    inflated_layers=(0, 1, 2), gelu_approx=False,
+)
+
+
+def phase_small_train() -> dict:
+    """3 fp32 train steps of a small denoiser (head dim 64) on the card
+    (kernels A, B, C, D) and on the CPU (plain versions): same initial
+    weights, batches and draws; losses and final params agree."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TrainLoopConfig(total_steps=3, warmup_steps=1, peak_lr=1e-5, ema_decay=0.9)
+    rng = np.random.default_rng(5)
+    B, T, N = 2, 4, SMALL_DENOISER.num_tokens_nominal
+    batches = [{
+        "latents": rng.standard_normal((B, T, N, 8)).astype(np.float32),
+        "context": rng.standard_normal((B, T, 16, 64)).astype(np.float32),
+        "framestep": np.tile(np.arange(T, dtype=np.float32), (B, 1)),
+        "mask": (np.arange(T)[None] < np.array([[1], [2]])).astype(np.float32),
+    } for _ in range(cfg.total_steps)]
+    params = init_denoiser(torch.Generator().manual_seed(2), SMALL_DENOISER)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        optimizer = make_optimizer(cfg)
+        state = init_train_state(tree_to(params, dev), optimizer, ema_decay=cfg.ema_decay)
+        step = make_train_step(SMALL_DENOISER, optimizer, p_uncond=0.5, ema_decay=cfg.ema_decay)
+        reset_counters()
+        losses = []
+        for i, batch in enumerate(batches):
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            state, loss = step(state, tb, step_generator(0, i))
+            losses.append(loss.item())
+        runs[dev] = (losses, state, read_counters())
+    (l_cpu, s_cpu, _), (l_gpu, s_gpu, counts) = runs["cpu"], runs["cuda"]
+    want = expected_train_launches(SMALL_DENOISER, cfg.total_steps)
+    if counts != want:
+        raise AssertionError(f"small train launches {counts} != {want}")
+    err_loss = max(abs(a - b) for a, b in zip(l_cpu, l_gpu))
+    err_params = max(
+        (a.detach().cpu() - b.detach()).abs().max().item()
+        for key in ("params", "ema_params")
+        for a, b in zip(leaves(s_gpu[key]), leaves(s_cpu[key]))
+    )
+    # fp32 everywhere (no TF32); sums in another order on the card
+    log(f"small train reference: losses cpu {l_cpu} card {l_gpu}; max abs err loss "
+        f"{err_loss:.3e}, params+EMA {err_params:.3e} (tol 1e-4); launches {counts}")
+    if not (err_loss <= 1e-4 and err_params <= 1e-4):
+        raise AssertionError(f"card and CPU train steps disagree: {err_loss}, {err_params}")
+    return {"loss_err": err_loss, "param_err": err_params, "launches": counts}
+
+
+COUNTERS = ("flash_fwd", "fused_rms_rope", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def reset_counters() -> None:
+    flash_attention.launches = fused_rms_rope.launches = 0
+    flash_attention_bwd.dkv_launches = flash_attention_bwd.dq_launches = 0
+
+
+def read_counters() -> dict:
+    return dict(zip(COUNTERS, (flash_attention.launches, fused_rms_rope.launches,
+                               flash_attention_bwd.dkv_launches, flash_attention_bwd.dq_launches)))
+
+
+def expected_train_launches(cfg: DenoiserConfig, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps with remat.
+
+    Per block: self and cross attention (kernel A each), rms-norm(+rope) of
+    their q and k (kernel B, 4 launches); remat runs the block's forward
+    again in the backward, so A and B launch twice per step; kernels C and
+    D once per attention.
+    """
+    L = cfg.num_layers
+    return dict(zip(COUNTERS, (2 * 2 * L * steps, 2 * 4 * L * steps, 2 * L * steps, 2 * L * steps)))
+
+
 def make_frames(n: int = N_FRAMES, size: int = 256, seed: int = 0) -> list[np.ndarray]:
     """A textured square moving over a transparent background."""
     rng = np.random.default_rng(seed)
@@ -302,8 +504,7 @@ def phase_slice() -> dict:
     frames = make_frames()
     inp = ActionMeshInput(frames=frames, timesteps=np.arange(N_FRAMES, dtype=np.float32))
 
-    flash_attention.launches = 0
-    fused_rms_rope.launches = 0
+    reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     meshes = pipe(inp, seed=44, stage_1_steps=STAGE1_STEPS)
@@ -320,6 +521,8 @@ def phase_slice() -> dict:
         f"rms_rope {launches['rms_rope']} (expected {want_rope})")
     if (launches["flash_fwd"], launches["rms_rope"]) != (want_flash, want_rope):
         raise AssertionError(f"launch counts {launches} != ({want_flash}, {want_rope})")
+    if flash_attention_bwd.dkv_launches or flash_attention_bwd.dq_launches:
+        raise AssertionError("the inference slice launched a backward kernel")
 
     if len(meshes) != N_FRAMES:
         raise AssertionError(f"{len(meshes)} meshes for {N_FRAMES} frames")
@@ -338,14 +541,87 @@ def phase_slice() -> dict:
             "init_seconds": init_s, "call_seconds": total_s, "peak_gib": peak_gib}
 
 
+def phase_train() -> dict:
+    """Full-width Stage-I training through the entry point's code path."""
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    args = train_entry.build_args().parse_args([
+        "--synthetic", "--size", "production", "--window", "16", "--batch", "2",
+        "--compute-dtype", "bfloat16", "--steps", str(TRAIN_STEPS), "--warmup", "1",
+        "--ema-decay", "0.999", "--log-every", "1", "--ckpt-every", "0",
+        "--out", str(OUT_DIR), "--no-resume", "--time-phases", "--device", "cuda",
+    ])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    state, history, loop_cfg = train_entry.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counters()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg = train_entry.flow_model_config("production")
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+
+    recs = [h for h in history if "loss" in h]
+    losses = [h["loss"] for h in recs]
+    step_s = [h["forward_s"] + h["backward_s"] + h["update_s"] for h in recs]
+    log(f"train: {n_params / 1e9:.3f} B params | {len(recs)} steps, losses {losses} | "
+        + " | ".join(f"step {h['step']}: {t:.2f} s (forward {h['forward_s']:.2f}, backward "
+                     f"{h['backward_s']:.2f}, update {h['update_s']:.2f})" for h, t in zip(recs, step_s))
+        + f" | peak memory {peak_gib:.2f} GiB | run incl. data, init, checkpoint {run_s:.1f} s")
+    want = expected_train_launches(cfg, TRAIN_STEPS)
+    log(f"train: launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+
+    # every leaf moved from its initial value (lr > 0 from the second step)
+    init = init_denoiser(torch.Generator("cuda").manual_seed(loop_cfg.seed), cfg, device=torch.device("cuda"))
+    moved = [
+        (name, (p.detach() - p0).abs().max().item())
+        for (name, p), p0 in zip(named_leaves(state["params"]), leaves(init))
+    ]
+    del init
+    still = [n for n, d in moved if not d > 0]
+    log(f"train: {len(moved) - len(still)}/{len(moved)} param leaves moved, "
+        f"max change {max(d for _, d in moved):.3e}")
+    if still:
+        raise AssertionError(f"params did not move: {still[:5]}")
+
+    ckpt = OUT_DIR / "ckpt_latest.npz"
+    t0 = time.perf_counter()
+    template = tree_map(lambda t: torch.empty_like(t) if isinstance(t, torch.Tensor) else -1, state)
+    restored = restore_train_state(ckpt, template)
+    same = all(
+        torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        for (_, a), (_, b) in zip(named_leaves(restored), named_leaves(state))
+    )
+    restore_s = time.perf_counter() - t0
+    ckpt_gb = ckpt.stat().st_size / 1e9
+    log(f"train: checkpoint {ckpt_gb:.2f} GB restored in {restore_s:.1f} s, equal to the state: {same}")
+    if not same:
+        raise AssertionError("the restored checkpoint differs from the train state")
+    del template, restored, state
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_seconds": step_s,
+            "phase_seconds": [{k: h[k] for k in ("forward_s", "backward_s", "update_s")} for h in recs],
+            "peak_gib": peak_gib, "params": n_params, "run_seconds": run_s,
+            "checkpoint_gb": ckpt_gb, "restore_seconds": restore_s}
+
+
 def main() -> None:
     logging.basicConfig(level=logging.WARNING)
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     info = phase_device()
     build_s = phase_build()
     flash, rope = phase_kernels()
+    bwd, rope_bwd = phase_backward()
     small_err = phase_small_reference()
+    small_train = phase_small_train()
     sl = phase_slice()
+    tr = phase_train()
 
     def summary(name, source, replaces, rows, launches):
         head = rows[0]
@@ -355,18 +631,38 @@ def main() -> None:
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "shape": head["shape"], "shapes": rows}
 
+    def by_path(name, inference_name):
+        return {"inference": sl["launches"].get(inference_name, 0), "training": tr["launches"][name]}
+
+    def bwd_summary(name, replaces, key):
+        rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
+                 "max_abs_err": max(r["max_abs_err"][g] for g in key[1]),
+                 "tol": min(r["tol"][g] for g in key[1]), "ms": r[f"ms_{key[0]}"],
+                 "plain_ms": r["plain_ms"], "tflops": r[f"tflops_{key[0]}"]} for r in bwd]
+        out = summary(name, "actionmesh_tpu_torch/csrc/flash_bwd.cu", replaces, rows,
+                      tr["launches"][name])
+        out["launches_by_path"] = {"training": tr["launches"][name]}
+        out["plain_ms_note"] = "the plain backward computes dq, dk and dv together"
+        return out
+
     kernels = [
         summary("flash_fwd", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
                 "actionmesh_tpu/ops/flash_attention.py:302", flash,
-                sl["launches"]["flash_fwd"]),
+                sl["launches"]["flash_fwd"] + tr["launches"]["flash_fwd"]),
         summary("fused_rms_rope", "actionmesh_tpu_torch/ops/rope_norm.py",
                 "actionmesh_tpu/ops/rope_norm.py:94", rope,
-                sl["launches"]["rms_rope"]),
+                sl["launches"]["rms_rope"] + tr["launches"]["fused_rms_rope"]),
+        bwd_summary("flash_bwd_dkv", "actionmesh_tpu/ops/flash_attention_bwd.py:261", ("dkv", ("dk", "dv"))),
+        bwd_summary("flash_bwd_dq", "actionmesh_tpu/ops/flash_attention_bwd.py:287", ("dq", ("dq",))),
     ]
     kernels[0]["also_replaces"] = "actionmesh_tpu/ops/flash_attention.py:612"
+    kernels[0]["launches_by_path"] = by_path("flash_fwd", "flash_fwd")
+    kernels[1]["launches_by_path"] = by_path("fused_rms_rope", "rms_rope")
+    kernels[1]["backward"] = rope_bwd
     print(json.dumps({"kernels": kernels, "build_seconds": build_s,
                       "small_reference_max_abs_err": small_err,
-                      "slice": sl, "card": info["nvidia_smi"]}), flush=True)
+                      "small_train_reference": small_train,
+                      "slice": sl, "train": tr, "card": info["nvidia_smi"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

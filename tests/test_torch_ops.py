@@ -27,7 +27,7 @@ from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 
 def _t(a, dtype=None):
     """numpy -> torch (bf16 through fp32, since numpy has no bf16)."""
-    t = torch.from_numpy(np.asarray(a, dtype=np.float32))
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
     return t.to(dtype) if dtype is not None else t
 
 
@@ -300,3 +300,109 @@ def test_schedule_guidance_sphere_match():
         atol=1e-6,
     )
     assert g_t.leading_uncond_image_branches == g_j.leading_uncond_image_branches == 2
+
+
+# ---------------------------------------------------------------------------
+# Trainable attention (kernels A + C + D's plain versions) vs the Pallas
+# backward and the chunked custom VJP of the JAX package
+# ---------------------------------------------------------------------------
+
+# Ragged Sq/Sk at which the JAX trainable forward is right (ROADMAP Queue 3:
+# its pipelined edge mask fails when Sk's padding exceeds one sub-block);
+# the same shapes tests/test_flash_bwd.py runs.
+TRAIN_SHAPES = [(200, 200), (256, 512), (130, 390)]
+
+
+def _jax_grads(fn, q, k, v, do):
+    import jax
+
+    def loss(q_, k_, v_):
+        return jnp.vdot(fn(q_, k_, v_).astype(jnp.float32), do)
+
+    return jax.grad(loss, argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+
+
+@pytest.mark.parametrize("sq,sk", TRAIN_SHAPES)
+def test_chunked_attention_trainable_grads_match_jax(sq, sk):
+    from actionmesh_tpu.ops.attention import chunked_attention_trainable as jchunked_train
+    from actionmesh_tpu.ops.flash_attention_bwd import flash_attention_trainable as jflash_train
+    from actionmesh_tpu_torch.ops.attention import chunked_attention_trainable
+    from actionmesh_tpu_torch.ops.flash_attention import flash_attention_trainable
+
+    rng = np.random.default_rng(10)
+    B, H, D = 1, 2, 64
+    q, k, v = (rng.standard_normal((B, H, s, D)) for s in (sq, sk, sk))
+    do = rng.standard_normal((B, H, sq, D)).astype(np.float32)
+    scale = D ** -0.5
+    g_flash = _jax_grads(lambda a, b, c: jflash_train(a, b, c, scale, 128, 128), q, k, v, do)
+    g_chunk = _jax_grads(lambda a, b, c: jchunked_train(a, b, c, scale, 128, 128), q, k, v, do)
+
+    for fn in (chunked_attention_trainable, flash_attention_trainable):
+        tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+        out = fn(tq, tk, tv, scale)
+        grads = torch.autograd.grad((out * _t(do)).sum(), (tq, tk, tv))
+        for g, gf, gc, name in zip(grads, g_flash, g_chunk, "qkv"):
+            # fp32; sums in another order than either JAX path
+            np.testing.assert_allclose(_np(g), _np(gf), rtol=2e-4, atol=2e-4, err_msg=f"d{name}")
+            np.testing.assert_allclose(_np(g), _np(gc), rtol=2e-4, atol=2e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_bwd_from_stats_matches_jax(dt):
+    """The backward from explicitly passed residuals and stats (JAX's own
+    o, m, l on both sides)."""
+    from actionmesh_tpu.ops.flash_attention_bwd import flash_attention_bwd as jbwd
+    from actionmesh_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    rng = np.random.default_rng(11)
+    B, H, Sq, Sk, D = 2, 2, 200, 400, 128  # Sk pads by 112 < block_k
+    q, do = rng.standard_normal((2, B, H, Sq, D))
+    k, v = rng.standard_normal((2, B, H, Sk, D))
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jq, jk, jv, jdo = (_j(x, jdt) for x in (q, k, v, do))
+    o, (m, l) = jflash_pipelined(jq, jk, jv, return_stats=True, **PIPELINED)
+    ref = jbwd(jq, jk, jv, o, m, l, jdo, block_q=128, block_k=128)
+    out = flash_attention_bwd(
+        *(_t(_np(x), tdt) for x in (jq, jk, jv, o)), _t(_np(m)), _t(_np(l)), _t(_np(jdo), tdt)
+    )
+    for a, b, name in zip(out, ref, "qkv"):
+        assert a.dtype == tdt
+        if dt == "f32":
+            np.testing.assert_allclose(_np(a), _np(b), rtol=2e-4, atol=2e-4, err_msg=f"d{name}")
+        else:
+            # bf16: P and dS rounded to bf16 at a few other entries (the TPU
+            # kernel scales a bf16-rounded q), plus one rounding of the result
+            err = np.abs(_np(a) - _np(b)).max()
+            assert err <= 2e-2 * np.abs(_np(b)).max(), (name, err)
+
+
+@pytest.mark.parametrize("with_norm,table_batch", [(True, 2), (True, None), (False, 0)])
+def test_rms_rope_grads_match_jax_vjp(with_norm, table_batch):
+    import jax
+
+    rng = np.random.default_rng(12)
+    B, H, S, D = 2, 3, 40, 64
+    x = rng.standard_normal((B, H, S, D)) * 3
+    scale = rng.standard_normal(D) * 0.2 + 1 if with_norm else None
+    cos = sin = None
+    if table_batch is not None:
+        pos = rng.random((max(table_batch, 1), S)) * 15
+        tabs = [compute_rotary_embeddings(D, torch.from_numpy(p).float()) for p in pos]
+        cos = torch.stack([c for c, _ in tabs]).numpy()
+        sin = torch.stack([s for _, s in tabs]).numpy()
+        if table_batch == 0:
+            cos, sin = cos[0], sin[0]
+    g = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    opt = lambda a: None if a is None else _j(a)
+    if with_norm:
+        _, vjp = jax.vjp(lambda x_, s_: jfused_rms_rope(x_, s_, opt(cos), opt(sin)), _j(x), _j(scale))
+    else:
+        _, vjp = jax.vjp(lambda x_: jfused_rms_rope(x_, None, opt(cos), opt(sin)), _j(x))
+    ref = vjp(jnp.asarray(g))
+    tx = _t(x).requires_grad_()
+    ts = _t(scale).requires_grad_() if with_norm else None
+    out = fused_rms_rope(tx, ts, None if cos is None else _t(cos), None if sin is None else _t(sin))
+    got = torch.autograd.grad(out, [t for t in (tx, ts) if t is not None], _t(g))
+    for a, b in zip(got, ref):
+        # fp32 reductions in another order
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=1e-4)
