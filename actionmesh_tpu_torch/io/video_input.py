@@ -1,20 +1,31 @@
 """Pipeline input: RGBA frames and their timesteps.
 
 Counterpart of ``ActionMeshInput`` in ``actionmesh_tpu/io/video_input.py``,
-over (H, W, 4) uint8 numpy frames instead of PIL images. File and video
-loaders are not ported yet.
+over (H, W, 4) uint8 numpy frames instead of PIL images, and ``natsorted``.
+File and video loaders are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import re
+from typing import Sequence
 
 import numpy as np
 
 logger = logging.getLogger(__name__)
 
 MIN_FRAMES = 16
+
+
+def natsorted(paths: Sequence) -> list:
+    """Natural sort (numeric-aware), replacing the natsort dependency."""
+
+    def key(p):
+        return [int(tok) if tok.isdigit() else tok.lower() for tok in re.split(r"(\d+)", str(p))]
+
+    return sorted(paths, key=key)
 
 
 @dataclasses.dataclass

@@ -22,7 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "nn_argmin")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

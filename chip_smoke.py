@@ -24,7 +24,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the production DenoiserConfig (window 16, batch 2, bf16 compute,
      EMA, remat, 3 steps on synthetic clips of production size); checks a
      finite loss, moved params, a checkpoint that restores, and launch
-     counts equal to what the path implies.
+     counts equal to what the path implies;
+  8. small ICP reference: gradient ICP (2 problems x 24 inits, 512 points,
+     50 steps) on the card (kernel E) and on the CPU (plain version) agree;
+  9. the ActionBench slice: the synthetic suite (16 frames, 50,000 tracked
+     GT points, one sample per class) through
+     ``python -m actionmesh_tpu_torch.actionbench.evaluate_dataset``'s code
+     path at the evaluator's defaults (10,000 ICP points, 100,000 chamfer
+     points, 200 Adam steps with per-step correspondences, 24 inits per
+     frame); checks 4 successes, the metric-stack sanity checks, 400
+     kernel-E launches per sample, and a resumed call that launches none.
+Phase 2 also builds kernel E (csrc/nn_argmin.cu), and phase 3 checks it
+against its plain version at the evaluator's shape, a ragged shape, a
+5-channel shape and a tie case.
 The line before the last is a JSON object with the per-kernel results; the
 last line is the device JSON.
 """
@@ -44,6 +56,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from actionmesh_tpu_torch.actionbench import evaluate_dataset as ab_eval
+from actionmesh_tpu_torch.actionbench import synthetic as ab_synth
+from actionmesh_tpu_torch.actionbench.icp import gradient_icp_multi
 from actionmesh_tpu_torch.io.video_input import ActionMeshInput
 from actionmesh_tpu_torch.models.dinov2 import DinoV2Config
 from actionmesh_tpu_torch import train as train_entry
@@ -61,6 +76,7 @@ from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     launch_bwd_kernels,
 )
+from actionmesh_tpu_torch.ops.nn_argmin import nn_argmin, nn_argmin_reference
 from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope, rms_rope_reference
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
@@ -105,12 +121,15 @@ def phase_device() -> dict:
 def phase_build() -> float:
     t0 = time.perf_counter()
     from actionmesh_tpu_torch.ops.flash_attention import _bwd_library, _library
+    from actionmesh_tpu_torch.ops.nn_argmin import _library as _nn_library
 
     cuda_build.build()  # one nvcc per source, in parallel
     _library()
     _bwd_library()
+    _nn_library()
     seconds = time.perf_counter() - t0
-    log(f"build: flash_fwd.cu and flash_bwd.cu compiled with nvcc and loaded in {seconds:.1f} s")
+    log(f"build: {', '.join(f'{n}.cu' for n in cuda_build.SOURCES)} compiled with nvcc "
+        f"and loaded in {seconds:.1f} s")
     return seconds
 
 
@@ -325,6 +344,94 @@ def phase_backward() -> tuple[list, list]:
         check_rms_rope_bwd(gen, "stage1_cross_q", (32, 16, 2049, 128), 0),
     ]
     return bwd, rope
+
+
+# Kernel E: an index differing from the plain version's is accepted only
+# where the float64 squared distances of the two picks agree within
+# NN_TIE_REL * (|x|^2 + max |y_pick|^2), the scale of the fp32 terms that
+# both sum in their own order (the plain version by a matrix product with
+# |x|^2, the kernel by three FMAs without it).
+NN_TIE_REL = 1e-6
+ICP_POINTS, ICP_INITS, ICP_FRAMES = 10_000, 24, 16
+
+
+def nn_compare(x, y, got, ref) -> dict:
+    """Index mismatches of kernel E against the plain version, judged in float64."""
+    diff = got != ref
+    r, i = diff.nonzero(as_tuple=True)
+    xd = x[r, i].double()
+    ya, yb = y[r, got[r, i].long()].double(), y[r, ref[r, i].long()].double()
+    da, db = ((xd - ya) ** 2).sum(-1), ((xd - yb) ** 2).sum(-1)
+    scale = (xd**2).sum(-1) + torch.maximum((ya**2).sum(-1), (yb**2).sum(-1))
+    beyond = int(((da - db).abs() > NN_TIE_REL * scale).sum())
+    err = (da - db).abs().max().item() if len(r) else 0.0
+    return {"mismatches": len(r), "beyond_tol": beyond, "near_ties": len(r) - beyond,
+            "max_abs_err": err}
+
+
+def check_nn(gen, name, shape, ties=False, reps=3) -> dict:
+    """Kernel E against its plain version (with the chunk the ICP gives it at
+    16 problems) on the same points, uniform in [-1, 1]^C. ``ties``: y holds
+    every point twice, x sits on some of them; the first copy must win."""
+    R, N, M, C = shape
+    x = torch.rand((R, N, C), generator=gen, device="cuda") * 2 - 1
+    y = torch.rand((R, M, C), generator=gen, device="cuda") * 2 - 1
+    half = (M + 1) // 2
+    if ties:
+        y = torch.cat([y[:, :half], y[:, :half]], dim=1)[:, :M]
+        x[:, : N // 2] = y[:, : N // 2]
+    got = nn_argmin(x, y)
+    ref = nn_argmin_reference(x, y, chunk=128)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or got.shape != (R, N):
+        raise AssertionError(f"nn_argmin {name}: {got.dtype} {tuple(got.shape)}")
+    cmp = nn_compare(x, y, got, ref)
+    if ties and not bool((got < half).all()):
+        raise AssertionError(f"nn_argmin {name}: ties not resolved to the smallest index")
+    ms = cuda_ms(lambda: nn_argmin(x, y), reps)
+    plain_ms = cuda_ms(lambda: nn_argmin_reference(x, y, chunk=128), reps)
+    pairs = R * N * M
+    log(f"nn_argmin {name} x{(R, N, C)} y{(R, M, C)}: {cmp['mismatches']} index mismatches, "
+        f"{cmp['near_ties']} near-ties (rel {NN_TIE_REL}), {cmp['beyond_tol']} beyond; max abs "
+        f"float64 distance diff {cmp['max_abs_err']:.3e} | kernel {ms:.3f} ms "
+        f"({pairs / (ms * 1e-3) / 1e9:.0f} G pairs/s) | plain {plain_ms:.3f} ms")
+    if cmp["beyond_tol"]:
+        raise AssertionError(f"nn_argmin {name}: {cmp['beyond_tol']} mismatches beyond the tolerance")
+    return {"name": name, "shape": list(shape), **cmp, "tol": f"rel {NN_TIE_REL} of |x|^2 + |y|^2",
+            "ms": ms, "plain_ms": plain_ms, "gpairs_per_s": pairs / (ms * 1e-3) / 1e9}
+
+
+def phase_nn() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    return [
+        # ICP at the evaluator's defaults: 16 frames x 24 inits, 10,000 points
+        check_nn(gen, "icp_eval", (ICP_FRAMES * ICP_INITS, ICP_POINTS, ICP_POINTS, 3)),
+        check_nn(gen, "ragged", (3, 1000, 1037, 3)),
+        check_nn(gen, "c5", (2, 777, 1500, 5)),
+        check_nn(gen, "ties", (4, 3000, 4001, 3), ties=True),
+    ]
+
+
+def phase_small_icp() -> dict:
+    """Gradient ICP for 2 problems (512 points, 50 steps, per-step
+    correspondences) on the card and on the CPU, same points."""
+    rng = np.random.default_rng(8)
+    gt = rng.uniform(-1, 1, (2, 512, 3)).astype(np.float32)
+    rot = np.array([[0.36, 0.48, -0.8], [-0.8, 0.6, 0.0], [0.48, 0.64, 0.6]])
+    pred = (gt @ rot * np.array([1.1, 0.9, 1.0]) + 0.2 + rng.normal(0, 0.01, gt.shape)).astype(np.float32)
+    nn_argmin.launches = 0
+    card = gradient_icp_multi(pred, gt, n_iter=50, device="cuda")
+    launches = nn_argmin.launches
+    cpu = gradient_icp_multi(pred, gt, n_iter=50, device="cpu")
+    errs = {k: float(np.abs(getattr(card, k) - getattr(cpu, k)).max()) for k in ("R", "T", "s")}
+    # The card's and the CPU's distances round differently, so a near-tied
+    # correspondence can resolve to the other neighbour and shift the Adam
+    # path slightly; 1e-3 bounds that, far below a wrong basin (~1).
+    log(f"small ICP reference: card vs CPU max abs err R {errs['R']:.3e}, T {errs['T']:.3e}, "
+        f"s {errs['s']:.3e} (tol 1e-3); kernel E launches {launches} (expected 100)")
+    if launches != 100 or not all(e <= 1e-3 for e in errs.values()):
+        raise AssertionError(f"small ICP: launches {launches}, errors {errs}")
+    return {"max_abs_err": errs, "launches": launches}
 
 
 # A small configuration with head dim 64, so every kernel runs on it.
@@ -611,6 +718,52 @@ def phase_train() -> dict:
             "checkpoint_gb": ckpt_gb, "restore_seconds": restore_s}
 
 
+def phase_actionbench() -> dict:
+    """The synthetic ActionBench suite through the evaluator's entry point on
+    the card, at the evaluator's defaults; then a resumed call."""
+    root = OUT_DIR / "actionbench"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    uids = ab_synth.build_dataset(root, ICP_FRAMES, n_pts_gt=50_000, per_kind=1)
+    build_s = time.perf_counter() - t0
+    argv = ["--gt_root", str(root / "gt"), "--pred_root", str(root / "pred"),
+            "--output_csv", str(root / "results.csv"), "--device", "cuda"]
+    reset_counters()
+    nn_argmin.launches = 0
+    t0 = time.perf_counter()
+    results = ab_eval.main(argv)
+    eval_s = time.perf_counter() - t0
+    launches = nn_argmin.launches
+    others = read_counters()
+
+    samples = results.samples
+    per_kind = ab_synth.per_kind_means(samples)
+    checks = ab_synth.sanity_checks(per_kind) if len(per_kind) == 4 else {}
+    want = len(uids) * 2 * 200  # two neighbour searches per Adam step
+    for s in samples:
+        log(f"actionbench {s.uid}: {s.status} cd_3d {s.cd_3d:.5f} cd_4d {s.cd_4d:.5f} "
+            f"cd_motion {s.cd_motion:.5f} | " + ", ".join(f"{k} {v:.2f} s" for k, v in s.seconds.items())
+            + (f" | {s.error_message}" if s.error_message else ""))
+    log(f"actionbench: {len(uids)} samples built in {build_s:.1f} s, evaluated in {eval_s:.1f} s "
+        f"({eval_s / len(uids):.2f} s per sample); checks {checks}; kernel E launches {launches} "
+        f"(expected {want}); other kernels {others}")
+    if [s.status for s in samples] != ["success"] * len(uids) or len(uids) != 4:
+        raise AssertionError(f"actionbench statuses {[(s.uid, s.status) for s in samples]}")
+    if not (per_kind["identity"]["cd_3d"] < 0.012 and checks and all(checks.values())):
+        raise AssertionError(f"actionbench metrics: {per_kind}, checks {checks}")
+    if launches != want or any(others.values()):
+        raise AssertionError(f"actionbench launches {launches} != {want}, others {others}")
+
+    nn_argmin.launches = 0
+    resumed = ab_eval.main(argv)
+    if nn_argmin.launches or resumed.samples != samples:
+        raise AssertionError(f"the resumed call launched {nn_argmin.launches} or changed the results")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    seconds = {k: [s.seconds[k] for s in samples] for k in samples[0].seconds}
+    return {"launches": launches, "per_kind": per_kind, "checks": checks, "build_seconds": build_s,
+            "eval_seconds": eval_s, "seconds_per_sample": eval_s / len(uids), "phase_seconds": seconds}
+
+
 def main() -> None:
     logging.basicConfig(level=logging.WARNING)
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
@@ -618,10 +771,13 @@ def main() -> None:
     build_s = phase_build()
     flash, rope = phase_kernels()
     bwd, rope_bwd = phase_backward()
+    nn = phase_nn()
     small_err = phase_small_reference()
     small_train = phase_small_train()
     sl = phase_slice()
     tr = phase_train()
+    small_icp = phase_small_icp()
+    ab = phase_actionbench()
 
     def summary(name, source, replaces, rows, launches):
         head = rows[0]
@@ -659,10 +815,19 @@ def main() -> None:
     kernels[0]["launches_by_path"] = by_path("flash_fwd", "flash_fwd")
     kernels[1]["launches_by_path"] = by_path("fused_rms_rope", "rms_rope")
     kernels[1]["backward"] = rope_bwd
+    kernels.append({
+        "name": "nn_argmin", "route": "cuda", "source": "actionmesh_tpu_torch/csrc/nn_argmin.cu",
+        "replaces": "actionmesh_tpu/ops/nn_argmin.py:148", "launches": ab["launches"],
+        "launches_by_path": {"actionbench": ab["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in nn), "ms": nn[0]["ms"],
+        "plain_ms": nn[0]["plain_ms"], "shape": nn[0]["shape"], "shapes": nn,
+        "max_abs_err_note": "float64 squared-distance difference of differing picks",
+    })
     print(json.dumps({"kernels": kernels, "build_seconds": build_s,
                       "small_reference_max_abs_err": small_err,
-                      "small_train_reference": small_train,
-                      "slice": sl, "train": tr, "card": info["nvidia_smi"]}), flush=True)
+                      "small_train_reference": small_train, "small_icp_reference": small_icp,
+                      "slice": sl, "train": tr, "actionbench": ab, "card": info["nvidia_smi"]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
