@@ -4,9 +4,8 @@ Mirrors ``actionmesh_tpu/config.py`` with the values of
 ``actionmesh_tpu/configs/actionmesh.yaml`` written in as defaults, so the
 port needs no yaml reader. Knobs that exist only for the TPU runtime
 (``steps_per_launch``, ``split_cfg_batch``, ``attn_impl``, ``compute_dtype``,
-``clear_autocast``) and the TripoSG decode knobs of the not yet ported
-Stage 0 are left out; ``tests/test_torch_pipeline.py`` pins the rest
-against the JAX ``load_config("actionmesh")``.
+``clear_autocast``) are left out; ``tests/test_torch_pipeline.py`` pins the
+rest against the JAX ``load_config("actionmesh")``.
 """
 
 from __future__ import annotations
@@ -44,6 +43,12 @@ class MeshProcessConfig:
 class Stage0Config:
     num_inference_steps: int = 100
     guidance_scale: float = 7.5
+    # SDF decode knobs (models/triposg/pipeline.py:decode_latents): the
+    # preset's two-level coarse pass from a 65^3 sign grid; the JAX
+    # package's reduced-precision coarse queries (kept for its configs; not
+    # ported, so any value but None raises at the decode)
+    prefilter_octree_depth: Optional[int] = 6
+    coarse_decode_dtype: Optional[str] = None
 
 
 @dataclasses.dataclass

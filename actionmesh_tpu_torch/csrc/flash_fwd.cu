@@ -1,6 +1,8 @@
 // Flash attention forward for Hopper (sm_90a): online softmax, fp32 statistics.
+// Two entry points share one mainloop: flash_fwd (kernel A) and flash_fused
+// (kernel F, the same loop with qk-norm + RoPE applied as Q and K are staged).
 //
-// Replaces the two Pallas TPU kernels of the JAX package:
+// Kernel A replaces two Pallas TPU kernels of the JAX package:
 //   actionmesh_tpu/ops/flash_attention.py:flash_attention_pipelined (pallas_call :302)
 //   actionmesh_tpu/ops/flash_attention.py:flash_attention           (pallas_call :612)
 // and meets their shared contract: q (B,H,Sq,D), k/v (B,H,Sk,D), optional
@@ -29,6 +31,31 @@
 //     score micro-tile and accumulates 2 rows x D/8 output columns.
 // The caller passes element strides for batch, head and sequence of every
 // tensor; the last axis must be contiguous.
+//
+// Kernel F replaces the Pallas TPU kernel
+//   actionmesh_tpu/ops/flash_attention.py:flash_attention_fused (pallas_call :492,
+//   body _flash_fused_kernel / _norm_rope :361-436)
+// and computes exactly what it does, for self-attention q, k, v (B,H,S,D):
+//   q^ = rope(rms_norm(q) * q_scale), k^ = rope(rms_norm(k) * k_scale), each in
+//   fp32 (mean of x^2 over D, rsqrt(var + 1e-6)), rotated pairwise with channels
+//   (2i, 2i+1) as the pair: x*cos + rot(x)*sin, rot(x0, x1) = (-x1, x0), with
+//   per-batch tables cos/sin (B,S,D) fp32; then rounded to the input dtype.
+//   Scores, softmax and output as kernel A's with no kv_mask and no stats;
+//   the scale multiplies the product of the rounded q^ and k^.
+// What bounds it: the same products as kernel A, 4*B*H*S^2*D flops; at the
+// Stage-I self shape (2,16,32784,128) bf16 that is 1.76e13 flop, 17.8 ms at
+// the card's 989 TFLOP/s bf16 peak. The fused staging adds the K-side norm +
+// rotation, recomputed once per Q block as on the TPU: about 4e11 fp32
+// operations there (2% of the products' flop count, but on the CUDA cores),
+// plus 8 bytes of fp32 cos/sin read per K element per Q block, mostly from L2.
+// Design: the template flag kNormRope selects how Q and K tiles are staged;
+// the rest of the loop is kernel A's. A warp owns whole rows when it stages
+// them: each lane holds D/32 adjacent channels, so every rotating pair
+// (2i, 2i+1) lies in one lane's registers (the swap is free) and the rms
+// reduction over D is a 5-step shuffle across the warp. bf16: each warp
+// stages its own 16 Q rows once through its slice of the K buffer and keeps
+// them as mma A-fragments; each K tile is normalised by the 4 warps, 16 rows
+// each. fp32: each warp stages 8 Q rows and 8 K rows per tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,6 +67,7 @@
 namespace {
 
 constexpr float kMaskedScore = -1e30f;
+constexpr float kNormEps = 1e-6f;
 
 struct Params {
   const void* q;
@@ -49,6 +77,10 @@ struct Params {
   const int32_t* kv_mask;  // (B, Sk) or null
   float* m_out;            // (B, H, Sq) or null
   float* l_out;            // (B, H, Sq) or null
+  const float* cos;        // kernel F: (B, Sq, D) fp32, Sq = Sk
+  const float* sin;        // kernel F: (B, Sq, D) fp32
+  const float* q_scale;    // kernel F: (D,) fp32
+  const float* k_scale;    // kernel F: (D,) fp32
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -65,6 +97,92 @@ __device__ __forceinline__ float mask_score(float s, int col, const Params& p,
   return s * p.scale;
 }
 
+// rms-norm and pairwise rotation of one row held by a warp: this lane's
+// P = D/32 channels start at lane * P. Every lane of the warp must call it.
+template <int D>
+__device__ __forceinline__ void norm_rope(float (&x)[D / 32], const float* cos_row,
+                                          const float* sin_row, const float* w, int lane) {
+  constexpr int P = D / 32;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) ss = fmaf(x[i], x[i], ss);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  const float r = rsqrtf(ss * (1.f / D) + kNormEps);
+  const int c0 = lane * P;
+#pragma unroll
+  for (int i = 0; i < P; i += 2) {
+    const float2 cs = *reinterpret_cast<const float2*>(cos_row + c0 + i);
+    const float2 sn = *reinterpret_cast<const float2*>(sin_row + c0 + i);
+    const float x0 = x[i] * r * w[c0 + i];
+    const float x1 = x[i + 1] * r * w[c0 + i + 1];
+    x[i] = x0 * cs.x - x1 * sn.x;
+    x[i + 1] = x1 * cs.y + x0 * sn.y;
+  }
+}
+
+// A warp normalises, rotates and rounds `nrows` rows starting at sequence row
+// `row0` into bf16 shared memory (row stride `dst_stride` elements); rows at
+// or beyond S are written as zeros.
+template <int D>
+__device__ __forceinline__ void stage_rows_bf16(uint16_t* dst, int dst_stride,
+                                                const __nv_bfloat16* src, long long src_ss,
+                                                const float* cos_b, const float* sin_b,
+                                                const float* w, int row0, int nrows, int S,
+                                                int lane) {
+  constexpr int P = D / 32;
+#pragma unroll 4
+  for (int r = 0; r < nrows; ++r) {
+    const int row = row0 + r;  // the same for the whole warp
+    uint16_t* d = dst + r * dst_stride + lane * P;
+    if (row < S) {
+      float x[P];
+      const __nv_bfloat16* s = src + (long long)row * src_ss + lane * P;
+#pragma unroll
+      for (int i = 0; i < P; i += 2) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(s + i);
+        x[i] = __low2float(v);
+        x[i + 1] = __high2float(v);
+      }
+      norm_rope<D>(x, cos_b + (long long)row * D, sin_b + (long long)row * D, w, lane);
+#pragma unroll
+      for (int i = 0; i < P; i += 2) *reinterpret_cast<uint32_t*>(d + i) = pack_bf16(x[i], x[i + 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < P; i += 2) *reinterpret_cast<uint32_t*>(d + i) = 0u;
+    }
+  }
+}
+
+// fp32 counterpart of stage_rows_bf16 (no rounding).
+template <int D>
+__device__ __forceinline__ void stage_rows_f32(float* dst, int dst_stride, const float* src,
+                                               long long src_ss, const float* cos_b,
+                                               const float* sin_b, const float* w, int row0,
+                                               int nrows, int S, int lane) {
+  constexpr int P = D / 32;
+  for (int r = 0; r < nrows; ++r) {
+    const int row = row0 + r;
+    float* d = dst + r * dst_stride + lane * P;
+    if (row < S) {
+      float x[P];
+      const float* s = src + (long long)row * src_ss + lane * P;
+#pragma unroll
+      for (int i = 0; i < P; i += 2) {
+        const float2 v = *reinterpret_cast<const float2*>(s + i);
+        x[i] = v.x;
+        x[i + 1] = v.y;
+      }
+      norm_rope<D>(x, cos_b + (long long)row * D, sin_b + (long long)row * D, w, lane);
+#pragma unroll
+      for (int i = 0; i < P; ++i) d[i] = x[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < P; ++i) d[i] = 0.f;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // bf16 path: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
@@ -73,7 +191,7 @@ constexpr int kBf16Warps = 4;
 constexpr int kBf16BlockM = 16 * kBf16Warps;  // query rows per block
 constexpr int kBf16BlockN = 64;               // keys per tile
 
-template <int D>
+template <int D, bool kNormRope>
 __global__ void __launch_bounds__(kBf16Warps * 32)
 flash_fwd_bf16_kernel(const Params p) {
   constexpr int kStride = D + 8;  // padded smem row, in elements
@@ -89,11 +207,29 @@ flash_fwd_bf16_kernel(const Params p) {
   const __nv_bfloat16* qbase = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kbase = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vbase = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int32_t* mask_row = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
+  // kernel F takes no mask: a constant null lets the compiler drop the check
+  const int32_t* mask_row = !kNormRope && p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
+  const float* cos_b = kNormRope ? p.cos + (long long)b * p.Sq * D : nullptr;
+  const float* sin_b = kNormRope ? p.sin + (long long)b * p.Sq * D : nullptr;
 
   // Q A-fragments for the 16 rows of this warp: rows g and g+8.
   uint32_t qf[D / 16][4];
-  {
+  if constexpr (kNormRope) {
+    // normalised, rotated and rounded once, staged through the warp's slice
+    // of Ks (the loop's first barrier orders it before the first K tile)
+    uint16_t* qstage = Ks + warp * 16 * kStride;
+    stage_rows_bf16<D>(qstage, kStride, qbase, p.q_ss, cos_b, sin_b, p.q_scale, row0, 16, p.Sq, lane);
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint16_t* qa = qstage + g * kStride + kk * 16 + 2 * t;
+      const uint16_t* qb = qa + 8 * kStride;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qa);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qb);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qa + 8);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qb + 8);
+    }
+  } else {
     const int ra = row0 + g, rb = row0 + g + 8;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -112,15 +248,19 @@ flash_fwd_bf16_kernel(const Params p) {
   float l0 = 0.f, l1 = 0.f;                    // this thread's partial row sums
 
   for (int n0 = 0; n0 < p.Sk; n0 += kBf16BlockN) {
-    __syncthreads();  // previous tile fully consumed
+    __syncthreads();  // previous tile (or the Q staging) fully consumed
+    if constexpr (kNormRope)
+      stage_rows_bf16<D>(Ks + warp * 16 * kStride, kStride, kbase, p.k_ss, cos_b, sin_b,
+                         p.k_scale, n0 + warp * 16, 16, p.Sk, lane);
     for (int c = tid; c < kBf16BlockN * kChunks; c += kBf16Warps * 32) {
       const int r = c / kChunks, col = (c % kChunks) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (n0 + r < p.Sk) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (long long)(n0 + r) * p.k_ss + col);
+        if constexpr (!kNormRope)
+          kv = *reinterpret_cast<const uint4*>(kbase + (long long)(n0 + r) * p.k_ss + col);
         vv = *reinterpret_cast<const uint4*>(vbase + (long long)(n0 + r) * p.v_ss + col);
       }
-      *reinterpret_cast<uint4*>(&Ks[r * kStride + col]) = kv;
+      if constexpr (!kNormRope) *reinterpret_cast<uint4*>(&Ks[r * kStride + col]) = kv;
       *reinterpret_cast<uint4*>(&Vs[r * kStride + col]) = vv;
     }
     __syncthreads();
@@ -237,7 +377,7 @@ constexpr int f32_smem_bytes() {
   return (2 * kF32BlockM * (D + 1) + kF32BlockN * D + kF32BlockM * (kF32BlockN + 1)) * 4;
 }
 
-template <int D>
+template <int D, bool kNormRope>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -247,18 +387,28 @@ flash_fwd_f32_kernel(const Params p) {
   float* Ps = Vs + kF32BlockN * D;               // [BM][BN+1]
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rg = tid >> 3, cg = tid & 7;  // rows 2rg, 2rg+1; columns cg + 8j
   const int q0 = blockIdx.x * kF32BlockM;
 
   const float* qbase = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kbase = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vbase = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int32_t* mask_row = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
+  // kernel F takes no mask: a constant null lets the compiler drop the check
+  const int32_t* mask_row = !kNormRope && p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
+  const float* cos_b = kNormRope ? p.cos + (long long)b * p.Sq * D : nullptr;
+  const float* sin_b = kNormRope ? p.sin + (long long)b * p.Sq * D : nullptr;
+  constexpr int kRowsPerWarpQ = kF32BlockM / (kF32Threads / 32);
+  constexpr int kRowsPerWarpK = kF32BlockN / (kF32Threads / 32);
 
-  for (int i = tid; i < kF32BlockM * D; i += kF32Threads) {
-    const int r = i / D, c = i % D;
-    Qs[r * (D + 1) + c] = (q0 + r < p.Sq) ? qbase[(long long)(q0 + r) * p.q_ss + c] : 0.f;
+  if constexpr (kNormRope) {
+    stage_rows_f32<D>(Qs + warp * kRowsPerWarpQ * (D + 1), D + 1, qbase, p.q_ss, cos_b, sin_b,
+                      p.q_scale, q0 + warp * kRowsPerWarpQ, kRowsPerWarpQ, p.Sq, lane);
+  } else {
+    for (int i = tid; i < kF32BlockM * D; i += kF32Threads) {
+      const int r = i / D, c = i % D;
+      Qs[r * (D + 1) + c] = (q0 + r < p.Sq) ? qbase[(long long)(q0 + r) * p.q_ss + c] : 0.f;
+    }
   }
 
   float acc[2][D / 8];
@@ -271,10 +421,13 @@ flash_fwd_f32_kernel(const Params p) {
 
   for (int n0 = 0; n0 < p.Sk; n0 += kF32BlockN) {
     __syncthreads();
+    if constexpr (kNormRope)
+      stage_rows_f32<D>(Ks + warp * kRowsPerWarpK * (D + 1), D + 1, kbase, p.k_ss, cos_b, sin_b,
+                        p.k_scale, n0 + warp * kRowsPerWarpK, kRowsPerWarpK, p.Sk, lane);
     for (int i = tid; i < kF32BlockN * D; i += kF32Threads) {
       const int r = i / D, c = i % D;
       const bool in = n0 + r < p.Sk;
-      Ks[r * (D + 1) + c] = in ? kbase[(long long)(n0 + r) * p.k_ss + c] : 0.f;
+      if constexpr (!kNormRope) Ks[r * (D + 1) + c] = in ? kbase[(long long)(n0 + r) * p.k_ss + c] : 0.f;
       Vs[r * D + c] = in ? vbase[(long long)(n0 + r) * p.v_ss + c] : 0.f;
     }
     __syncthreads();
@@ -358,22 +511,43 @@ flash_fwd_f32_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int D, bool kNormRope>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32_kernel<D, kNormRope>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Sq + kF32BlockM - 1) / kF32BlockM, p.H, p.B);
-  flash_fwd_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(p);
+  flash_fwd_f32_kernel<D, kNormRope><<<grid, kF32Threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kNormRope>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   dim3 grid((p.Sq + kBf16BlockM - 1) / kBf16BlockM, p.H, p.B);
-  flash_fwd_bf16_kernel<D><<<grid, kBf16Warps * 32, 0, stream>>>(p);
+  flash_fwd_bf16_kernel<D, kNormRope><<<grid, kBf16Warps * 32, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kNormRope>
+int launch(const Params& p, int D, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 128) return launch_bf16<128, kNormRope>(p, s);
+  if (dtype == 0 && D == 64) return launch_bf16<64, kNormRope>(p, s);
+  if (dtype == 1 && D == 128) return launch_f32<128, kNormRope>(p, s);
+  if (dtype == 1 && D == 64) return launch_f32<64, kNormRope>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+Params strided_params(const void* q, const void* k, const void* v, void* o,
+                      const long long* strides) {
+  Params p = {};
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
+  p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
+  return p;
 }
 
 }  // namespace
@@ -385,18 +559,22 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          const int32_t* kv_mask, float* m_out, float* l_out,
                          const long long* strides, int B, int H, int Sq, int Sk,
                          int D, int dtype, float scale, void* stream) {
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  Params p = strided_params(q, k, v, o, strides);
   p.kv_mask = kv_mask; p.m_out = m_out; p.l_out = l_out;
-  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
-  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
-  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
-  p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk; p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return launch_bf16<128>(p, s);
-  if (dtype == 0 && D == 64) return launch_bf16<64>(p, s);
-  if (dtype == 1 && D == 128) return launch_f32<128>(p, s);
-  if (dtype == 1 && D == 64) return launch_f32<64>(p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(p, D, dtype, stream);
+}
+
+// Kernel F's C entry point: self-attention (Sq = Sk = S) of pre-norm q, k, v
+// with fp32 qk-norm + interleaved RoPE applied as Q and K are staged. cos/sin
+// contiguous (B,S,D) fp32, the norm scales contiguous (D,) fp32; `strides`,
+// dtype and the return value as flash_fwd's.
+extern "C" int flash_fused(const void* q, const void* k, const void* v, void* o,
+                           const float* cos, const float* sin, const float* q_scale,
+                           const float* k_scale, const long long* strides, int B, int H,
+                           int S, int D, int dtype, float scale, void* stream) {
+  Params p = strided_params(q, k, v, o, strides);
+  p.cos = cos; p.sin = sin; p.q_scale = q_scale; p.k_scale = k_scale;
+  p.B = B; p.H = H; p.Sq = S; p.Sk = S; p.scale = scale;
+  return launch<true>(p, D, dtype, stream);
 }

@@ -1,14 +1,18 @@
 """Stage 0 backend factory: anchor image -> (3D latent, mesh).
 
 Counterpart of ``actionmesh_tpu/models/stage0.py``. The production backend
-(TripoSG: DiT, VAE, SDF decode, marching cubes) is not ported yet; without
-weights the pipeline runs the development stub, a seeded latent and a UV
-sphere, as the JAX package's ``StubImageTo3D`` does.
+is TripoSG (``models/triposg/``: DINOv2 context, 100-step DiT rectified-flow
+sampling with CFG, the VAE's SDF decode, marching cubes). Its checkpoint is
+not in the repository, so without weights the pipeline runs ``DevTripoSG``,
+the same code path with random weights, at the production latent shape
+(2048, 64); at any other shape, or with ``ACTIONMESH_DEV_STAGE0=stub``, it
+runs the deterministic stub (a seeded latent and a UV sphere).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from pathlib import Path
 from typing import Optional
 
@@ -59,11 +63,93 @@ class StubImageTo3D:
         return latent.to(self.device), make_uv_sphere()
 
 
+class DevTripoSG:
+    """Development Stage 0: the real TripoSG path with random weights.
+
+    Every Stage-0 cost of the production path runs: DINOv2 conditioning,
+    DiT sampling, the hierarchical SDF decode, marching cubes (and, in the
+    pipeline, QEM decimation). Two accommodations, neither removing
+    compute: the TripoSG pipeline is built at the first call, so a
+    pipeline whose Stage 0 a test replaces never builds it; and the decoded
+    field is blended into a sphere SDF (``_dev_sdf_regularizer``), since a
+    random-weight decoder's noise field has no usable surface.
+
+    ``image_encoder``: the DINOv2 encoder to condition on. The JAX package
+    builds a second encoder from the same seed (``init_seed=1``), so the
+    same weights; ``ActionMeshPipeline`` hands over its own instead.
+    """
+
+    def __init__(
+        self,
+        device: torch.device,
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+        image_encoder=None,
+    ):
+        self.device = device
+        self._dtype = dtype
+        self._seed = seed
+        self._image_encoder = image_encoder
+        self._pipe = None
+
+    @property
+    def pipeline(self):
+        if self._pipe is None:
+            from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
+
+            logger.info("Building the random-weight TripoSG pipeline (development mode)")
+            self._pipe = TripoSGPipeline.from_random(
+                seed=self._seed, dtype=self._dtype, image_encoder=self._image_encoder,
+                device=self.device,
+            )
+            self._pipe.sdf_regularizer = _dev_sdf_regularizer
+            self._pipe.sdf_regularizer_torch = _dev_sdf_regularizer_torch
+        return self._pipe
+
+    @property
+    def phase_seconds(self) -> dict[str, float]:
+        return self.pipeline.phase_seconds
+
+    def __call__(self, image: np.ndarray, **kwargs) -> tuple[torch.Tensor, Mesh]:
+        return self.pipeline(image, **kwargs)
+
+
+def _dev_sdf_regularizer(pts: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """Noisy-sphere SDF for random-weight runs: the decoded values perturb a
+    sphere of radius 0.65 instead of being the field (inside negative)."""
+    r = np.linalg.norm(pts, axis=-1)
+    return (r - 0.65) + 0.12 * np.tanh(vals.astype(np.float32))
+
+
+def _dev_sdf_regularizer_torch(pts: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Device mirror of ``_dev_sdf_regularizer`` (same math in torch), for
+    the extraction's device fast paths."""
+    r = torch.linalg.vector_norm(pts, dim=-1)
+    return (r - 0.65) + 0.12 * torch.tanh(vals.float())
+
+
 def make_image_to_3d(
-    weights_dir: Optional[Path], latent_shape: tuple[int, int], device: torch.device
-) -> StubImageTo3D:
+    weights_dir: Optional[Path],
+    latent_shape: tuple[int, int],
+    device: torch.device,
+    dtype: torch.dtype = torch.bfloat16,
+    image_encoder=None,
+):
+    """TripoSG from a checkpoint (not ported yet: raises); without weights
+    ``DevTripoSG`` at the production latent shape unless
+    ``ACTIONMESH_DEV_STAGE0=stub``; the stub otherwise."""
     if weights_dir is not None and Path(weights_dir).exists():
-        raise NotImplementedError("TripoSG Stage 0 is not ported yet")
+        raise NotImplementedError(
+            "loading TripoSG checkpoints is not ported yet: it waits until the "
+            "VAST-AI/TripoSG weights are in the repository"
+        )
+    if tuple(latent_shape) == (2048, 64) and os.environ.get("ACTIONMESH_DEV_STAGE0", "triposg") != "stub":
+        logger.warning(
+            "TripoSG weights not found (%s) — running the real TripoSG path with "
+            "random weights (development mode, dev SDF regularizer).",
+            weights_dir,
+        )
+        return DevTripoSG(device, dtype=dtype, image_encoder=image_encoder)
     logger.warning(
         "TripoSG weights not found (%s) — using the deterministic Stage-0 stub "
         "(development mode).",

@@ -1,0 +1,223 @@
+"""TripoSG vecset VAE, decode side: 2048 x 64 latent -> SDF field.
+
+Counterpart of ``actionmesh_tpu/models/triposg/vae.py``. The decoder maps the
+latent set to width, runs a self-attention stack over it (``decode_kv``),
+and arbitrary 3D query points cross-attend the decoded set to give one SDF
+value each (``query_sdf``). The lattice queries of the extraction generate
+their points on the device from their flat index or their integer lattice
+ids, run in chunks of 2^18 points (one kernel-A launch each), and copy the
+result to the host once per call.
+
+``init_triposg_vae`` builds the whole parameter tree, encoder included, so
+that the weight bridge sees the JAX package's keys; the query-side
+projections (``proj_query``, ``dec_cross_attn``, ``dec_proj_out``) stay fp32
+whatever the model dtype. The encoder itself (``encode_moments``,
+``encode_surface``, FPS) is not ported yet: it serves the {video + 3D} mode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from actionmesh_tpu_torch.models.layers import (
+    Params,
+    attention,
+    flow_matching_block,
+    init_attention,
+    init_flow_matching_block,
+    init_layer_norm,
+    init_linear,
+    layer_norm,
+    linear,
+)
+from actionmesh_tpu_torch.ops.embeddings import (
+    frequency_embedding_out_dim,
+    frequency_positional_embedding,
+)
+
+QUERY_CHUNK = 1 << 18
+
+
+@dataclasses.dataclass(frozen=True)
+class TripoSGVAEConfig:
+    in_channels: int = 3  # xyz (frequency-embedded)
+    extra_channels: int = 3  # normals (passed through)
+    latent_channels: int = 64
+    num_tokens: int = 2048
+    embed_frequency: int = 8
+    embed_include_pi: bool = False
+    encoder_width: int = 512
+    encoder_layers: int = 8
+    encoder_heads: int = 8
+    decoder_width: int = 1024
+    decoder_layers: int = 16
+    decoder_heads: int = 8
+
+    @property
+    def point_feat_dim(self) -> int:
+        return frequency_embedding_out_dim(self.in_channels, self.embed_frequency) + self.extra_channels
+
+
+def init_triposg_vae(
+    gen: torch.Generator,
+    cfg: TripoSGVAEConfig,
+    dtype: torch.dtype = torch.float32,
+    device: Optional[torch.device] = None,
+) -> Params:
+    """Random development weights drawn from ``gen`` (the JAX tree's keys)."""
+    f32 = torch.float32
+
+    def blocks(width, heads, n):
+        return [
+            init_flow_matching_block(
+                gen, dim=width, num_attention_heads=heads, use_self_attention=True,
+                use_cross_attention=False, attention_qk_norm=False, attention_bias=False,
+                attention_out_bias=False, dtype=dtype, device=device,
+            )
+            for _ in range(n)
+        ]
+
+    query_dim = frequency_embedding_out_dim(cfg.in_channels, cfg.embed_frequency)
+    return {
+        "proj_point": init_linear(gen, cfg.point_feat_dim, cfg.encoder_width, dtype=dtype, device=device),
+        "enc_cross_attn": init_attention(
+            gen, cfg.encoder_width, cfg.encoder_heads, cross_attention_dim=cfg.encoder_width,
+            qk_norm=False, bias=False, out_bias=False, dtype=dtype, device=device,
+        ),
+        "enc_norm_cross": init_layer_norm(cfg.encoder_width, device),
+        "enc_blocks": blocks(cfg.encoder_width, cfg.encoder_heads, cfg.encoder_layers),
+        "enc_norm_out": init_layer_norm(cfg.encoder_width, device),
+        "enc_proj_out": init_linear(
+            gen, cfg.encoder_width, 2 * cfg.latent_channels, dtype=dtype, device=device
+        ),
+        "post_quant": init_linear(gen, cfg.latent_channels, cfg.decoder_width, dtype=dtype, device=device),
+        "dec_blocks": blocks(cfg.decoder_width, cfg.decoder_heads, cfg.decoder_layers),
+        "proj_query": init_linear(gen, query_dim, cfg.decoder_width, dtype=f32, device=device),
+        "dec_cross_attn": init_attention(
+            gen, cfg.decoder_width, cfg.decoder_heads, cross_attention_dim=cfg.decoder_width,
+            cross_norm="layer_norm", qk_norm=False, bias=False, out_bias=False,
+            dtype=f32, device=device,
+        ),
+        "dec_norm_cross_q": init_layer_norm(cfg.decoder_width, device),
+        "dec_norm_out": init_layer_norm(cfg.decoder_width, device),
+        "dec_proj_out": init_linear(gen, cfg.decoder_width, 1, dtype=f32, device=device),
+    }
+
+
+def encode_surface(*_, **__):
+    raise NotImplementedError(
+        "the TripoSG VAE encoder (encode_moments, encode_surface, FPS) is not "
+        "ported yet; it comes with the {video + 3D} mode"
+    )
+
+
+encode_moments = encode_surface
+
+
+def _embed_points(cfg: TripoSGVAEConfig, xyz: torch.Tensor) -> torch.Tensor:
+    return frequency_positional_embedding(
+        xyz.float(), num_freqs=cfg.embed_frequency, logspace=True,
+        include_input=True, include_pi=cfg.embed_include_pi,
+    )
+
+
+def decode_kv(params: Params, cfg: TripoSGVAEConfig, latents: torch.Tensor) -> torch.Tensor:
+    """Latent (B, K, C) -> decoded KV set (B, K, W). Query-independent."""
+    x = linear(params["post_quant"], latents)
+    for block in params["dec_blocks"]:
+        x = flow_matching_block(block, x, num_attention_heads=cfg.decoder_heads)
+    return x
+
+
+def _query_core(
+    params: Params, cfg: TripoSGVAEConfig, kv: torch.Tensor, points: torch.Tensor
+) -> torch.Tensor:
+    """SDF field query body: points (B, Q, 3) -> (B, Q) values (fp32)."""
+    q = linear(params["proj_query"], _embed_points(cfg, points))
+    h = q + attention(
+        params["dec_cross_attn"],
+        layer_norm(params["dec_norm_cross_q"], q),
+        heads=cfg.decoder_heads,
+        encoder_hidden_states=kv.float(),
+    ).float()
+    out = linear(params["dec_proj_out"], layer_norm(params["dec_norm_out"], h))
+    return out[..., 0]
+
+
+def query_sdf(
+    params: Params, cfg: TripoSGVAEConfig, kv: torch.Tensor, points: torch.Tensor
+) -> torch.Tensor:
+    """Query the SDF field: points (B, Q, 3) -> (B, Q) values (fp32)."""
+    return _query_core(params, cfg, kv, points)
+
+
+def _lattice_points(lo, step, ijk: torch.Tensor) -> torch.Tensor:
+    """lo + ijk * step in fp32 on ijk's device: (N, 3) int -> (N, 3) points."""
+    lo = torch.as_tensor(np.asarray(lo, np.float32), device=ijk.device)
+    step = torch.as_tensor(np.asarray(step, np.float32), device=ijk.device)
+    return lo + ijk.float() * step
+
+
+def query_sdf_grid_inside(
+    params: Params,
+    cfg: TripoSGVAEConfig,
+    kv: torch.Tensor,
+    lo,
+    step,
+    level: float,
+    Rc: int,
+    chunk: int = QUERY_CHUNK,
+    regularizer: Optional[Callable] = None,
+) -> np.ndarray:
+    """Inside mask (value < level) of the dense ``Rc**3`` lattice.
+
+    The points of each chunk are generated on the device from their flat
+    row-major (i, j, k) index; the int8 mask comes to the host once.
+    ``regularizer`` is an optional ``(pts, vals) -> vals`` applied before
+    the threshold. Returns int8 (n_chunks * chunk,); entries past ``Rc**3``
+    are padding.
+    """
+    n_chunks = -(-Rc**3 // chunk)
+    inside = torch.empty(n_chunks * chunk, dtype=torch.int8, device=kv.device)
+    for ci in range(n_chunks):
+        idx = ci * chunk + torch.arange(chunk, dtype=torch.int32, device=kv.device)
+        ijk = torch.stack([idx // (Rc * Rc), (idx // Rc) % Rc, idx % Rc], dim=-1)
+        pts = _lattice_points(lo, step, ijk)
+        vals = _query_core(params, cfg, kv, pts[None])[0]
+        if regularizer is not None:
+            vals = regularizer(pts, vals)
+        inside[ci * chunk : (ci + 1) * chunk] = vals < level
+    return inside.cpu().numpy()
+
+
+def query_sdf_at_ids(
+    params: Params,
+    cfg: TripoSGVAEConfig,
+    kv: torch.Tensor,
+    ijk: np.ndarray,
+    lo,
+    step,
+    chunk: int = QUERY_CHUNK,
+    regularizer: Optional[Callable] = None,
+) -> np.ndarray:
+    """SDF values at lattice ids ``ijk`` (M, 3) int32, points lo + ijk * step.
+
+    The ids go to the device in one copy and the fp32 values come back in
+    one. ``M`` must be a multiple of ``chunk`` (the caller pads and discards
+    the padded entries).
+    """
+    if len(ijk) % chunk:
+        raise ValueError(f"query_sdf_at_ids: {len(ijk)} ids, not a multiple of {chunk}")
+    ids = torch.as_tensor(np.ascontiguousarray(ijk, np.int32), device=kv.device)
+    vals_out = torch.empty(len(ids), dtype=torch.float32, device=kv.device)
+    for c0 in range(0, len(ids), chunk):
+        pts = _lattice_points(lo, step, ids[c0 : c0 + chunk])
+        vals = _query_core(params, cfg, kv, pts[None])[0]
+        if regularizer is not None:
+            vals = regularizer(pts, vals)
+        vals_out[c0 : c0 + chunk] = vals.float()
+    return vals_out.cpu().numpy()

@@ -1,16 +1,20 @@
 """Flash attention: wrappers of the Hopper kernels in ``csrc/flash_fwd.cu``
-(kernel A, forward) and ``csrc/flash_bwd.cu`` (kernels C and D, backward).
+(kernel A, forward, and kernel F, the same mainloop with qk-norm + RoPE fused
+into its Q/K staging) and ``csrc/flash_bwd.cu`` (kernels C and D, backward).
 
 Kernel A replaces ``actionmesh_tpu/ops/flash_attention.py:
 flash_attention_pipelined`` and ``flash_attention`` (the Pallas TPU kernels)
 and meets both contracts. Kernels C (dK, dV) and D (dQ) replace the two
 kernels of ``actionmesh_tpu/ops/flash_attention_bwd.py:flash_attention_bwd``;
 ``flash_attention_trainable`` joins A with C and D as that module's
-``custom_vjp`` does. See the notes at the top of the CUDA sources for their
-design. On CPU tensors each wrapper runs its plain version from
-``ops/attention.py``; on CUDA tensors it launches its kernel or raises.
-``flash_attention.launches``, ``flash_attention_bwd.dkv_launches`` and
-``flash_attention_bwd.dq_launches`` count kernel launches.
+``custom_vjp`` does. Kernel F replaces ``actionmesh_tpu/ops/flash_attention.py:
+flash_attention_fused``; no path of either package calls it. See the notes at
+the top of the CUDA sources for their design. On CPU tensors each wrapper
+runs its plain version (from ``ops/attention.py``, and for F
+``flash_attention_fused_reference`` here); on CUDA tensors it launches its
+kernel or raises. ``flash_attention.launches``,
+``flash_attention_bwd.dkv_launches``, ``flash_attention_bwd.dq_launches`` and
+``flash_attention_fused.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from actionmesh_tpu_torch.ops.attention import (
     chunked_attention,
     chunked_attention_trainable,
 )
+from actionmesh_tpu_torch.ops.rotary import apply_rotary_embedding
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (64, 128)
@@ -46,6 +51,11 @@ def _library():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_fwd.restype = ctypes.c_int
+        # kernel F: q, k, v, o, cos, sin, q_scale, k_scale, strides (host int64[12])
+        lib.flash_fused.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.flash_fused.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -281,3 +291,111 @@ def flash_attention_trainable(
     if q.device.type == "cpu":
         return chunked_attention_trainable(q, k, v, scale)
     return _FlashAttentionTrainable.apply(q, k, v, scale)
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: self-attention with fp32 rms qk-norm + interleaved RoPE inside
+# ---------------------------------------------------------------------------
+
+
+def _norm_rope_interleaved(x, norm_scale, cos, sin, eps):
+    """fp32 rms-norm over D times ``norm_scale``, then interleaved RoPE,
+    rounded once to x.dtype (the TPU kernel's ``_norm_rope`` + astype)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps) * norm_scale.float()
+    return apply_rotary_embedding(xf, cos.float(), sin.float(), layout="interleaved").to(x.dtype)
+
+
+def flash_attention_fused_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    q_norm_scale: torch.Tensor,
+    k_norm_scale: torch.Tensor,
+    scale: Optional[float] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Plain version of kernel F: rms-norm, interleaved RoPE, then
+    ``chunked_attention``; normalised q and k are rounded to the input dtype
+    before the scores, as the kernel rounds them."""
+    qn = _norm_rope_interleaved(q, q_norm_scale, cos, sin, eps)
+    kn = _norm_rope_interleaved(k, k_norm_scale, cos, sin, eps)
+    return chunked_attention(qn, kn, v, scale=scale)
+
+
+def _check_fused(q, k, v, cos, sin, q_norm_scale, k_norm_scale):
+    _check(q, k, v, None)
+    B, H, S, D = q.shape
+    if k.shape != q.shape:
+        raise ValueError(
+            f"flash_attention_fused: self-attention only, q {tuple(q.shape)} "
+            f"k {tuple(k.shape)}"
+        )
+    for name, t in (("cos", cos), ("sin", sin)):
+        if (
+            t.shape != (B, S, D) or t.dtype != torch.float32 or not t.is_contiguous()
+            or t.device != q.device or t.data_ptr() % 16
+        ):
+            raise ValueError(
+                f"flash_attention_fused: {name} must be a contiguous 16-byte aligned "
+                f"(B, S, D) = {(B, S, D)} fp32 tensor on {q.device}; got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+    for name, t in (("q_norm_scale", q_norm_scale), ("k_norm_scale", k_norm_scale)):
+        if (
+            t.shape != (D,) or t.dtype != torch.float32 or not t.is_contiguous()
+            or t.device != q.device
+        ):
+            raise ValueError(
+                f"flash_attention_fused: {name} must be a contiguous ({D},) fp32 "
+                f"tensor on {q.device}; got {tuple(t.shape)} {t.dtype}"
+            )
+
+
+def flash_attention_fused(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    q_norm_scale: torch.Tensor,
+    k_norm_scale: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Self-attention with fp32 rms qk-norm and interleaved RoPE fused in.
+
+    Port of ``actionmesh_tpu/ops/flash_attention.py:flash_attention_fused``.
+    q, k, v (B, H, S, D) pre-norm projections, bf16 or fp32, strided views
+    with a contiguous last axis allowed; cos/sin (B, S, D) fp32 interleaved
+    tables; q_norm_scale, k_norm_scale (D,) fp32. Returns (B, H, S, D) in
+    q.dtype with q's strides where q is dense.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_fused_reference(
+            q, k, v, cos, sin, q_norm_scale, k_norm_scale, scale=scale
+        )
+    _check_fused(q, k, v, cos, sin, q_norm_scale, k_norm_scale)
+    B, H, S, D = q.shape
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
+    )
+    err = _library().flash_fused(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), q_norm_scale.data_ptr(), k_norm_scale.data_ptr(),
+        ctypes.cast(strides, ctypes.c_void_p),
+        B, H, S, D, _DTYPE_CODES[q.dtype], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fused launch failed: CUDA error {err}")
+    flash_attention_fused.launches += 1
+    return out
+
+
+flash_attention_fused.launches = 0

@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from actionmesh_tpu_torch.ops.rotary import apply_rotary_embedding
+
 _BLOCK_S = 32
 _kernel = None
 
@@ -44,11 +46,7 @@ def rms_rope_reference(
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         xf = xf * torch.rsqrt(var + eps) * scale.float()
     if cos is not None:
-        cb = cos[None, None] if cos.ndim == 2 else cos[:, None]
-        sb = sin[None, None] if sin.ndim == 2 else sin[:, None]
-        h = xf.shape[-1] // 2
-        rot = torch.cat([-xf[..., h:], xf[..., :h]], dim=-1)
-        xf = xf * cb + rot * sb
+        xf = apply_rotary_embedding(xf, cos, sin, layout="half")
     return xf.to(x.dtype)
 
 

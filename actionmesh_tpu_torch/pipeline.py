@@ -2,10 +2,11 @@
 
 Counterpart of ``actionmesh_tpu/pipeline.py``, with the same phases:
 alpha check + crop -> Stage 0 (anchor latent + mesh) -> DINOv2 encode ->
-Stage I over AR windows -> Stage II -> meshes. Not ported: device meshes
-and sharding, segmented launches, profiler traces and the static-shape
-vertex bucketing (padded query rows are independent, so dropping it changes
-no result); RMBG matting and the TripoSG Stage 0 come later.
+Stage I over AR windows -> Stage II -> meshes. Without weights Stage 0 is
+the real TripoSG path with random weights (``models/stage0.py:DevTripoSG``).
+Not ported: device meshes and sharding, segmented launches, profiler traces
+and the static-shape vertex bucketing (padded query rows are independent, so
+dropping it changes no result); RMBG matting comes later.
 """
 
 from __future__ import annotations
@@ -113,12 +114,17 @@ class ActionMeshPipeline:
             gen, self.autoencoder_config, dtype, self.device
         )
         self.image_encoder = ImageEncoder(device=self.device, dtype=dtype)
+        # the development TripoSG conditions on this same encoder (the JAX
+        # package builds a second one from the same seed)
         self.image_to_3d = make_image_to_3d(
             self._weights_dir / "TripoSG" if self._weights_dir else None,
             latent_shape=self.cfg.denoiser_latent_shape,
             device=self.device,
+            dtype=dtype,
+            image_encoder=self.image_encoder,
         )
         self.phase_seconds: dict[str, float] = {}
+        self.stage0_seconds: dict[str, float] = {}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -129,14 +135,32 @@ class ActionMeshPipeline:
     def init_banks_from_anchor(
         self, input: ActionMeshInput, seed: int = 44
     ) -> tuple[LatentBank, MeshBank]:
-        """Anchor frame -> 3D latent + mesh via the image-to-3D backend."""
+        """Anchor frame -> 3D latent + mesh via the image-to-3D backend.
+
+        Keeps Stage 0's sub-phase seconds in ``self.stage0_seconds``: the
+        backend's own (TripoSG: encode, dit_sample, decode) and process_mesh.
+        """
+        s0 = self.cfg.stage_0
+        decode_kwargs = {}
+        if s0.prefilter_octree_depth is not None:
+            decode_kwargs["prefilter_octree_depth"] = s0.prefilter_octree_depth
+        if s0.coarse_decode_dtype is not None:
+            decode_kwargs["coarse_decode_dtype"] = s0.coarse_decode_dtype
+        t0 = time.perf_counter()
         anchor_latent, anchor_mesh = self.image_to_3d(
             image=input.frames[self.cfg.anchor_idx],
             seed=seed,
-            num_inference_steps=self.cfg.stage_0.num_inference_steps,
-            guidance_scale=self.cfg.stage_0.guidance_scale,
+            num_inference_steps=s0.num_inference_steps,
+            guidance_scale=s0.guidance_scale,
+            **decode_kwargs,
         )
-        anchor_mesh = self.mesh_process.process_mesh(anchor_mesh)
+        self._sync()
+        t1 = time.perf_counter()
+        anchor_mesh = self.mesh_process.process_mesh(anchor_mesh, seed=seed)
+        self.stage0_seconds = {
+            **(getattr(self.image_to_3d, "phase_seconds", None) or {"image_to_3d": t1 - t0}),
+            "process_mesh": time.perf_counter() - t1,
+        }
         latent_bank = LatentBank(
             empty_dims=self.cfg.denoiser_latent_shape, device=self.device, verbose=True
         )

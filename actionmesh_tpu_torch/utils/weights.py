@@ -6,7 +6,9 @@ linear ``kernel`` of shape (in, out) becomes a torch ``weight`` of shape
 (out, in), the layout ``torch.nn.functional.linear`` takes. A 4-D HWIO conv
 kernel (the DINOv2 patch embedding) becomes the (out, kh*kw*in) weight of
 the equivalent linear over flattened patches. q/k projection columns are
-already in the half-RoPE permutation and are not touched. ``params_to_jax``
+already in the half-RoPE permutation and are not touched. The TripoSG trees
+cross the same way (the DiT's is the denoiser's tree; the VAE's keeps its
+fp32 query-side leaves fp32): every leaf keeps its dtype. ``params_to_jax``
 and ``save_npz`` go the other way, so trained weights load in the JAX
 package (``actionmesh_tpu.utils.weights.load_params``).
 """

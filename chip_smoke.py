@@ -4,39 +4,56 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card (nvidia-smi name, power limit)
-     and the toolchain versions;
-  2. build: compiles kernel A (csrc/flash_fwd.cu) and kernels C and D
-     (csrc/flash_bwd.cu) with nvcc from this checkout, one process each,
-     in parallel; Triton compiles kernel B at its first launch;
-  3. kernels vs their plain PyTorch versions on the card, at the main
-     paths' shapes: max abs error against the stated tolerance, and
-     CUDA-event times (median of warm runs) of both; the backward kernels
-     C and D at the Stage-I training shapes, and kernel B's backward;
-  4. small reference: the inference slice at a small fp32 width on the
-     card and on the CPU (plain versions) with the same weights agree;
-  5. small train reference: 3 fp32 train steps of a small denoiser on the
+     and the toolchain versions (nvcc, g++);
+  2. build: compiles kernels A and F (csrc/flash_fwd.cu), C and D
+     (csrc/flash_bwd.cu) and E (csrc/nn_argmin.cu) with nvcc, one process
+     per source, and the native geometry library
+     (native/actionmesh_native.cpp) with g++, all in parallel, from this
+     checkout; Triton compiles kernel B at its first launch;
+  3. the inference slice: ActionMeshPipeline at the full widths of the
+     default preset (random weights from seed 0) on 16 synthetic RGBA
+     frames, Stage 0 the real TripoSG path (DevTripoSG: DINOv2, 100 DiT
+     steps with CFG 7.5, SDF decode with prefilter 6 / dense 8 / fine 9,
+     marching cubes, QEM decimation to 40,000 faces), Stage I cut to 2
+     steps; checks the anchor mesh, the meshes, and that the launch
+     counters equal what the path implies;
+  4. kernels vs their plain PyTorch versions on the card, at the main
+     paths' shapes (Stage 0's included): max abs error against the stated
+     tolerance, and CUDA-event times (median of warm runs) of the kernel,
+     the plain version and, where one PyTorch call computes the same
+     function, that call (``library_ms``; the port never calls it);
+  5. kernel F (fused qk-norm + interleaved RoPE attention, on no path)
+     against its plain version at the Stage-I self shape, a ragged fp32
+     and a D = 64 shape, timed beside the unfused composition (kernel B
+     twice, then kernel A) and beside scaled_dot_product_attention;
+  6. the backward kernels C and D at the Stage-I training shapes, and
+     kernel B's backward;
+  7. kernel E at the evaluator's shape and small shapes;
+  8. small references: the inference slice (Stage-0 stub) and a small
+     TripoSG Stage 0 (DiT 3 x 128, VAE decoder 2 x 128, dense 5 / fine 6 /
+     prefilter 4), each in fp32 on the card and on the CPU (plain
+     versions) with the same weights and noise, agree;
+  9. small train reference: 3 fp32 train steps of a small denoiser on the
      card and on the CPU, same weights, batches and draws, agree;
-  6. the inference slice: ActionMeshPipeline at the full widths of the
-     default preset (random weights from seed 0, 2 Stage-I steps) on 16
-     synthetic RGBA frames; checks the meshes and that the launch counters
-     equal what the path implies;
-  7. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
+ 10. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
      at the production DenoiserConfig (window 16, batch 2, bf16 compute,
      EMA, remat, 3 steps on synthetic clips of production size); checks a
      finite loss, moved params, a checkpoint that restores, and launch
      counts equal to what the path implies;
-  8. small ICP reference: gradient ICP (2 problems x 24 inits, 512 points,
+ 11. small ICP reference: gradient ICP (2 problems x 24 inits, 512 points,
      50 steps) on the card (kernel E) and on the CPU (plain version) agree;
-  9. the ActionBench slice: the synthetic suite (16 frames, 50,000 tracked
+ 12. the ActionBench slice: the synthetic suite (16 frames, 50,000 tracked
      GT points, one sample per class) through
      ``python -m actionmesh_tpu_torch.actionbench.evaluate_dataset``'s code
      path at the evaluator's defaults (10,000 ICP points, 100,000 chamfer
      points, 200 Adam steps with per-step correspondences, 24 inits per
      frame); checks 4 successes, the metric-stack sanity checks, 400
      kernel-E launches per sample, and a resumed call that launches none.
-Phase 2 also builds kernel E (csrc/nn_argmin.cu), and phase 3 checks it
-against its plain version at the evaluator's shape, a ragged shape, a
-5-channel shape and a tie case.
+Each kernel's ``bound_ms`` is the least time the card could take for the
+work of its main-path call: the larger of its bytes (inputs read once,
+outputs written once) at 3.35 TB/s and its operations at the peak rate of
+their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), counted from this
+run's shapes.
 The line before the last is a JSON object with the per-kernel results; the
 last line is the device JSON.
 """
@@ -51,6 +68,8 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -64,7 +83,7 @@ from actionmesh_tpu_torch.models.dinov2 import DinoV2Config
 from actionmesh_tpu_torch import train as train_entry
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
 from actionmesh_tpu_torch.models.image_encoder import ImageEncoder
-from actionmesh_tpu_torch.models.stage0 import make_uv_sphere
+from actionmesh_tpu_torch.models.stage0 import DevTripoSG
 from actionmesh_tpu_torch.ops.attention import (
     attention_bwd_reference,
     bwd_row_stats,
@@ -74,17 +93,22 @@ from actionmesh_tpu_torch.ops.chunking import chunk_from
 from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
+    flash_attention_fused,
+    flash_attention_fused_reference,
     launch_bwd_kernels,
 )
 from actionmesh_tpu_torch.ops.nn_argmin import nn_argmin, nn_argmin_reference
 from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope, rms_rope_reference
+from actionmesh_tpu_torch.models.stage0 import _dev_sdf_regularizer, _dev_sdf_regularizer_torch
+from actionmesh_tpu_torch.models.triposg.dit import triposg_dit_config
+from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
+from actionmesh_tpu_torch.models.triposg.vae import TripoSGVAEConfig, decode_kv, query_sdf_at_ids
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
-from actionmesh_tpu_torch.preprocessing.mesh import MeshPostprocessor
 from actionmesh_tpu_torch.training.checkpoint import restore_train_state
 from actionmesh_tpu_torch.training.flow_train import init_train_state, make_train_step
 from actionmesh_tpu_torch.training.loop import TrainLoopConfig, make_optimizer, step_generator
-from actionmesh_tpu_torch.utils import cuda_build
+from actionmesh_tpu_torch.utils import cuda_build, native
 from actionmesh_tpu_torch.utils.tree import leaves, named_leaves, tree_map
 
 STAGE1_STEPS = 2
@@ -114,23 +138,60 @@ def phase_device() -> dict:
         f"python {sys.version.split()[0]} | torch {torch.__version__} | "
         f"cuda {torch.version.cuda} | triton {triton.__version__} | nvcc {nvcc}"
     )
+    gxx = subprocess.run(
+        [native.find_cxx(), "--version"], capture_output=True, text=True, check=True
+    ).stdout.splitlines()[0]
+    log(f"g++: {gxx}")
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    return {"nvidia_smi": smi}
+    return {"nvidia_smi": smi, "gxx": gxx}
 
 
-def phase_build() -> float:
-    t0 = time.perf_counter()
+def phase_build() -> dict:
+    """nvcc for every CUDA source and g++ for the native library, all at once."""
     from actionmesh_tpu_torch.ops.flash_attention import _bwd_library, _library
     from actionmesh_tpu_torch.ops.nn_argmin import _library as _nn_library
 
-    cuda_build.build()  # one nvcc per source, in parallel
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        native_job = pool.submit(timed, native.build)
+        nvcc_s = timed(cuda_build.build)  # one nvcc per source, in parallel
+        gxx_s = native_job.result()
     _library()
     _bwd_library()
     _nn_library()
+    native._load()
     seconds = time.perf_counter() - t0
-    log(f"build: {', '.join(f'{n}.cu' for n in cuda_build.SOURCES)} compiled with nvcc "
-        f"and loaded in {seconds:.1f} s")
-    return seconds
+    log(f"build: {', '.join(f'{n}.cu' for n in cuda_build.SOURCES)} compiled with nvcc in "
+        f"{nvcc_s:.1f} s, native/actionmesh_native.cpp with g++ in {gxx_s:.1f} s, in parallel; "
+        f"all loaded in {seconds:.1f} s")
+    return {"seconds": seconds, "nvcc_seconds": nvcc_s, "gxx_seconds": gxx_s}
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense), for the bounds.
+BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+
+
+def bound(flop: float, flop_rate: float, nbytes: float) -> dict:
+    """The least time for the work: the larger of its operations at the
+    peak rate of their type and its bytes at the memory rate, in ms."""
+    t_ops, t_bytes = flop / flop_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def library_time(fn, reps: int, what: str):
+    """CUDA-event time of one PyTorch library call computing the same
+    function (a yardstick only), or None where PyTorch has no backend for
+    these inputs."""
+    try:
+        return cuda_ms(fn, reps)
+    except RuntimeError as e:  # e.g. no SDPA backend for these shapes
+        log(f"library call for {what} not timed: {str(e).splitlines()[0]}")
+        return None
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -157,17 +218,35 @@ def heads_view(gen, B, S, H, D, dtype):
 
 # Main-path shapes: 16 frames x 2049 tokens = 32,784; Stage II decodes 5
 # targets per chunk; DINOv2-L has 257 tokens, head dim 64; V is the anchor
-# mesh's vertex count.
+# mesh's vertex count. Stage 0: the DiT over 2049 tokens (2 CFG branches
+# self, the conditional one cross), the VAE decoder over 2048 latent tokens,
+# and the SDF query of one 2^18-point chunk onto the decoded set, in fp32.
 def flash_cases(n_vertices: int):
     bf, f32 = torch.bfloat16, torch.float32
+    pipelined, one_block = "actionmesh_tpu/ops/flash_attention.py:302", "actionmesh_tpu/ops/flash_attention.py:612"
     return [
         # name, (B, H, Sq, Sk, D), dtype, replaces
-        ("stage1_self", (2, 16, 32784, 32784, 128), bf, "actionmesh_tpu/ops/flash_attention.py:302"),
-        ("stage1_cross", (16, 16, 2049, 257, 128), bf, "actionmesh_tpu/ops/flash_attention.py:612"),
-        ("dinov2_self", (16, 16, 257, 257, 64), bf, "actionmesh_tpu/ops/flash_attention.py:612"),
-        ("stage2_self", (5, 8, 32784, 32784, 128), bf, "actionmesh_tpu/ops/flash_attention.py:302"),
-        ("stage2_vertex_cross", (5, 8, n_vertices, 32784, 128), f32, "actionmesh_tpu/ops/flash_attention.py:302"),
+        ("stage1_self", (2, 16, 32784, 32784, 128), bf, pipelined),
+        ("stage1_cross", (16, 16, 2049, 257, 128), bf, one_block),
+        ("dinov2_self", (16, 16, 257, 257, 64), bf, one_block),
+        ("stage2_self", (5, 8, 32784, 32784, 128), bf, pipelined),
+        ("stage2_vertex_cross", (5, 8, n_vertices, 32784, 128), f32, pipelined),
+        ("stage0_dit_self", (2, 16, 2049, 2049, 128), bf, one_block),
+        ("stage0_dit_cross", (1, 16, 2049, 257, 128), bf, one_block),
+        ("stage0_vae_self", (1, 8, 2048, 2048, 128), bf, one_block),
+        ("stage0_sdf_query", (1, 8, 1 << 18, 2048, 128), f32, one_block),
     ]
+
+
+def attention_bound(B, H, Sq, Sk, D, dtype) -> dict:
+    """QK^T and PV: 4*B*H*Sq*Sk*D operations; q, k, v read, o written once."""
+    size = torch.finfo(dtype).bits // 8
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    return bound(4 * B * H * Sq * Sk * D, rate, (2 * B * H * Sq * D + 2 * B * H * Sk * D) * size)
+
+
+def sdpa(q, k, v):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
 
 
 def check_flash(gen, name, shape, dtype, reps=3) -> dict:
@@ -180,19 +259,23 @@ def check_flash(gen, name, shape, dtype, reps=3) -> dict:
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
+    del out, ref
     # bf16: one bf16 rounding of P and of the output, in another order
     tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
     ms = cuda_ms(lambda: flash_attention(q, k, v), reps)
     plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), reps)
+    library_ms = library_time(lambda: sdpa(q, k, v), reps, f"flash {name}")
     tflops = 4 * B * H * Sq * Sk * D / (ms * 1e-3) / 1e12
+    bnd = attention_bound(B, H, Sq, Sk, D, dtype)
     log(f"flash {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}: "
         f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms:.3f} ms "
-        f"({tflops:.1f} TFLOP/s) | plain {plain_ms:.3f} ms")
+        f"({tflops:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa {library_ms} ms | "
+        f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
     if not err <= tol:
         raise AssertionError(f"flash {name}: max abs err {err} > {tol}")
     return {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "tflops": tflops}
+            "library_ms": library_ms, **bnd, "tflops": tflops}
 
 
 def check_rms_rope(gen, name, shape, norm, tables, reps=5) -> dict:
@@ -222,32 +305,125 @@ def check_rms_rope(gen, name, shape, norm, tables, reps=5) -> dict:
     err = diff.max().item()
     ms = cuda_ms(lambda: fused_rms_rope(x, scale, cos, sin), reps)
     plain_ms = cuda_ms(lambda: rms_rope_reference(x, scale, cos, sin), reps)
+    # Without tables the function is rms-norm times the scale, which one
+    # PyTorch call computes (bf16 x, fp32 scale: its composite path, which
+    # upcasts as the kernel does); no single call also rotates.
+    library_ms = lib_err = None
+    if norm and tables is None:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "Mismatch dtype between input and weight")
+            lib_out = torch.nn.functional.rms_norm(x, (D,), scale, eps=1e-6)
+            lib_err = (lib_out.float() - ref.float()).abs().max().item()
+            del lib_out
+            library_ms = library_time(
+                lambda: torch.nn.functional.rms_norm(x, (D,), scale, eps=1e-6), reps,
+                f"rms_rope {name}")
     gbs = 2 * x.numel() * 2 / (ms * 1e-3) / 1e9
+    # x read and written once (bf16), the scale and tables read once (fp32);
+    # about 10 fp32 operations per element
+    nbytes = 2 * x.numel() * 2 + sum(t.numel() * 4 for t in (scale, cos, sin) if t is not None)
+    bnd = bound(10 * x.numel(), FP32_FLOPS, nbytes)
     log(f"rms_rope {name} {shape} bf16 norm={norm} tables={tables}: max_abs_err "
         f"{err:.3e}, {n_ulp} elements above 1 bf16 ulp, {bad} above the "
         f"tolerance | kernel {ms:.3f} ms "
-        f"({gbs:.0f} GB/s of x in+out) | plain {plain_ms:.3f} ms")
+        f"({gbs:.0f} GB/s of x in+out) | plain {plain_ms:.3f} ms | rms_norm {library_ms} ms "
+        f"(max abs diff from the plain version {lib_err}) | bound "
+        f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
     if bad:
         raise AssertionError(f"rms_rope {name}: {bad} elements above the tolerance")
     return {"name": name, "shape": list(shape), "max_abs_err": err,
             "tol": "1 bf16 ulp + 2^-20 max|ref|", "above_1_ulp": n_ulp,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_diff": lib_err, **bnd}
 
 
-def phase_kernels() -> tuple[list, list]:
-    # Stage II's vertex cross-attention has one query per anchor-mesh vertex
-    n_vertices = MeshPostprocessor().process_mesh(make_uv_sphere()).n_vertices
+def phase_kernels(n_vertices: int) -> tuple[list, list]:
+    """Kernels A and B at the main paths' shapes; ``n_vertices`` is the
+    anchor mesh's vertex count (the queries of Stage II's vertex cross)."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    flash = [check_flash(gen, n, s, d) for n, s, d, _ in flash_cases(n_vertices)]
-    for row, (_, _, _, rep) in zip(flash, flash_cases(n_vertices)):
-        row["replaces"] = rep
+    flash = []
+    for n, s, d, rep in flash_cases(n_vertices):
+        flash.append(dict(check_flash(gen, n, s, d), replaces=rep))
+        torch.cuda.empty_cache()
+    # first (the kernels line's head): the shape of most of B's launches on
+    # the inference path, Stage 0's DiT self-attention q and k
     rope = [
+        check_rms_rope(gen, "stage0_dit_self_qk", (2, 16, 2049, 128), True, None),
+        check_rms_rope(gen, "stage0_dit_cross_k", (1, 16, 257, 128), True, None),
         check_rms_rope(gen, "stage1_self_qk", (2, 16, 32784, 128), True, 2),
         check_rms_rope(gen, "stage1_cross_q", (16, 16, 2049, 128), True, None),
         check_rms_rope(gen, "stage1_cross_k", (16, 16, 257, 128), True, None),
         check_rms_rope(gen, "stage2_self_qk", (5, 8, 32784, 128), False, 0),
     ]
     return flash, rope
+
+
+# Kernel F: the Stage-I self shape with interleaved tables from centred
+# timesteps (16 frames of 2049 tokens), a ragged small fp32 shape and a
+# head-dim-64 shape.
+FUSED_CASES = [
+    ("stage1_self", (2, 16, 32784, 128), torch.bfloat16),
+    ("ragged_f32", (1, 2, 300, 128), torch.float32),
+    ("d64", (2, 4, 777, 64), torch.bfloat16),
+]
+
+
+def check_fused(gen, name, shape, dtype, reps=3, compare=False) -> dict:
+    """Kernel F against its plain version; at the Stage-I shape also timed
+    beside the unfused composition (kernel B on q and on k with half-layout
+    tables, then kernel A) and beside SDPA on the pre-normed q and k."""
+    B, H, S, D = shape
+    q, k, v = (heads_view(gen, B, S, H, D, dtype) for _ in range(3))
+    # centred timesteps t - t_min of 16 frames, one spacing per batch entry
+    frames = -(-S // 2049)
+    pos = torch.arange(frames, device="cuda", dtype=torch.float32)[None]
+    pos = (pos * (1 + torch.rand((B, 1), generator=gen, device="cuda"))).repeat_interleave(2049, dim=1)[:, :S]
+    tables = [compute_rotary_embeddings(D, p, layout="interleaved") for p in pos]
+    cos = torch.stack([c for c, _ in tables]).contiguous()
+    sin = torch.stack([t for _, t in tables]).contiguous()
+    qs = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    ks = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    out = flash_attention_fused(q, k, v, cos, sin, qs, ks)
+    ref = flash_attention_fused_reference(q, k, v, cos, sin, qs, ks)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * ref.float().abs().max().item()
+    del out, ref
+    ms = cuda_ms(lambda: flash_attention_fused(q, k, v, cos, sin, qs, ks), reps)
+    plain_ms = cuda_ms(lambda: flash_attention_fused_reference(q, k, v, cos, sin, qs, ks), reps)
+    bnd = attention_bound(B, H, S, S, D, dtype)
+    row = {"name": name, "shape": [B, H, S, D], "dtype": str(dtype)[6:], "max_abs_err": err,
+           "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
+    line = (f"flash_fused {name} {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}) | kernel F {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
+            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
+    if compare:
+        half = [compute_rotary_embeddings(D, p, layout="half") for p in pos]
+        cos_h = torch.stack([c for c, _ in half]).contiguous()
+        sin_h = torch.stack([t for _, t in half]).contiguous()
+
+        def unfused():
+            return flash_attention(fused_rms_rope(q, qs, cos_h, sin_h), fused_rms_rope(k, ks, cos_h, sin_h), v)
+
+        row["unfused_b_b_a_ms"] = cuda_ms(unfused, reps)
+        qn = fused_rms_rope(q, qs, cos_h, sin_h)
+        kn = fused_rms_rope(k, ks, cos_h, sin_h)
+        row["library_ms"] = library_time(lambda: sdpa(qn, kn, v), reps, f"flash_fused {name}")
+        del qn, kn
+        line += (f" | unfused (B, B, A) {row['unfused_b_b_a_ms']:.3f} ms | sdpa on pre-normed "
+                 f"q, k {row['library_ms']} ms")
+    log(line)
+    if not err <= tol:
+        raise AssertionError(f"flash_fused {name}: max abs err {err} > {tol}")
+    return row
+
+
+def phase_fused() -> tuple[list, int]:
+    gen = torch.Generator(device="cuda").manual_seed(777)
+    before = flash_attention_fused.launches
+    rows = [check_fused(gen, n, s, d, compare=(i == 0)) for i, (n, s, d) in enumerate(FUSED_CASES)]
+    torch.cuda.empty_cache()
+    return rows, flash_attention_fused.launches - before
 
 
 # Stage-I training shapes of kernels C and D: the inflated self-attention
@@ -262,7 +438,7 @@ BWD_CASES = [
 ]
 
 
-def check_flash_bwd(gen, name, shape, dtype, reps=2) -> dict:
+def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict:
     """Kernels C and D against the plain backward (chunked_attention_
     trainable's), from the same q, k, v, o, m, l and dO."""
     B, H, Sq, Sk, D = shape
@@ -285,18 +461,33 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2) -> dict:
     ms_c = cuda_ms(lambda: launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, ("dkv",)), reps)
     ms_d = cuda_ms(lambda: launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, ("dq",)), reps)
     plain_ms = cuda_ms(lambda: attention_bwd_reference(q, k, v, o, m, l, do), reps)
+
+    def sdpa_fwd_bwd():
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        return torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), do)
+
+    library_ms = library_time(sdpa_fwd_bwd, reps, f"flash_bwd {name}") if with_library else None
     work = B * H * Sq * Sk * D
     tf_c, tf_d = 6 * work / (ms_c * 1e-3) / 1e12, 4 * work / (ms_d * 1e-3) / 1e12
+    # The pair's least work is 10*B*H*Sq*Sk*D (S and dP once, then dV, dK,
+    # dQ), counted 6 to C and 4 to D; bytes: C reads q, k, v, dO and writes
+    # dk, dv, D reads the same and writes dq.
+    size, rate = torch.finfo(dtype).bits // 8, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    qb, kb = B * H * Sq * D * size, B * H * Sk * D * size
+    bnd_c = bound(6 * work, rate, 2 * qb + 4 * kb)
+    bnd_d = bound(4 * work, rate, 3 * qb + 2 * kb)
     log(f"flash_bwd {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}: max_abs_err "
         + ", ".join(f"{n} {errs[n]:.3e} (tol {tols[n]:.3e})" for n in errs)
-        + f" | kernel C {ms_c:.3f} ms ({tf_c:.1f} TFLOP/s), kernel D {ms_d:.3f} ms "
-        f"({tf_d:.1f} TFLOP/s) | plain (dq, dk, dv together) {plain_ms:.3f} ms")
+        + f" | kernel C {ms_c:.3f} ms ({tf_c:.1f} TFLOP/s, bound {bnd_c['bound_ms']:.3f}), "
+        f"kernel D {ms_d:.3f} ms ({tf_d:.1f} TFLOP/s, bound {bnd_d['bound_ms']:.3f}) | plain "
+        f"(dq, dk, dv together) {plain_ms:.3f} ms | sdpa forward + backward {library_ms} ms")
     bad = [n for n in errs if not errs[n] <= tols[n]]
     if bad:
         raise AssertionError(f"flash_bwd {name}: {bad} above tolerance: {errs} vs {tols}")
     return {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
             "max_abs_err": errs, "tol": tols, "ms_dkv": ms_c, "ms_dq": ms_d,
-            "plain_ms": plain_ms, "tflops_dkv": tf_c, "tflops_dq": tf_d}
+            "plain_ms": plain_ms, "library_ms": library_ms, "tflops_dkv": tf_c,
+            "tflops_dq": tf_d, "bound_dkv": bnd_c, "bound_dq": bnd_d}
 
 
 def check_rms_rope_bwd(gen, name, shape, tables, reps=3) -> dict:
@@ -338,7 +529,7 @@ def check_rms_rope_bwd(gen, name, shape, tables, reps=3) -> dict:
 
 def phase_backward() -> tuple[list, list]:
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    bwd = [check_flash_bwd(gen, n, s, d) for n, s, d in BWD_CASES]
+    bwd = [check_flash_bwd(gen, n, s, d, with_library=(n == "stage1_self")) for n, s, d in BWD_CASES]
     rope = [
         check_rms_rope_bwd(gen, "stage1_self_qk", (2, 16, 32784, 128), 2),
         check_rms_rope_bwd(gen, "stage1_cross_q", (32, 16, 2049, 128), 0),
@@ -391,14 +582,18 @@ def check_nn(gen, name, shape, ties=False, reps=3) -> dict:
     ms = cuda_ms(lambda: nn_argmin(x, y), reps)
     plain_ms = cuda_ms(lambda: nn_argmin_reference(x, y, chunk=128), reps)
     pairs = R * N * M
+    # C FMAs per (x, y) pair on the fp32 pipe (2C flop); x, y read, indices written
+    bnd = bound(2 * C * pairs, FP32_FLOPS, (R * N * C + R * M * C + R * N) * 4)
     log(f"nn_argmin {name} x{(R, N, C)} y{(R, M, C)}: {cmp['mismatches']} index mismatches, "
         f"{cmp['near_ties']} near-ties (rel {NN_TIE_REL}), {cmp['beyond_tol']} beyond; max abs "
         f"float64 distance diff {cmp['max_abs_err']:.3e} | kernel {ms:.3f} ms "
-        f"({pairs / (ms * 1e-3) / 1e9:.0f} G pairs/s) | plain {plain_ms:.3f} ms")
+        f"({pairs / (ms * 1e-3) / 1e9:.0f} G pairs/s) | plain {plain_ms:.3f} ms | bound "
+        f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
     if cmp["beyond_tol"]:
         raise AssertionError(f"nn_argmin {name}: {cmp['beyond_tol']} mismatches beyond the tolerance")
     return {"name": name, "shape": list(shape), **cmp, "tol": f"rel {NN_TIE_REL} of |x|^2 + |y|^2",
-            "ms": ms, "plain_ms": plain_ms, "gpairs_per_s": pairs / (ms * 1e-3) / 1e9}
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd,
+            "gpairs_per_s": pairs / (ms * 1e-3) / 1e9}
 
 
 def phase_nn() -> list:
@@ -489,6 +684,86 @@ def phase_small_reference() -> float:
     return err
 
 
+# A small TripoSG Stage 0 with head dim 64: DiT 3 blocks x 128, VAE decoder
+# 2 blocks x 128 with 2 heads, 64 latent tokens; dense depth 5, fine 6,
+# prefilter 4.
+SMALL_STAGE0_DIT = triposg_dit_config(
+    num_tokens=64, in_channels=16, num_layers=3, width=128, num_attention_heads=2,
+    cross_attention_dim=128,
+)
+SMALL_STAGE0_VAE = TripoSGVAEConfig(
+    latent_channels=16, num_tokens=64, encoder_width=64, encoder_layers=1, encoder_heads=1,
+    decoder_width=128, decoder_layers=2, decoder_heads=2,
+)
+SMALL_STAGE0_DECODE = dict(dense_octree_depth=5, hierarchical_octree_depth=6, prefilter_octree_depth=4)
+SMALL_STAGE0_STEPS = 20
+
+
+def fine_lattice_signs(pipe: TripoSGPipeline, latents: torch.Tensor) -> np.ndarray:
+    """Regularized field values on the whole fine lattice of the small
+    decode, through the extraction's fine-pass query."""
+    R = (1 << SMALL_STAGE0_DECODE["hierarchical_octree_depth"]) + 1
+    idx = np.arange(-(-R**3 // (1 << 18)) * (1 << 18))
+    ijk = np.stack([idx // (R * R), (idx // R) % R, idx % R], -1).astype(np.int32)
+    kv = decode_kv(pipe.vae_params, pipe.vae_cfg, latents.to(pipe.device))
+    return query_sdf_at_ids(
+        pipe.vae_params, pipe.vae_cfg, kv, ijk, np.full(3, -1.005), np.full(3, 2.01 / (R - 1)),
+        regularizer=_dev_sdf_regularizer_torch,
+    )[: R**3]
+
+
+def phase_small_stage0() -> dict:
+    """The small TripoSG Stage 0 in fp32 on the card (kernels A and B) and
+    on the CPU (plain versions): same weights, image and noise. Latents
+    within 1e-4; meshes with equal faces and vertices within 1e-4. The
+    fine-lattice values whose sign differs between the two devices are
+    reported (a flip of a near-zero value would change the faces)."""
+    cpu_dev, gpu_dev = torch.device("cpu"), torch.device("cuda")
+    cpu = TripoSGPipeline.from_random(
+        seed=5, dtype=torch.float32, dit_cfg=SMALL_STAGE0_DIT, vae_cfg=SMALL_STAGE0_VAE,
+        image_encoder=ImageEncoder(cpu_dev, torch.float32, SMALL_DINO), device=cpu_dev,
+    )
+    gpu = TripoSGPipeline(
+        tree_to(cpu.dit_params, gpu_dev), tree_to(cpu.vae_params, gpu_dev),
+        ImageEncoder(gpu_dev, torch.float32, SMALL_DINO, params=tree_to(cpu.image_encoder.params, gpu_dev)),
+        dit_cfg=SMALL_STAGE0_DIT, vae_cfg=SMALL_STAGE0_VAE, dtype=torch.float32, device=gpu_dev,
+    )
+    for pipe in (cpu, gpu):
+        pipe.sdf_regularizer = _dev_sdf_regularizer
+        pipe.sdf_regularizer_torch = _dev_sdf_regularizer_torch
+    image = make_frames(1)[0]
+    kw = dict(seed=3, num_inference_steps=SMALL_STAGE0_STEPS, guidance_scale=7.5, **SMALL_STAGE0_DECODE)
+    lat_c, mesh_c = cpu(image, **kw)
+    reset_counters()
+    lat_g, mesh_g = gpu(image, **kw)
+    launches = read_counters()
+    L = SMALL_STAGE0_DIT.num_layers
+    want = {"flash_fwd": SMALL_DINO.num_layers + 2 * L * SMALL_STAGE0_STEPS
+            + SMALL_STAGE0_VAE.decoder_layers + sum(gpu.extract_stats.values()),
+            "fused_rms_rope": 4 * L * SMALL_STAGE0_STEPS}
+    err_lat = (lat_g.cpu() - lat_c).abs().max().item()
+    vc, vg = fine_lattice_signs(cpu, lat_c), fine_lattice_signs(gpu, lat_c)
+    flips = (vc < 0) != (vg < 0)
+    flip_report = {"lattice_values": int(vc.size), "sign_flips": int(flips.sum()),
+                   "max_abs_value_flipped": float(np.abs(vc[flips]).max()) if flips.any() else None,
+                   "max_abs_value_diff": float(np.abs(vc - vg).max())}
+    same_faces = mesh_g.faces.shape == mesh_c.faces.shape and np.array_equal(mesh_g.faces, mesh_c.faces)
+    err_v = float(np.abs(mesh_g.vertices - mesh_c.vertices).max()) if same_faces else None
+    log(f"small Stage 0 reference: latents card vs CPU max abs err {err_lat:.3e} (tol 1e-4); "
+        f"mesh {mesh_c.n_vertices} vertices, {mesh_c.n_faces} faces on the CPU, {mesh_g.n_faces} on "
+        f"the card, faces equal {same_faces}, vertex max abs err {err_v} (tol 1e-4); fine lattice "
+        f"{flip_report}; chunks {gpu.extract_stats}; launches {launches} (expected {want})")
+    if not err_lat <= 1e-4:
+        raise AssertionError(f"small Stage 0: latents differ by {err_lat}")
+    if not (same_faces and mesh_c.n_faces > 0 and err_v <= 1e-4):
+        raise AssertionError(f"small Stage 0: meshes differ (faces equal {same_faces}, "
+                             f"vertices {err_v}); fine-lattice sign flips {flip_report}")
+    if launches["flash_fwd"] != want["flash_fwd"] or launches["fused_rms_rope"] != want["fused_rms_rope"]:
+        raise AssertionError(f"small Stage 0 launches {launches} != {want}")
+    return {"latent_err": err_lat, "vertex_err": err_v, "faces": int(mesh_c.n_faces),
+            "fine_lattice": flip_report, "chunks": gpu.extract_stats, "launches": launches}
+
+
 SMALL_DENOISER = DenoiserConfig(
     num_tokens_nominal=32, temporal_context_size=4, in_channels=8, num_layers=3,
     num_attention_heads=2, width=128, mlp_ratio=2.0, cross_attention_dim=64,
@@ -541,17 +816,18 @@ def phase_small_train() -> dict:
     return {"loss_err": err_loss, "param_err": err_params, "launches": counts}
 
 
-COUNTERS = ("flash_fwd", "fused_rms_rope", "flash_bwd_dkv", "flash_bwd_dq")
+COUNTERS = ("flash_fwd", "fused_rms_rope", "flash_bwd_dkv", "flash_bwd_dq", "flash_fused")
 
 
 def reset_counters() -> None:
-    flash_attention.launches = fused_rms_rope.launches = 0
+    flash_attention.launches = fused_rms_rope.launches = flash_attention_fused.launches = 0
     flash_attention_bwd.dkv_launches = flash_attention_bwd.dq_launches = 0
 
 
 def read_counters() -> dict:
     return dict(zip(COUNTERS, (flash_attention.launches, fused_rms_rope.launches,
-                               flash_attention_bwd.dkv_launches, flash_attention_bwd.dq_launches)))
+                               flash_attention_bwd.dkv_launches, flash_attention_bwd.dq_launches,
+                               flash_attention_fused.launches)))
 
 
 def expected_train_launches(cfg: DenoiserConfig, steps: int) -> dict:
@@ -563,7 +839,7 @@ def expected_train_launches(cfg: DenoiserConfig, steps: int) -> dict:
     D once per attention.
     """
     L = cfg.num_layers
-    return dict(zip(COUNTERS, (2 * 2 * L * steps, 2 * 4 * L * steps, 2 * L * steps, 2 * L * steps)))
+    return dict(zip(COUNTERS, (2 * 2 * L * steps, 2 * 4 * L * steps, 2 * L * steps, 2 * L * steps, 0)))
 
 
 def make_frames(n: int = N_FRAMES, size: int = 256, seed: int = 0) -> list[np.ndarray]:
@@ -583,11 +859,15 @@ def make_frames(n: int = N_FRAMES, size: int = 256, seed: int = 0) -> list[np.nd
 def expected_launches(pipe: ActionMeshPipeline, n_frames: int) -> tuple[int, int]:
     """Kernel launches the main path implies for ``n_frames`` frames.
 
-    DINOv2: one flash per layer. Stage I, per window and step, per block:
-    self (q, k rms+rope; flash) and cross (q, k rms; flash; the
-    unconditional branch skips it). Stage II, per window and target chunk:
-    one flash and two rope-only launches per self block, one flash for the
-    vertex cross block.
+    Stage 0 (TripoSG): DINOv2 on the anchor, one flash per layer; per DiT
+    step and block, self (q, k rms; flash) and cross (q, k rms; flash; the
+    unconditional branch skips it); one flash per VAE decoder block; one
+    flash per SDF query chunk of the prefilter, band and fine passes (the
+    extraction reports them). DINOv2 on all frames: one flash per layer.
+    Stage I, per window and step, per block: self (q, k rms+rope; flash) and
+    cross (q, k rms; flash; conditional only). Stage II, per window and
+    target chunk: one flash and two rope-only launches per self block, one
+    flash for the vertex cross block.
     """
     cfg = pipe.cfg
     win1 = len(chunk_from(cfg.anchor_idx, n_frames, cfg.temporal_3D_denoiser.temporal_context_size, cfg.sliding_window_denoiser))
@@ -596,8 +876,11 @@ def expected_launches(pipe: ActionMeshPipeline, n_frames: int) -> tuple[int, int
     steps = cfg.scheduler.num_inference_steps
     L1, L2 = cfg.temporal_3D_denoiser.num_layers, cfg.temporal_3D_vae.num_layers
     dino = pipe.image_encoder.config.num_layers
-    flash = dino + 2 * L1 * steps * win1 + (L2 + 1) * chunks2
-    rope = 4 * L1 * steps * win1 + 2 * L2 * chunks2
+    tripo = pipe.image_to_3d.pipeline
+    steps0, L0 = cfg.stage_0.num_inference_steps, tripo.dit_cfg.num_layers
+    stage0_flash = dino + 2 * L0 * steps0 + tripo.vae_cfg.decoder_layers + sum(tripo.extract_stats.values())
+    flash = stage0_flash + dino + 2 * L1 * steps * win1 + (L2 + 1) * chunks2
+    rope = 4 * L0 * steps0 + 4 * L1 * steps * win1 + 2 * L2 * chunks2
     return flash, rope
 
 
@@ -606,10 +889,14 @@ def phase_slice() -> dict:
     pipe = ActionMeshPipeline(
         config_name="actionmesh", weights_dir=None, device=torch.device("cuda"), init_seed=0
     )
+    if not isinstance(pipe.image_to_3d, DevTripoSG):
+        raise AssertionError(f"Stage 0 is {type(pipe.image_to_3d).__name__}, not DevTripoSG")
+    pipe.image_to_3d.pipeline  # build the random-weight TripoSG before the timed call
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     frames = make_frames()
     inp = ActionMeshInput(frames=frames, timesteps=np.arange(N_FRAMES, dtype=np.float32))
+    preset_stage1_steps = pipe.cfg.scheduler.num_inference_steps  # the call cuts it
 
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
@@ -617,35 +904,56 @@ def phase_slice() -> dict:
     meshes = pipe(inp, seed=44, stage_1_steps=STAGE1_STEPS)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_attention.launches, "rms_rope": fused_rms_rope.launches}
+    launches = {"flash_fwd": flash_attention.launches, "rms_rope": fused_rms_rope.launches,
+                "flash_fused": flash_attention_fused.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    chunks = dict(pipe.image_to_3d.pipeline.extract_stats)
 
     want_flash, want_rope = expected_launches(pipe, N_FRAMES)
     log(f"slice: init {init_s:.2f} s | __call__ {total_s:.2f} s | phases "
         + " ".join(f"{k} {v:.2f} s" for k, v in pipe.phase_seconds.items())
+        + " | stage0 sub-phases " + " ".join(f"{k} {v:.2f} s" for k, v in pipe.stage0_seconds.items())
         + f" | peak memory {peak_gib:.2f} GiB")
     log(f"slice: launches flash_fwd {launches['flash_fwd']} (expected {want_flash}), "
-        f"rms_rope {launches['rms_rope']} (expected {want_rope})")
+        f"rms_rope {launches['rms_rope']} (expected {want_rope}); SDF query chunks {chunks}")
     if (launches["flash_fwd"], launches["rms_rope"]) != (want_flash, want_rope):
         raise AssertionError(f"launch counts {launches} != ({want_flash}, {want_rope})")
-    if flash_attention_bwd.dkv_launches or flash_attention_bwd.dq_launches:
-        raise AssertionError("the inference slice launched a backward kernel")
+    if flash_attention_bwd.dkv_launches or flash_attention_bwd.dq_launches or launches["flash_fused"]:
+        raise AssertionError("the inference slice launched a backward kernel or kernel F")
 
     if len(meshes) != N_FRAMES:
         raise AssertionError(f"{len(meshes)} meshes for {N_FRAMES} frames")
-    faces = meshes[0].faces
+    # the anchor frame (index 0) keeps Stage 0's processed mesh
+    anchor = meshes[0]
+    a_ok = (0 < anchor.n_faces <= pipe.cfg.mesh_process.face_decimation
+            and np.isfinite(anchor.vertices).all() and np.abs(anchor.vertices).max() <= 1.005)
+    log(f"slice: anchor mesh {anchor.n_vertices} vertices, {anchor.n_faces} faces, "
+        f"|v| max {np.abs(anchor.vertices).max():.4f}")
+    if not a_ok:
+        raise AssertionError("the anchor mesh is empty, above the face budget, not finite or out of bounds")
+    faces = anchor.faces
     verts = np.stack([m.vertices for m in meshes])
     if not all(np.array_equal(m.faces, faces) for m in meshes):
         raise AssertionError("meshes do not share the anchor's faces")
-    if not np.isfinite(verts).all() or verts.min() < -1 or verts.max() > 1:
-        raise AssertionError("vertices are not finite or leave [-1, 1]")
+    if not np.isfinite(verts).all() or np.abs(verts).max() > 1.005:
+        raise AssertionError("vertices are not finite or leave [-1.005, 1.005]")
     motion = float(np.abs(verts[1:] - verts[0]).max())
     if not motion > 0:
         raise AssertionError("no displacement across time")
     log(f"slice: {len(meshes)} meshes, {verts.shape[1]} vertices, {faces.shape[0]} faces, "
         f"max displacement from frame 0 {motion:.4f}")
-    return {"launches": launches, "phase_seconds": pipe.phase_seconds,
-            "init_seconds": init_s, "call_seconds": total_s, "peak_gib": peak_gib}
+    stage1_step_s = pipe.phase_seconds["stage1"] / STAGE1_STEPS
+    clip_s = total_s + (preset_stage1_steps - STAGE1_STEPS) * stage1_step_s
+    log(f"slice: seconds per clip at the preset's {preset_stage1_steps} Stage-I steps, derived "
+        f"from this run's {STAGE1_STEPS}-step time: {clip_s:.2f} s")
+    phase_s, stage0_s = pipe.phase_seconds, pipe.stage0_seconds
+    del pipe
+    torch.cuda.empty_cache()
+    return {"launches": launches, "phase_seconds": phase_s, "stage0_seconds": stage0_s,
+            "init_seconds": init_s,
+            "call_seconds": total_s, "peak_gib": peak_gib, "sdf_query_chunks": chunks,
+            "anchor_vertices": int(anchor.n_vertices), "anchor_faces": int(anchor.n_faces),
+            "derived_clip_seconds": clip_s, "preset_stage1_steps": preset_stage1_steps}
 
 
 def phase_train() -> dict:
@@ -768,13 +1076,15 @@ def main() -> None:
     logging.basicConfig(level=logging.WARNING)
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     info = phase_device()
-    build_s = phase_build()
-    flash, rope = phase_kernels()
+    build = phase_build()
+    sl = phase_slice()
+    flash, rope = phase_kernels(sl["anchor_vertices"])
+    fused, fused_launches = phase_fused()
     bwd, rope_bwd = phase_backward()
     nn = phase_nn()
     small_err = phase_small_reference()
+    small_stage0 = phase_small_stage0()
     small_train = phase_small_train()
-    sl = phase_slice()
     tr = phase_train()
     small_icp = phase_small_icp()
     ab = phase_actionbench()
@@ -784,21 +1094,25 @@ def main() -> None:
         return {"name": name, "route": "cuda" if source.endswith(".cu") else "triton",
                 "source": source, "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
                 "shape": head["shape"], "shapes": rows}
 
     def by_path(name, inference_name):
-        return {"inference": sl["launches"].get(inference_name, 0), "training": tr["launches"][name]}
+        return {"inference": sl["launches"][inference_name], "training": tr["launches"][name]}
 
     def bwd_summary(name, replaces, key):
         rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
                  "max_abs_err": max(r["max_abs_err"][g] for g in key[1]),
                  "tol": min(r["tol"][g] for g in key[1]), "ms": r[f"ms_{key[0]}"],
-                 "plain_ms": r["plain_ms"], "tflops": r[f"tflops_{key[0]}"]} for r in bwd]
+                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                 **r[f"bound_{key[0]}"], "tflops": r[f"tflops_{key[0]}"]} for r in bwd]
         out = summary(name, "actionmesh_tpu_torch/csrc/flash_bwd.cu", replaces, rows,
                       tr["launches"][name])
         out["launches_by_path"] = {"training": tr["launches"][name]}
         out["plain_ms_note"] = "the plain backward computes dq, dk and dv together"
+        out["library_ms_note"] = ("scaled_dot_product_attention forward plus backward: one call "
+                                  "pair for kernels A, C and D together")
         return out
 
     kernels = [
@@ -810,21 +1124,30 @@ def main() -> None:
                 sl["launches"]["rms_rope"] + tr["launches"]["fused_rms_rope"]),
         bwd_summary("flash_bwd_dkv", "actionmesh_tpu/ops/flash_attention_bwd.py:261", ("dkv", ("dk", "dv"))),
         bwd_summary("flash_bwd_dq", "actionmesh_tpu/ops/flash_attention_bwd.py:287", ("dq", ("dq",))),
+        summary("nn_argmin", "actionmesh_tpu_torch/csrc/nn_argmin.cu",
+                "actionmesh_tpu/ops/nn_argmin.py:148", nn, ab["launches"]),
+        summary("flash_attention_fused", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
+                "actionmesh_tpu/ops/flash_attention.py:492", fused,
+                sl["launches"]["flash_fused"] + tr["launches"]["flash_fused"]),
     ]
     kernels[0]["also_replaces"] = "actionmesh_tpu/ops/flash_attention.py:612"
     kernels[0]["launches_by_path"] = by_path("flash_fwd", "flash_fwd")
+    kernels[0]["library_ms_note"] = "scaled_dot_product_attention on the same q, k, v"
     kernels[1]["launches_by_path"] = by_path("fused_rms_rope", "rms_rope")
+    kernels[1]["library_ms_note"] = ("torch.nn.functional.rms_norm on the same x and scale for the "
+                                     "rows without tables; none for the rows that rotate (no single "
+                                     "PyTorch call normalises and rotates)")
     kernels[1]["backward"] = rope_bwd
-    kernels.append({
-        "name": "nn_argmin", "route": "cuda", "source": "actionmesh_tpu_torch/csrc/nn_argmin.cu",
-        "replaces": "actionmesh_tpu/ops/nn_argmin.py:148", "launches": ab["launches"],
-        "launches_by_path": {"actionbench": ab["launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in nn), "ms": nn[0]["ms"],
-        "plain_ms": nn[0]["plain_ms"], "shape": nn[0]["shape"], "shapes": nn,
-        "max_abs_err_note": "float64 squared-distance difference of differing picks",
-    })
-    print(json.dumps({"kernels": kernels, "build_seconds": build_s,
-                      "small_reference_max_abs_err": small_err,
+    kernels[4]["launches_by_path"] = {"actionbench": ab["launches"]}
+    kernels[4]["library_ms_note"] = "none: no single PyTorch call gives the nearest index (cdist, then argmin)"
+    kernels[4]["max_abs_err_note"] = "float64 squared-distance difference of differing picks"
+    kernels[5]["launches_by_path"] = {"inference": sl["launches"]["flash_fused"],
+                                      "training": tr["launches"]["flash_fused"],
+                                      "smoke": fused_launches}
+    kernels[5]["unfused_b_b_a_ms"] = fused[0]["unfused_b_b_a_ms"]
+    kernels[5]["library_ms_note"] = "scaled_dot_product_attention on q, k normalised and rotated beforehand"
+    print(json.dumps({"kernels": kernels, "build": build,
+                      "small_reference_max_abs_err": small_err, "small_stage0_reference": small_stage0,
                       "small_train_reference": small_train, "small_icp_reference": small_icp,
                       "slice": sl, "train": tr, "actionbench": ab, "card": info["nvidia_smi"]}),
           flush=True)

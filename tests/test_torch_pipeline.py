@@ -165,10 +165,9 @@ def test_launch_counters_stay_zero_on_cpu(slice_outputs):
 
 def test_config_matches_jax_preset():
     """The port's preset equals the JAX ``load_config("actionmesh")`` on
-    every field it keeps; the fields it leaves out are exactly the TPU
-    runtime knobs and the not yet ported TripoSG decode knobs."""
+    every field it keeps, the TripoSG decode knobs included; the fields it
+    leaves out are exactly the TPU runtime knobs."""
     omitted = {
-        "stage_0.prefilter_octree_depth", "stage_0.coarse_decode_dtype",
         "temporal_3D_denoiser.clear_autocast", "scheduler.split_cfg_batch",
         "scheduler.steps_per_launch", "compute_dtype", "attn_impl",
     }
@@ -188,6 +187,7 @@ def test_config_matches_jax_preset():
     assert set(port) <= set(ref)
     assert port == {k: v for k, v in ref.items() if k in port}
     assert tload_config("actionmesh").temporal_3D_denoiser.gelu_approx is True
+    assert tload_config("actionmesh").stage_0.prefilter_octree_depth == 6
     with pytest.raises(KeyError):
         tload_config("actionmesh", updates={"attn_impl": "flash"})
 
