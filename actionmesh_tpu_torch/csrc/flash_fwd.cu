@@ -1,36 +1,56 @@
 // Flash attention forward for Hopper (sm_90a): online softmax, fp32 statistics.
-// Two entry points share one mainloop: flash_fwd (kernel A) and flash_fused
-// (kernel F, the same loop with qk-norm + RoPE applied as Q and K are staged).
+// Two entry points: flash_fwd (kernel A) and flash_fused (kernel F, a qk-norm
+// + RoPE pre-pass followed by kernel A's mainloop).
 //
 // Kernel A replaces two Pallas TPU kernels of the JAX package:
 //   actionmesh_tpu/ops/flash_attention.py:flash_attention_pipelined (pallas_call :302)
 //   actionmesh_tpu/ops/flash_attention.py:flash_attention           (pallas_call :612)
 // and meets their shared contract: q (B,H,Sq,D), k/v (B,H,Sk,D), optional
 // kv_mask (B,Sk) (nonzero = valid), optional per-row stats (m, l) as (B,H,Sq)
-// fp32. Scores are fp32 dot products times `scale`; masked scores are -1e30;
-// the output is acc / max(l, 1e-30), so a row with every key masked gives a
-// finite mean of v, never NaN. Keys at or beyond Sk are out of bounds and take
-// no part (probability exactly 0): the ragged edge is masked here, with no
-// padded copies of the inputs.
+// fp32, m the running max of the scaled scores and l the sum of the fp32
+// probabilities. Scores are fp32 dot products times `scale`; masked scores
+// are -1e30; P is rounded to the input dtype before PV; the output is
+// acc / max(l, 1e-30), rounded once, so a row with every key masked gives a
+// finite mean of v, never NaN. Keys at or beyond Sk are out of bounds and
+// take no part (probability exactly 0): the ragged edge is masked here, with
+// no padded copies of the inputs.
 //
 // What bounds it: at the main path's shapes (Sq = Sk = 32,784, D = 128) the
 // work is 4*Sq*Sk*D flops per (batch, head) against O((Sq+Sk)*D) bytes, far
 // above the card's ~295 flop/byte balance point, so it is bound by tensor-core
 // issue and by the exp/max/sum work of the softmax between the two products.
 //
-// Design (first, simple version; wgmma, TMA and warp specialisation wait for
-// a later change):
-//   * bf16: FA2 layout. A block of 4 warps owns 64 query rows, one warp per 16
-//     rows; Q stays in registers as mma A-fragments. K and V tiles of 64 keys
-//     are staged in shared memory (rows padded by 8 elements, so fragment
-//     loads are free of bank conflicts). QK^T and PV run on mma.sync
-//     m16n8k16 bf16 -> fp32; V's B-fragments come from ldmatrix.trans. P is
-//     rounded to bf16 before PV (as the TPU kernel does), l sums fp32 P.
-//   * fp32: plain FMA (no TF32, which flips results at this precision). A
-//     block of 128 threads owns 32 query rows; each thread computes a 2x4
-//     score micro-tile and accumulates 2 rows x D/8 output columns.
+// bf16 design: TMA + wgmma, warp-specialised (FA3's shape, first version).
+//   * One CTA per (128-query tile, head, batch), 3 warpgroups. Warpgroup 0 is
+//     the producer (setmaxnreg down to 24): one thread starts TMA loads of the
+//     Q tile once and of K and V tiles of 128 keys into a ring of kStages
+//     stages in shared memory, each stage guarded by a full/empty mbarrier
+//     pair. Warpgroups 1 and 2 are consumers (setmaxnreg up to 240), each
+//     owning 64 query rows.
+//   * Tensor maps are rank 4 (D, S, H, B) with the caller's strides, so
+//     strided head views are read in place; boxes are 64 columns x 128 rows
+//     with the 128-byte swizzle (a D = 128 row is two such atoms). TMA fills
+//     rows beyond Sq or Sk with zeros; keys >= Sk are masked by bounds in the
+//     last tile only.
+//   * S = Q K^T: wgmma m64n128k16, Q and K both from shared memory,
+//     K-major. Softmax per accumulator element, the row max and sum across
+//     the 4 lanes of a row (the accumulator gives each thread rows g and
+//     g+8 of its warp's 16). O += P V: wgmma m64nDk16 with P from registers
+//     (the S accumulator packed pairwise to bf16 is the A fragment) and V
+//     from shared memory, MN-major (the transpose bit).
+//   * Each product is waited for before its result is read; a consumer warp
+//     arrives on the stage's empty barrier after its last product reading
+//     the stage has completed. The epilogue rescales by 1/max(l, 1e-30) and
+//     stores O from registers.
+//   Not in this version (later work): overlap of a warpgroup's softmax with
+//   its next Q K^T, pingpong scheduling of the two consumers, a persistent
+//   tile scheduler, a TMA store of O.
+// fp32 design: plain FMA (no TF32, which flips results at this precision). A
+// block of 128 threads owns 32 query rows; each thread computes a 2x4 score
+// micro-tile and accumulates 2 rows x D/8 output columns.
 // The caller passes element strides for batch, head and sequence of every
-// tensor; the last axis must be contiguous.
+// tensor; the last axis must be contiguous, strides and addresses 16-byte
+// aligned.
 //
 // Kernel F replaces the Pallas TPU kernel
 //   actionmesh_tpu/ops/flash_attention.py:flash_attention_fused (pallas_call :492,
@@ -44,25 +64,24 @@
 //   the scale multiplies the product of the rounded q^ and k^.
 // What bounds it: the same products as kernel A, 4*B*H*S^2*D flops; at the
 // Stage-I self shape (2,16,32784,128) bf16 that is 1.76e13 flop, 17.8 ms at
-// the card's 989 TFLOP/s bf16 peak. The fused staging adds the K-side norm +
-// rotation, recomputed once per Q block as on the TPU: about 4e11 fp32
-// operations there (2% of the products' flop count, but on the CUDA cores),
-// plus 8 bytes of fp32 cos/sin read per K element per Q block, mostly from L2.
-// Design: the template flag kNormRope selects how Q and K tiles are staged;
-// the rest of the loop is kernel A's. A warp owns whole rows when it stages
-// them: each lane holds D/32 adjacent channels, so every rotating pair
-// (2i, 2i+1) lies in one lane's registers (the swap is free) and the rms
-// reduction over D is a 5-step shuffle across the warp. bf16: each warp
-// stages its own 16 Q rows once through its slice of the K buffer and keeps
-// them as mma A-fragments; each K tile is normalised by the 4 warps, 16 rows
-// each. fp32: each warp stages 8 Q rows and 8 K rows per tile.
+// the card's 989 TFLOP/s bf16 peak. Normalising and rotating is a pass over
+// q, k and the tables, a few hundred MB there.
+// Design: one call launches two device kernels. A pre-pass normalises and
+// rotates every row of q and k once (one warp per row, each lane holding D/32
+// adjacent channels, so every rotating pair sits in one lane's registers and
+// the rms sum over D is a 5-step shuffle) into two contiguous (B,H,S,D)
+// workspaces the caller allocates; kernel A's mainloop then attends over
+// q^, k^ and v (bf16 the TMA + wgmma kernel, fp32 the SIMT kernel). The
+// TPU kernel instead re-normalised each K block once per Q block.
 
-#include <cuda_runtime.h>
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -77,10 +96,6 @@ struct Params {
   const int32_t* kv_mask;  // (B, Sk) or null
   float* m_out;            // (B, H, Sq) or null
   float* l_out;            // (B, H, Sq) or null
-  const float* cos;        // kernel F: (B, Sq, D) fp32, Sq = Sk
-  const float* sin;        // kernel F: (B, Sq, D) fp32
-  const float* q_scale;    // kernel F: (D,) fp32
-  const float* k_scale;    // kernel F: (D,) fp32
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -97,271 +112,278 @@ __device__ __forceinline__ float mask_score(float s, int col, const Params& p,
   return s * p.scale;
 }
 
-// rms-norm and pairwise rotation of one row held by a warp: this lane's
-// P = D/32 channels start at lane * P. Every lane of the warp must call it.
-template <int D>
-__device__ __forceinline__ void norm_rope(float (&x)[D / 32], const float* cos_row,
-                                          const float* sin_row, const float* w, int lane) {
-  constexpr int P = D / 32;
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < P; ++i) ss = fmaf(x[i], x[i], ss);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const float r = rsqrtf(ss * (1.f / D) + kNormEps);
-  const int c0 = lane * P;
-#pragma unroll
-  for (int i = 0; i < P; i += 2) {
-    const float2 cs = *reinterpret_cast<const float2*>(cos_row + c0 + i);
-    const float2 sn = *reinterpret_cast<const float2*>(sin_row + c0 + i);
-    const float x0 = x[i] * r * w[c0 + i];
-    const float x1 = x[i + 1] * r * w[c0 + i + 1];
-    x[i] = x0 * cs.x - x1 * sn.x;
-    x[i + 1] = x1 * cs.y + x0 * sn.y;
-  }
-}
-
-// A warp normalises, rotates and rounds `nrows` rows starting at sequence row
-// `row0` into bf16 shared memory (row stride `dst_stride` elements); rows at
-// or beyond S are written as zeros.
-template <int D>
-__device__ __forceinline__ void stage_rows_bf16(uint16_t* dst, int dst_stride,
-                                                const __nv_bfloat16* src, long long src_ss,
-                                                const float* cos_b, const float* sin_b,
-                                                const float* w, int row0, int nrows, int S,
-                                                int lane) {
-  constexpr int P = D / 32;
-#pragma unroll 4
-  for (int r = 0; r < nrows; ++r) {
-    const int row = row0 + r;  // the same for the whole warp
-    uint16_t* d = dst + r * dst_stride + lane * P;
-    if (row < S) {
-      float x[P];
-      const __nv_bfloat16* s = src + (long long)row * src_ss + lane * P;
-#pragma unroll
-      for (int i = 0; i < P; i += 2) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(s + i);
-        x[i] = __low2float(v);
-        x[i + 1] = __high2float(v);
-      }
-      norm_rope<D>(x, cos_b + (long long)row * D, sin_b + (long long)row * D, w, lane);
-#pragma unroll
-      for (int i = 0; i < P; i += 2) *reinterpret_cast<uint32_t*>(d + i) = pack_bf16(x[i], x[i + 1]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < P; i += 2) *reinterpret_cast<uint32_t*>(d + i) = 0u;
-    }
-  }
-}
-
-// fp32 counterpart of stage_rows_bf16 (no rounding).
-template <int D>
-__device__ __forceinline__ void stage_rows_f32(float* dst, int dst_stride, const float* src,
-                                               long long src_ss, const float* cos_b,
-                                               const float* sin_b, const float* w, int row0,
-                                               int nrows, int S, int lane) {
-  constexpr int P = D / 32;
-  for (int r = 0; r < nrows; ++r) {
-    const int row = row0 + r;
-    float* d = dst + r * dst_stride + lane * P;
-    if (row < S) {
-      float x[P];
-      const float* s = src + (long long)row * src_ss + lane * P;
-#pragma unroll
-      for (int i = 0; i < P; i += 2) {
-        const float2 v = *reinterpret_cast<const float2*>(s + i);
-        x[i] = v.x;
-        x[i + 1] = v.y;
-      }
-      norm_rope<D>(x, cos_b + (long long)row * D, sin_b + (long long)row * D, w, lane);
-#pragma unroll
-      for (int i = 0; i < P; ++i) d[i] = x[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < P; ++i) d[i] = 0.f;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 path: mma.sync m16n8k16
+// bf16 path: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kBf16Warps = 4;
-constexpr int kBf16BlockM = 16 * kBf16Warps;  // query rows per block
-constexpr int kBf16BlockN = 64;               // keys per tile
+constexpr int kBlockM = 128;        // query rows per CTA, 64 per consumer warpgroup
+constexpr int kBlockN = 128;        // keys per tile
+constexpr int kStages = 2;          // K/V ring depth
+constexpr int kThreads = 3 * 128;   // producer + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;   // arrivals that free a stage
+constexpr int kAtomBytes = 128 * 128;  // 128 rows x 64 bf16 (one swizzle atom column)
 
-template <int D, bool kNormRope>
-__global__ void __launch_bounds__(kBf16Warps * 32)
-flash_fwd_bf16_kernel(const Params p) {
-  constexpr int kStride = D + 8;  // padded smem row, in elements
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  __shared__ __align__(16) uint16_t Ks[kBf16BlockN * kStride];  // bf16 bits
-  __shared__ __align__(16) uint16_t Vs[kBf16BlockN * kStride];
+template <int D>
+struct SmemLayout {
+  static constexpr int kTileBytes = (D / 64) * kAtomBytes;  // 128 rows x D bf16
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;               // + stage * kTileBytes
+  static constexpr int kV = kK + kStages * kTileBytes;     // + stage * kTileBytes
+  static constexpr int kBars = kV + kStages * kTileBytes;  // q_full, full[], empty[]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base to 1024 bytes
+};
+static_assert(SmemLayout<128>::kAlloc <= 232448, "shared memory above the 227 KB a block may use");
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group / column pair
-  const int row0 = blockIdx.x * kBf16BlockM + warp * 16;
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = SmemLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: atoms start on that grid
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const __nv_bfloat16* qbase = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kbase = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vbase = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  // kernel F takes no mask: a constant null lets the compiler drop the check
-  const int32_t* mask_row = !kNormRope && p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
-  const float* cos_b = kNormRope ? p.cos + (long long)b * p.Sq * D : nullptr;
-  const float* sin_b = kNormRope ? p.sin + (long long)b * p.Sq * D : nullptr;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockM;
+  const int n_tiles = (p.Sk + kBlockN - 1) / kBlockN;
+  const int warpgroup = threadIdx.x / 128;
 
-  // Q A-fragments for the 16 rows of this warp: rows g and g+8.
-  uint32_t qf[D / 16][4];
-  if constexpr (kNormRope) {
-    // normalised, rotated and rounded once, staged through the warp's slice
-    // of Ks (the loop's first barrier orders it before the first K tile)
-    uint16_t* qstage = Ks + warp * 16 * kStride;
-    stage_rows_bf16<D>(qstage, kStride, qbase, p.q_ss, cos_b, sin_b, p.q_scale, row0, 16, p.Sq, lane);
-    __syncwarp();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint16_t* qa = qstage + g * kStride + kk * 16 + 2 * t;
-      const uint16_t* qb = qa + 8 * kStride;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qa);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qb);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qb + 8);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    // ---- producer: one thread keeps the ring of K/V tiles filled ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_desc(&tm_q);
+      tma_prefetch_desc(&tm_k);
+      tma_prefetch_desc(&tm_v);
+      mbar_arrive_expect_tx(q_full, L::kTileBytes);
+#pragma unroll
+      for (int a = 0; a < D / 64; ++a)
+        tma_load_4d(smem + L::kQ + a * kAtomBytes, &tm_q, q_full, a * 64, q0, h, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages;
+        mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(&full[s], 2 * L::kTileBytes);
+#pragma unroll
+        for (int a = 0; a < D / 64; ++a) {
+          tma_load_4d(smem + L::kK + s * L::kTileBytes + a * kAtomBytes, &tm_k, &full[s],
+                      a * 64, n * kBlockN, h, b);
+          tma_load_4d(smem + L::kV + s * L::kTileBytes + a * kAtomBytes, &tm_v, &full[s],
+                      a * 64, n * kBlockN, h, b);
+        }
+      }
     }
   } else {
-    const int ra = row0 + g, rb = row0 + g + 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * t;
-      qf[kk][0] = ra < p.Sq ? *reinterpret_cast<const uint32_t*>(qbase + ra * p.q_ss + c0) : 0u;
-      qf[kk][1] = rb < p.Sq ? *reinterpret_cast<const uint32_t*>(qbase + rb * p.q_ss + c0) : 0u;
-      qf[kk][2] = ra < p.Sq ? *reinterpret_cast<const uint32_t*>(qbase + ra * p.q_ss + c0 + 8) : 0u;
-      qf[kk][3] = rb < p.Sq ? *reinterpret_cast<const uint32_t*>(qbase + rb * p.q_ss + c0 + 8) : 0u;
-    }
-  }
+    // ---- consumers: 64 query rows per warpgroup ----
+    setmaxnreg_inc<240>();
+    const int c = warpgroup - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;  // accumulator row group / column pair
+    const int ra = q0 + 64 * c + 16 * warp + g, rb = ra + 8;
+    const int32_t* mask_row = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
+    const uint32_t q_addr = smem_addr(smem + L::kQ) + c * 64 * 128;
 
-  float acc[D / 8][4];
+    float o[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = kMaskedScore, m1 = kMaskedScore;  // running max, rows g and g+8
-  float l0 = 0.f, l1 = 0.f;                    // this thread's partial row sums
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kMaskedScore, m1 = kMaskedScore;  // running max, rows g and g+8
+    float l0 = 0.f, l1 = 0.f;                    // this thread's partial row sums
 
-  for (int n0 = 0; n0 < p.Sk; n0 += kBf16BlockN) {
-    __syncthreads();  // previous tile (or the Q staging) fully consumed
-    if constexpr (kNormRope)
-      stage_rows_bf16<D>(Ks + warp * 16 * kStride, kStride, kbase, p.k_ss, cos_b, sin_b,
-                         p.k_scale, n0 + warp * 16, 16, p.Sk, lane);
-    for (int c = tid; c < kBf16BlockN * kChunks; c += kBf16Warps * 32) {
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (n0 + r < p.Sk) {
-        if constexpr (!kNormRope)
-          kv = *reinterpret_cast<const uint4*>(kbase + (long long)(n0 + r) * p.k_ss + col);
-        vv = *reinterpret_cast<const uint4*>(vbase + (long long)(n0 + r) * p.v_ss + col);
-      }
-      if constexpr (!kNormRope) *reinterpret_cast<uint4*>(&Ks[r * kStride + col]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[r * kStride + col]) = vv;
-    }
-    __syncthreads();
+    mbar_wait(q_full, 0);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int s = n % kStages;
+      mbar_wait(&full[s], (n / kStages) & 1);
+      const uint32_t k_addr = smem_addr(smem + L::kK + s * L::kTileBytes);
+      const uint32_t v_addr = smem_addr(smem + L::kV + s * L::kTileBytes);
 
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys.
-    float s[kBf16BlockN / 8][4];
+      // S = Q K^T, 64 rows x 128 keys, over D in steps of 16
+      float sc[64];
 #pragma unroll
-    for (int j = 0; j < kBf16BlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const uint16_t* krow = &Ks[(j * 8 + g) * kStride + 2 * t];
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(s[j], qf[kk], b0, b1);
+        const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+        wgmma_m64n128k16_ss(sc, wgmma_desc(q_addr + off, 16, 1024),
+                            wgmma_desc(k_addr + off, 16, 1024), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // Scale, mask, and the online-softmax update. sc[4j + e] is key
+      // 8j + 2t + (e & 1) of row g (e < 2) or g+8 (e >= 2).
+      const int key0 = n * kBlockN;
+      if (mask_row != nullptr || key0 + kBlockN > p.Sk) {
+#pragma unroll
+        for (int j = 0; j < kBlockN / 8; ++j) {
+          const int col = key0 + j * 8 + 2 * t;
+          sc[4 * j + 0] = mask_score(sc[4 * j + 0], col, p, mask_row);
+          sc[4 * j + 1] = mask_score(sc[4 * j + 1], col + 1, p, mask_row);
+          sc[4 * j + 2] = mask_score(sc[4 * j + 2], col, p, mask_row);
+          sc[4 * j + 3] = mask_score(sc[4 * j + 3], col + 1, p, mask_row);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] *= p.scale;
+      }
+      float mx0 = kMaskedScore, mx1 = kMaskedScore;
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        sc[4 * j + 0] = __expf(sc[4 * j + 0] - mn0);
+        sc[4 * j + 1] = __expf(sc[4 * j + 1] - mn0);
+        sc[4 * j + 2] = __expf(sc[4 * j + 2] - mn1);
+        sc[4 * j + 3] = __expf(sc[4 * j + 3] - mn1);
+        ps0 += sc[4 * j + 0] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + ps0;
+      l1 = l1 * alpha1 + ps1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= alpha0;
+        o[4 * j + 1] *= alpha0;
+        o[4 * j + 2] *= alpha1;
+        o[4 * j + 3] *= alpha1;
+      }
+
+      // O += P V: P (bf16) as register A fragments, 16 keys per product
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        const uint64_t dv = wgmma_desc(v_addr + kk * 16 * 128, kAtomBytes, 1024);
+        if constexpr (D == 128) {
+          wgmma_m64n128k16_rs(o, pa[kk], dv, 1);
+        } else {
+          wgmma_m64n64k16_rs(o, pa[kk], dv, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
     }
 
-    // Scale, mask, and the online-softmax update.
-    float mx0 = kMaskedScore, mx1 = kMaskedScore;
-#pragma unroll
-    for (int j = 0; j < kBf16BlockN / 8; ++j) {
-      const int col = n0 + j * 8 + 2 * t;
-      s[j][0] = mask_score(s[j][0], col, p, mask_row);
-      s[j][1] = mask_score(s[j][1], col + 1, p, mask_row);
-      s[j][2] = mask_score(s[j][2], col, p, mask_row);
-      s[j][3] = mask_score(s[j][3], col + 1, p, mask_row);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBf16BlockN / 8; ++j) {
-      s[j][0] = __expf(s[j][0] - mn0);
-      s[j][1] = __expf(s[j][1] - mn0);
-      s[j][2] = __expf(s[j][2] - mn1);
-      s[j][3] = __expf(s[j][3] - mn1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* obase = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
+      const int col = j * 8 + 2 * t;
+      if (ra < p.Sq)
+        *reinterpret_cast<uint32_t*>(obase + ra * p.o_ss + col) =
+            pack_bf16(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
+      if (rb < p.Sq)
+        *reinterpret_cast<uint32_t*>(obase + rb * p.o_ss + col) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
-
-    // O += P V: P's accumulator layout is the A-fragment layout of the next mma.
-#pragma unroll
-    for (int kk = 0; kk < kBf16BlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // ldmatrix.x4.trans: matrices (keys 0-7 | 8-15) x (cols jd | jd+1)
-      const int mat = lane / 8;
-      const int key = kk * 16 + (mat & 1) * 8 + (lane % 8);
-#pragma unroll
-      for (int jd = 0; jd < D / 8; jd += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, &Vs[key * kStride + (jd + (mat >> 1)) * 8]);
-        mma_bf16(acc[jd], pa, vb[0], vb[1]);
-        mma_bf16(acc[jd + 1], pa, vb[2], vb[3]);
-      }
+    if (p.m_out != nullptr && t == 0) {
+      const long long base = ((long long)b * p.H + h) * p.Sq;
+      if (ra < p.Sq) { p.m_out[base + ra] = m0; p.l_out[base + ra] = l0; }
+      if (rb < p.Sq) { p.m_out[base + rb] = m1; p.l_out[base + rb] = l1; }
     }
   }
+}
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+// cuTensorMapEncodeTiled, looked up in libcuda at run time through the CUDA
+// runtime's entry-point query, so that the library needs no link against it.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* obase = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const int ra = row0 + g, rb = row0 + g + 8;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (ra < p.Sq)
-      *reinterpret_cast<uint32_t*>(obase + ra * p.o_ss + col) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (rb < p.Sq)
-      *reinterpret_cast<uint32_t*>(obase + rb * p.o_ss + col) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
-  }
-  if (p.m_out != nullptr && t == 0) {
-    const long long base = ((long long)b * p.H + h) * p.Sq;
-    if (ra < p.Sq) { p.m_out[base + ra] = m0; p.l_out[base + ra] = l0; }
-    if (rb < p.Sq) { p.m_out[base + rb] = m1; p.l_out[base + rb] = l1; }
-  }
+  return fn;
+}
+
+// Error codes of the tensor-map encode, beside the cudaError_t values.
+constexpr int kErrNoEncoder = 10000;    // no cuTensorMapEncodeTiled was found
+constexpr int kErrEncodeBase = 20000;   // + the CUresult of a refused encode
+
+// Rank-4 tensor map (D, S, H, B) of a bf16 tensor with element strides
+// (ss, sh, sb), box 64 columns x 128 rows, 128-byte swizzle, zero fill.
+int make_tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+                    long long ss, long long sh, long long sb) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, kBlockN, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
+}
+
+template <int D>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_tensor_map(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb);
+  if (err == 0) err = make_tensor_map(&tk, p.k, D, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb);
+  if (err == 0) err = make_tensor_map(&tv, p.v, D, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb);
+  if (err != 0) return err;
+  constexpr int smem = SmemLayout<D>::kAlloc;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.H, p.B);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -377,7 +399,7 @@ constexpr int f32_smem_bytes() {
   return (2 * kF32BlockM * (D + 1) + kF32BlockN * D + kF32BlockM * (kF32BlockN + 1)) * 4;
 }
 
-template <int D, bool kNormRope>
+template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -387,28 +409,18 @@ flash_fwd_f32_kernel(const Params p) {
   float* Ps = Vs + kF32BlockN * D;               // [BM][BN+1]
 
   const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int rg = tid >> 3, cg = tid & 7;  // rows 2rg, 2rg+1; columns cg + 8j
   const int q0 = blockIdx.x * kF32BlockM;
 
   const float* qbase = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kbase = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vbase = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  // kernel F takes no mask: a constant null lets the compiler drop the check
-  const int32_t* mask_row = !kNormRope && p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
-  const float* cos_b = kNormRope ? p.cos + (long long)b * p.Sq * D : nullptr;
-  const float* sin_b = kNormRope ? p.sin + (long long)b * p.Sq * D : nullptr;
-  constexpr int kRowsPerWarpQ = kF32BlockM / (kF32Threads / 32);
-  constexpr int kRowsPerWarpK = kF32BlockN / (kF32Threads / 32);
+  const int32_t* mask_row = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
 
-  if constexpr (kNormRope) {
-    stage_rows_f32<D>(Qs + warp * kRowsPerWarpQ * (D + 1), D + 1, qbase, p.q_ss, cos_b, sin_b,
-                      p.q_scale, q0 + warp * kRowsPerWarpQ, kRowsPerWarpQ, p.Sq, lane);
-  } else {
-    for (int i = tid; i < kF32BlockM * D; i += kF32Threads) {
-      const int r = i / D, c = i % D;
-      Qs[r * (D + 1) + c] = (q0 + r < p.Sq) ? qbase[(long long)(q0 + r) * p.q_ss + c] : 0.f;
-    }
+  for (int i = tid; i < kF32BlockM * D; i += kF32Threads) {
+    const int r = i / D, c = i % D;
+    Qs[r * (D + 1) + c] = (q0 + r < p.Sq) ? qbase[(long long)(q0 + r) * p.q_ss + c] : 0.f;
   }
 
   float acc[2][D / 8];
@@ -421,13 +433,10 @@ flash_fwd_f32_kernel(const Params p) {
 
   for (int n0 = 0; n0 < p.Sk; n0 += kF32BlockN) {
     __syncthreads();
-    if constexpr (kNormRope)
-      stage_rows_f32<D>(Ks + warp * kRowsPerWarpK * (D + 1), D + 1, kbase, p.k_ss, cos_b, sin_b,
-                        p.k_scale, n0 + warp * kRowsPerWarpK, kRowsPerWarpK, p.Sk, lane);
     for (int i = tid; i < kF32BlockN * D; i += kF32Threads) {
       const int r = i / D, c = i % D;
       const bool in = n0 + r < p.Sk;
-      if constexpr (!kNormRope) Ks[r * (D + 1) + c] = in ? kbase[(long long)(n0 + r) * p.k_ss + c] : 0.f;
+      Ks[r * (D + 1) + c] = in ? kbase[(long long)(n0 + r) * p.k_ss + c] : 0.f;
       Vs[r * D + c] = in ? vbase[(long long)(n0 + r) * p.v_ss + c] : 0.f;
     }
     __syncthreads();
@@ -511,31 +520,22 @@ flash_fwd_f32_kernel(const Params p) {
   }
 }
 
-template <int D, bool kNormRope>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+template <int D>
+int launch_f32(const Params& p, cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D, kNormRope>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Sq + kF32BlockM - 1) / kF32BlockM, p.H, p.B);
-  flash_fwd_f32_kernel<D, kNormRope><<<grid, kF32Threads, smem, stream>>>(p);
+  flash_fwd_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool kNormRope>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  dim3 grid((p.Sq + kBf16BlockM - 1) / kBf16BlockM, p.H, p.B);
-  flash_fwd_bf16_kernel<D, kNormRope><<<grid, kBf16Warps * 32, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <bool kNormRope>
-int launch(const Params& p, int D, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return launch_bf16<128, kNormRope>(p, s);
-  if (dtype == 0 && D == 64) return launch_bf16<64, kNormRope>(p, s);
-  if (dtype == 1 && D == 128) return launch_f32<128, kNormRope>(p, s);
-  if (dtype == 1 && D == 64) return launch_f32<64, kNormRope>(p, s);
+int launch(const Params& p, int D, int dtype, cudaStream_t stream) {
+  if (dtype == 0 && D == 128) return launch_bf16<128>(p, stream);
+  if (dtype == 0 && D == 64) return launch_bf16<64>(p, stream);
+  if (dtype == 1 && D == 128) return launch_f32<128>(p, stream);
+  if (dtype == 1 && D == 64) return launch_f32<64>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -550,11 +550,100 @@ Params strided_params(const void* q, const void* k, const void* v, void* o,
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// Kernel F's pre-pass: q^, k^ = rope(rms_norm(x) * scale), rounded to T
+// ---------------------------------------------------------------------------
+
+// rms-norm and pairwise rotation of one row held by a warp: this lane's
+// P = D/32 channels start at lane * P. Every lane of the warp must call it.
+template <int D>
+__device__ __forceinline__ void norm_rope(float (&x)[D / 32], const float* cos_row,
+                                          const float* sin_row, const float* w, int lane) {
+  constexpr int P = D / 32;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) ss = fmaf(x[i], x[i], ss);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  const float r = rsqrtf(ss * (1.f / D) + kNormEps);
+  const int c0 = lane * P;
+#pragma unroll
+  for (int i = 0; i < P; i += 2) {
+    const float2 cs = *reinterpret_cast<const float2*>(cos_row + c0 + i);
+    const float2 sn = *reinterpret_cast<const float2*>(sin_row + c0 + i);
+    const float x0 = x[i] * r * w[c0 + i];
+    const float x1 = x[i + 1] * r * w[c0 + i + 1];
+    x[i] = x0 * cs.x - x1 * sn.x;
+    x[i + 1] = x1 * cs.y + x0 * sn.y;
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* src) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(src);
+  return make_float2(__low2float(v), __high2float(v));
+}
+__device__ __forceinline__ float2 load_pair(const float* src) {
+  return *reinterpret_cast<const float2*>(src);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+constexpr int kPrepassWarps = 8;
+
+// One warp per row of q or k; q^ and k^ are written contiguously as
+// (B, H, S, D). Rows run in (b, s, q or k, h) order, h fastest, so the 2H
+// rows that rotate by one table row run together and the tables (larger
+// than L2 at the Stage-I shape) are read from memory about once.
+template <int D, typename T>
+__global__ void __launch_bounds__(kPrepassWarps * 32)
+norm_rope_kernel(const Params p, T* qn, T* kn, const float* cos, const float* sin,
+                 const float* q_scale, const float* k_scale) {
+  constexpr int P = D / 32;
+  const long long row = (long long)blockIdx.x * kPrepassWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= 2LL * p.B * p.H * p.Sq) return;  // the same for the whole warp
+  const int h = static_cast<int>(row % p.H);
+  const bool is_k = (row / p.H) % 2;
+  const long long bs = row / (2 * p.H);
+  const int s = static_cast<int>(bs % p.Sq), b = static_cast<int>(bs / p.Sq);
+  const T* src = is_k ? static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh + s * p.k_ss
+                      : static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + s * p.q_ss;
+  src += lane * P;
+  float x[P];
+#pragma unroll
+  for (int i = 0; i < P; i += 2) {
+    const float2 v = load_pair(src + i);
+    x[i] = v.x;
+    x[i + 1] = v.y;
+  }
+  norm_rope<D>(x, cos + bs * D, sin + bs * D, is_k ? k_scale : q_scale, lane);
+  T* dst = (is_k ? kn : qn) + (((long long)b * p.H + h) * p.Sq + s) * D + lane * P;
+#pragma unroll
+  for (int i = 0; i < P; i += 2) store_pair(dst + i, x[i], x[i + 1]);
+}
+
+template <int D, typename T>
+int launch_prepass(const Params& p, void* qn, void* kn, const float* cos, const float* sin,
+                   const float* q_scale, const float* k_scale, cudaStream_t stream) {
+  const long long rows = 2LL * p.B * p.H * p.Sq;
+  const long long blocks = (rows + kPrepassWarps - 1) / kPrepassWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  norm_rope_kernel<D, T><<<static_cast<unsigned>(blocks), kPrepassWarps * 32, 0, stream>>>(
+      p, static_cast<T*>(qn), static_cast<T*>(kn), cos, sin, q_scale, k_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes. `strides` holds 12 element strides:
 // (batch, head, seq) for q, k, v, o in that order. dtype: 0 = bf16, 1 = fp32.
-// Returns the cudaError_t of the launch (0 = success).
+// Returns 0 on success, else the cudaError_t of the launch, or 10000 when no
+// tensor-map encoder was found, or 20000 + the CUresult of a refused tensor
+// map.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          const int32_t* kv_mask, float* m_out, float* l_out,
                          const long long* strides, int B, int H, int Sq, int Sk,
@@ -562,19 +651,31 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   Params p = strided_params(q, k, v, o, strides);
   p.kv_mask = kv_mask; p.m_out = m_out; p.l_out = l_out;
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk; p.scale = scale;
-  return launch<false>(p, D, dtype, stream);
+  return launch(p, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel F's C entry point: self-attention (Sq = Sk = S) of pre-norm q, k, v
-// with fp32 qk-norm + interleaved RoPE applied as Q and K are staged. cos/sin
-// contiguous (B,S,D) fp32, the norm scales contiguous (D,) fp32; `strides`,
-// dtype and the return value as flash_fwd's.
-extern "C" int flash_fused(const void* q, const void* k, const void* v, void* o,
-                           const float* cos, const float* sin, const float* q_scale,
+// with fp32 qk-norm + interleaved RoPE. Launches the pre-pass, which writes
+// q^ and k^ into the caller's contiguous (B,H,S,D) workspaces qn, kn (the
+// dtype of q), then kernel A's mainloop on q^, k^ and v. cos/sin contiguous
+// (B,S,D) fp32, the norm scales contiguous (D,) fp32; `strides`, dtype and
+// the return value as flash_fwd's.
+extern "C" int flash_fused(const void* q, const void* k, const void* v, void* o, void* qn,
+                           void* kn, const float* cos, const float* sin, const float* q_scale,
                            const float* k_scale, const long long* strides, int B, int H,
                            int S, int D, int dtype, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p = strided_params(q, k, v, o, strides);
-  p.cos = cos; p.sin = sin; p.q_scale = q_scale; p.k_scale = k_scale;
   p.B = B; p.H = H; p.Sq = S; p.Sk = S; p.scale = scale;
-  return launch<true>(p, D, dtype, stream);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && D == 128) err = launch_prepass<128, __nv_bfloat16>(p, qn, kn, cos, sin, q_scale, k_scale, st);
+  if (dtype == 0 && D == 64) err = launch_prepass<64, __nv_bfloat16>(p, qn, kn, cos, sin, q_scale, k_scale, st);
+  if (dtype == 1 && D == 128) err = launch_prepass<128, float>(p, qn, kn, cos, sin, q_scale, k_scale, st);
+  if (dtype == 1 && D == 64) err = launch_prepass<64, float>(p, qn, kn, cos, sin, q_scale, k_scale, st);
+  if (err != 0) return err;
+  // the mainloop reads the dense workspaces in place of q and k
+  const long long dense[3] = {(long long)H * S * D, (long long)S * D, D};
+  p.q = qn; p.q_sb = dense[0]; p.q_sh = dense[1]; p.q_ss = dense[2];
+  p.k = kn; p.k_sb = dense[0]; p.k_sh = dense[1]; p.k_ss = dense[2];
+  return launch(p, D, dtype, st);
 }

@@ -1,20 +1,24 @@
 """Flash attention: wrappers of the Hopper kernels in ``csrc/flash_fwd.cu``
-(kernel A, forward, and kernel F, the same mainloop with qk-norm + RoPE fused
-into its Q/K staging) and ``csrc/flash_bwd.cu`` (kernels C and D, backward).
+(kernel A, forward, and kernel F, a qk-norm + RoPE pre-pass followed by
+kernel A's mainloop) and ``csrc/flash_bwd.cu`` (kernels C and D, backward).
 
 Kernel A replaces ``actionmesh_tpu/ops/flash_attention.py:
 flash_attention_pipelined`` and ``flash_attention`` (the Pallas TPU kernels)
-and meets both contracts. Kernels C (dK, dV) and D (dQ) replace the two
-kernels of ``actionmesh_tpu/ops/flash_attention_bwd.py:flash_attention_bwd``;
-``flash_attention_trainable`` joins A with C and D as that module's
-``custom_vjp`` does. Kernel F replaces ``actionmesh_tpu/ops/flash_attention.py:
-flash_attention_fused``; no path of either package calls it. See the notes at
-the top of the CUDA sources for their design. On CPU tensors each wrapper
-runs its plain version (from ``ops/attention.py``, and for F
-``flash_attention_fused_reference`` here); on CUDA tensors it launches its
+and meets both contracts. Its bf16 path is a warp-specialised TMA + ``wgmma``
+kernel (a producer warpgroup feeding a ring of K/V tiles, two consumer
+warpgroups of 64 query rows each); its fp32 path is SIMT FMA. Kernels C (dK,
+dV) and D (dQ) replace the two kernels of ``actionmesh_tpu/ops/
+flash_attention_bwd.py:flash_attention_bwd``; ``flash_attention_trainable``
+joins A with C and D as that module's ``custom_vjp`` does. Kernel F replaces
+``actionmesh_tpu/ops/flash_attention.py:flash_attention_fused``; no path of
+either package calls it. See the notes at the top of the CUDA sources for
+their design. On CPU tensors each wrapper runs its plain version (from
+``ops/attention.py``, and for F ``flash_attention_fused_reference`` here,
+whose pre-pass is ``norm_rope_interleaved``); on CUDA tensors it launches its
 kernel or raises. ``flash_attention.launches``,
 ``flash_attention_bwd.dkv_launches``, ``flash_attention_bwd.dq_launches`` and
-``flash_attention_fused.launches`` count kernel launches.
+``flash_attention_fused.launches`` count calls that launch their kernels (one
+call of F launches two device kernels, the pre-pass and the mainloop).
 """
 
 from __future__ import annotations
@@ -51,9 +55,10 @@ def _library():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_fwd.restype = ctypes.c_int
-        # kernel F: q, k, v, o, cos, sin, q_scale, k_scale, strides (host int64[12])
+        # kernel F: q, k, v, o, q^, k^ (workspaces), cos, sin, q_scale, k_scale,
+        # strides (host int64[12])
         lib.flash_fused.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_fused.restype = ctypes.c_int
         _lib = lib
@@ -294,13 +299,14 @@ def flash_attention_trainable(
 
 
 # ---------------------------------------------------------------------------
-# Kernel F: self-attention with fp32 rms qk-norm + interleaved RoPE inside
+# Kernel F: self-attention with fp32 rms qk-norm + interleaved RoPE first
 # ---------------------------------------------------------------------------
 
 
-def _norm_rope_interleaved(x, norm_scale, cos, sin, eps):
-    """fp32 rms-norm over D times ``norm_scale``, then interleaved RoPE,
-    rounded once to x.dtype (the TPU kernel's ``_norm_rope`` + astype)."""
+def norm_rope_interleaved(x, norm_scale, cos, sin, eps: float = 1e-6):
+    """Plain version of kernel F's pre-pass: fp32 rms-norm over D times
+    ``norm_scale``, then interleaved RoPE, rounded once to x.dtype (the TPU
+    kernel's ``_norm_rope`` + astype). x (B, H, S, D), cos/sin (B, S, D)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps) * norm_scale.float()
@@ -321,8 +327,8 @@ def flash_attention_fused_reference(
     """Plain version of kernel F: rms-norm, interleaved RoPE, then
     ``chunked_attention``; normalised q and k are rounded to the input dtype
     before the scores, as the kernel rounds them."""
-    qn = _norm_rope_interleaved(q, q_norm_scale, cos, sin, eps)
-    kn = _norm_rope_interleaved(k, k_norm_scale, cos, sin, eps)
+    qn = norm_rope_interleaved(q, q_norm_scale, cos, sin, eps)
+    kn = norm_rope_interleaved(k, k_norm_scale, cos, sin, eps)
     return chunked_attention(qn, kn, v, scale=scale)
 
 
@@ -371,7 +377,9 @@ def flash_attention_fused(
     q, k, v (B, H, S, D) pre-norm projections, bf16 or fp32, strided views
     with a contiguous last axis allowed; cos/sin (B, S, D) fp32 interleaved
     tables; q_norm_scale, k_norm_scale (D,) fp32. Returns (B, H, S, D) in
-    q.dtype with q's strides where q is dense.
+    q.dtype with q's strides where q is dense. On the card the normalised
+    and rotated q and k go through two (B, H, S, D) workspaces allocated
+    here, then kernel A's mainloop.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -382,11 +390,12 @@ def flash_attention_fused(
     _check_fused(q, k, v, cos, sin, q_norm_scale, k_norm_scale)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
+    qn, kn = torch.empty((2, B, H, S, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
     err = _library().flash_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qn.data_ptr(), kn.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), q_norm_scale.data_ptr(), k_norm_scale.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p),
         B, H, S, D, _DTYPE_CODES[q.dtype], float(scale),

@@ -1,6 +1,6 @@
 """Train the Stage-I denoiser (rectified flow) with the PyTorch port.
 
-    python -m actionmesh_tpu_torch.train --synthetic --size tiny --steps 3
+    python -m actionmesh_tpu_torch.train --synthetic --size tiny --steps 3 --device cpu
     python -m actionmesh_tpu_torch.train --data-dir /data/clips --size production \\
         --window 16 --batch 2 --compute-dtype bfloat16 --device cuda
 
@@ -9,7 +9,8 @@ flags and defaults (less ``--model`` and ``--mesh``): a clip-directory dataset (
 (T,N,C), context (T,S,D), framestep (T,); see ``training/data.py``) or
 synthetic clips, warmup + cosine AdamW, EMA, a JSONL loss log, atomic
 resumable checkpoints and an optional export of the (EMA) weights as
-``denoiser.npz``. ``--device`` defaults to the GPU when there is one.
+``denoiser.npz``. ``--device`` defaults to cuda and raises without a card;
+``--device cpu`` runs on the CPU.
 Synthetic clips are written under ``--out``; at ``--size production``
 their context has DINOv2-L's 257 tokens. The decoder and distillation
 stages are not ported yet (ROADMAP Queue 1) and are refused.
@@ -63,8 +64,9 @@ def build_args() -> argparse.ArgumentParser:
                    help="after training, export the (EMA) params as DIR/denoiser.npz")
     p.add_argument("--time-phases", action="store_true",
                    help="log synchronised forward/backward/update seconds per step")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda, which raises without a card; "
+                        "cpu runs on the CPU)")
     return p
 
 
@@ -98,7 +100,9 @@ def run(args: argparse.Namespace):
         raise SystemExit(f"error: --stage {args.stage} {NOT_PORTED}")
     if not args.synthetic and not args.data_dir:
         raise SystemExit("error: pass --data-dir or --synthetic")
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: CUDA is not available (use --device cpu)")
 
     profile_steps = None
     if args.profile_steps:

@@ -19,15 +19,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      counters equal what the path implies;
   4. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Stage 0's included): max abs error against the stated
-     tolerance, and CUDA-event times (median of warm runs) of the kernel,
+     tolerance, and CUDA-event times (median of warm runs, each as many
+     back-to-back calls as last about 1 ms) of the kernel,
      the plain version and, where one PyTorch call computes the same
-     function, that call (``library_ms``; the port never calls it);
-  5. kernel F (fused qk-norm + interleaved RoPE attention, on no path)
-     against its plain version at the Stage-I self shape, a ragged fp32
-     and a D = 64 shape, timed beside the unfused composition (kernel B
-     twice, then kernel A) and beside scaled_dot_product_attention;
-  6. the backward kernels C and D at the Stage-I training shapes, and
-     kernel B's backward;
+     function, that call (``library_ms``; the port never calls it); kernel
+     A also with a kv_mask (ragged Sk, one batch entry with every key
+     masked), with its stats (m, l) held against the plain version's, and
+     at D = 64 with ragged Sq and Sk;
+  5. kernel F (qk-norm + interleaved RoPE pre-pass, then kernel A's
+     mainloop; on no path) against its plain version at the Stage-I self
+     shape, a ragged fp32 and a D = 64 shape, timed beside
+     scaled_dot_product_attention on q and k normalised and rotated
+     beforehand, and at the Stage-I shape beside the unfused composition
+     (kernel B twice, then kernel A);
+  6. the backward kernels C and D at the Stage-I training shapes (on
+     kernel A's stats), timed beside SDPA's forward + backward, and kernel
+     B's backward;
   7. kernel E at the evaluator's shape and small shapes;
   8. small references: the inference slice (Stage-0 stub) and a small
      TripoSG Stage 0 (DiT 3 x 128, VAE decoder 2 x 128, dense 5 / fine 6 /
@@ -53,7 +60,9 @@ Each kernel's ``bound_ms`` is the least time the card could take for the
 work of its main-path call: the larger of its bytes (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the peak rate of
 their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), counted from this
-run's shapes.
+run's shapes. Rows of kernels A and F also give ``tflops`` (the products'
+4*B*H*Sq*Sk*D operations per second), ``bound_share`` (bound_ms / ms) and
+``vs_library`` (ms / library_ms).
 The line before the last is a JSON object with the per-kernel results; the
 last line is the device JSON.
 """
@@ -96,6 +105,7 @@ from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention_fused,
     flash_attention_fused_reference,
     launch_bwd_kernels,
+    norm_rope_interleaved,
 )
 from actionmesh_tpu_torch.ops.nn_argmin import nn_argmin, nn_argmin_reference
 from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope, rms_rope_reference
@@ -195,18 +205,27 @@ def library_time(fn, reps: int, what: str):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``reps`` warm runs, in ms."""
+    """Median CUDA-event time per call of ``reps`` warm runs, in ms. A run
+    is as many back-to-back calls as last about 1 ms (one for a call of 1 ms
+    or more), so that a short kernel's time is not the host time of one
+    call's wrapper."""
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    calls = max(1, min(1000, int(1.0 / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -238,44 +257,81 @@ def flash_cases(n_vertices: int):
     ]
 
 
-def attention_bound(B, H, Sq, Sk, D, dtype) -> dict:
-    """QK^T and PV: 4*B*H*Sq*Sk*D operations; q, k, v read, o written once."""
+def attention_bound(B, H, Sq, Sk, D, dtype, extra_bytes=0) -> dict:
+    """QK^T and PV: 4*B*H*Sq*Sk*D operations; q, k, v read, o written once
+    (plus ``extra_bytes`` of other inputs)."""
     size = torch.finfo(dtype).bits // 8
     rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    return bound(4 * B * H * Sq * Sk * D, rate, (2 * B * H * Sq * D + 2 * B * H * Sk * D) * size)
+    nbytes = (2 * B * H * Sq * D + 2 * B * H * Sk * D) * size + extra_bytes
+    return bound(4 * B * H * Sq * Sk * D, rate, nbytes)
 
 
-def sdpa(q, k, v):
-    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+def attention_rates(B, H, Sq, Sk, D, ms, bound_ms, library_ms) -> dict:
+    """The products' rate, the share of the bound reached, and the time
+    against the library call's."""
+    return {"tflops": 4 * B * H * Sq * Sk * D / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms,
+            "vs_library": ms / library_ms if library_ms else None}
 
 
-def check_flash(gen, name, shape, dtype, reps=3) -> dict:
+def sdpa(q, k, v, attn_mask=None):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+
+
+def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False) -> dict:
+    """Kernel A against ``chunked_attention`` on the same inputs. ``masked``:
+    a kv_mask with about a third of the keys masked at random and every key
+    of the last batch entry masked; ``stats``: the (m, l) of both too."""
     B, H, Sq, Sk, D = shape
     q = heads_view(gen, B, Sq, H, D, dtype)
     k = heads_view(gen, B, Sk, H, D, dtype)
     v = heads_view(gen, B, Sk, H, D, dtype)
-    out = flash_attention(q, k, v)
-    ref = chunked_attention(q, k, v)
+    kv_mask = None
+    if masked:
+        kv_mask = torch.rand((B, Sk), generator=gen, device="cuda") > 0.3
+        kv_mask[-1] = False
+    out = flash_attention(q, k, v, kv_mask=kv_mask, return_stats=stats)
+    ref = chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=stats)
     torch.cuda.synchronize()
+    stats_err = None
+    if stats:
+        (out, (m, l)), (ref, (m_ref, l_ref)) = out, ref
+        # fp32 dot products summed in another order: m moves by ~1e-6 of the
+        # largest score, and l by the same relative amount
+        stats_err = {"m": (m - m_ref).abs().max().item(),
+                     "l_rel": ((l - l_ref).abs() / l_ref).max().item()}
+        stats_tol = {"m": 1e-4 * max(1.0, m_ref.abs().max().item()), "l_rel": 1e-4}
+        del m, l, m_ref, l_ref
     err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
     scale = ref.float().abs().max().item()
     del out, ref
     # bf16: one bf16 rounding of P and of the output, in another order
     tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
-    ms = cuda_ms(lambda: flash_attention(q, k, v), reps)
-    plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), reps)
-    library_ms = library_time(lambda: sdpa(q, k, v), reps, f"flash {name}")
-    tflops = 4 * B * H * Sq * Sk * D / (ms * 1e-3) / 1e12
-    bnd = attention_bound(B, H, Sq, Sk, D, dtype)
-    log(f"flash {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}: "
-        f"max_abs_err {err:.3e} (tol {tol:.3e}) | kernel {ms:.3f} ms "
-        f"({tflops:.1f} TFLOP/s) | plain {plain_ms:.3f} ms | sdpa {library_ms} ms | "
+    ms = cuda_ms(lambda: flash_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
+    plain_ms = cuda_ms(lambda: chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
+    # SDPA gives no (m, l): no library call for the stats row
+    library_ms = None if stats else library_time(
+        lambda: sdpa(q, k, v, None if kv_mask is None else kv_mask[:, None, None, :]), reps,
+        f"flash {name}")
+    bnd = attention_bound(B, H, Sq, Sk, D, dtype, 0 if kv_mask is None else B * Sk * 4)
+    rates = attention_rates(B, H, Sq, Sk, D, ms, bnd["bound_ms"], library_ms)
+    log(f"flash {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}"
+        + (" kv_mask" if masked else "") + (" stats" if stats else "")
+        + f": max_abs_err {err:.3e} (tol {tol:.3e})"
+        + (f", stats {stats_err} (tol {stats_tol})" if stats else "")
+        + f" | kernel {ms:.3f} ms ({rates['tflops']:.1f} TFLOP/s, {100 * rates['bound_share']:.1f}% "
+        f"of the bound) | plain {plain_ms:.3f} ms | sdpa {library_ms} ms | "
         f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
-    if not err <= tol:
-        raise AssertionError(f"flash {name}: max abs err {err} > {tol}")
-    return {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bnd, "tflops": tflops}
+    if not (err <= tol and finite):
+        raise AssertionError(f"flash {name}: max abs err {err} > {tol} or not finite ({finite})")
+    if stats and not all(stats_err[n] <= stats_tol[n] for n in stats_err):
+        raise AssertionError(f"flash {name}: stats {stats_err} above {stats_tol}")
+    row = {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
+           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, **bnd, **rates}
+    if stats:
+        row.update(stats_err=stats_err, stats_tol=stats_tol)
+    return row
 
 
 def check_rms_rope(gen, name, shape, norm, tables, reps=5) -> dict:
@@ -345,6 +401,16 @@ def phase_kernels(n_vertices: int) -> tuple[list, list]:
     for n, s, d, rep in flash_cases(n_vertices):
         flash.append(dict(check_flash(gen, n, s, d), replaces=rep))
         torch.cuda.empty_cache()
+    # the contract's edges, bf16: a kv_mask over a ragged Sk, the training
+    # cross shape with stats, and D = 64 with ragged Sq and Sk
+    one_block = "actionmesh_tpu/ops/flash_attention.py:612"
+    flash.append(dict(check_flash(gen, "kv_mask", (3, 8, 1000, 1333, 128), torch.bfloat16, masked=True),
+                      replaces=one_block))
+    flash.append(dict(check_flash(gen, "stats", (32, 16, 2049, 257, 128), torch.bfloat16, stats=True),
+                      replaces=one_block))
+    flash.append(dict(check_flash(gen, "d64_ragged", (2, 4, 777, 1029, 64), torch.bfloat16),
+                      replaces=one_block))
+    torch.cuda.empty_cache()
     # first (the kernels line's head): the shape of most of B's launches on
     # the inference path, Stage 0's DiT self-attention q and k
     rope = [
@@ -360,7 +426,7 @@ def phase_kernels(n_vertices: int) -> tuple[list, list]:
 
 # Kernel F: the Stage-I self shape with interleaved tables from centred
 # timesteps (16 frames of 2049 tokens), a ragged small fp32 shape and a
-# head-dim-64 shape.
+# head-dim-64 shape. One call launches the pre-pass and kernel A's mainloop.
 FUSED_CASES = [
     ("stage1_self", (2, 16, 32784, 128), torch.bfloat16),
     ("ragged_f32", (1, 2, 300, 128), torch.float32),
@@ -369,9 +435,10 @@ FUSED_CASES = [
 
 
 def check_fused(gen, name, shape, dtype, reps=3, compare=False) -> dict:
-    """Kernel F against its plain version; at the Stage-I shape also timed
-    beside the unfused composition (kernel B on q and on k with half-layout
-    tables, then kernel A) and beside SDPA on the pre-normed q and k."""
+    """Kernel F against its plain version, timed beside SDPA on q and k
+    normalised and rotated beforehand (the plain pre-pass); with
+    ``compare`` also beside the unfused composition (kernel B on q and on k
+    with half-layout tables, then kernel A)."""
     B, H, S, D = shape
     q, k, v = (heads_view(gen, B, S, H, D, dtype) for _ in range(3))
     # centred timesteps t - t_min of 16 frames, one spacing per batch entry
@@ -391,11 +458,18 @@ def check_fused(gen, name, shape, dtype, reps=3, compare=False) -> dict:
     del out, ref
     ms = cuda_ms(lambda: flash_attention_fused(q, k, v, cos, sin, qs, ks), reps)
     plain_ms = cuda_ms(lambda: flash_attention_fused_reference(q, k, v, cos, sin, qs, ks), reps)
-    bnd = attention_bound(B, H, S, S, D, dtype)
+    qn, kn = norm_rope_interleaved(q, qs, cos, sin), norm_rope_interleaved(k, ks, cos, sin)
+    library_ms = library_time(lambda: sdpa(qn, kn, v), reps, f"flash_fused {name}")
+    del qn, kn
+    # the tables and the norm scales are read once too
+    bnd = attention_bound(B, H, S, S, D, dtype, (2 * B * S * D + 2 * D) * 4)
+    rates = attention_rates(B, H, S, S, D, ms, bnd["bound_ms"], library_ms)
     row = {"name": name, "shape": [B, H, S, D], "dtype": str(dtype)[6:], "max_abs_err": err,
-           "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
+           "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bnd, **rates}
     line = (f"flash_fused {name} {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}) | kernel F {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
+            f"(tol {tol:.3e}) | kernel F {ms:.3f} ms ({rates['tflops']:.1f} TFLOP/s, "
+            f"{100 * rates['bound_share']:.1f}% of the bound) | plain {plain_ms:.3f} ms | sdpa on "
+            f"q, k normalised and rotated beforehand {library_ms} ms | bound "
             f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
     if compare:
         half = [compute_rotary_embeddings(D, p, layout="half") for p in pos]
@@ -406,12 +480,7 @@ def check_fused(gen, name, shape, dtype, reps=3, compare=False) -> dict:
             return flash_attention(fused_rms_rope(q, qs, cos_h, sin_h), fused_rms_rope(k, ks, cos_h, sin_h), v)
 
         row["unfused_b_b_a_ms"] = cuda_ms(unfused, reps)
-        qn = fused_rms_rope(q, qs, cos_h, sin_h)
-        kn = fused_rms_rope(k, ks, cos_h, sin_h)
-        row["library_ms"] = library_time(lambda: sdpa(qn, kn, v), reps, f"flash_fused {name}")
-        del qn, kn
-        line += (f" | unfused (B, B, A) {row['unfused_b_b_a_ms']:.3f} ms | sdpa on pre-normed "
-                 f"q, k {row['library_ms']} ms")
+        line += f" | unfused (B, B, A) {row['unfused_b_b_a_ms']:.3f} ms"
     log(line)
     if not err <= tol:
         raise AssertionError(f"flash_fused {name}: max abs err {err} > {tol}")
@@ -529,7 +598,7 @@ def check_rms_rope_bwd(gen, name, shape, tables, reps=3) -> dict:
 
 def phase_backward() -> tuple[list, list]:
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    bwd = [check_flash_bwd(gen, n, s, d, with_library=(n == "stage1_self")) for n, s, d in BWD_CASES]
+    bwd = [check_flash_bwd(gen, n, s, d, with_library=n.startswith("stage1")) for n, s, d in BWD_CASES]
     rope = [
         check_rms_rope_bwd(gen, "stage1_self_qk", (2, 16, 32784, 128), 2),
         check_rms_rope_bwd(gen, "stage1_cross_q", (32, 16, 2049, 128), 0),
@@ -1132,7 +1201,8 @@ def main() -> None:
     ]
     kernels[0]["also_replaces"] = "actionmesh_tpu/ops/flash_attention.py:612"
     kernels[0]["launches_by_path"] = by_path("flash_fwd", "flash_fwd")
-    kernels[0]["library_ms_note"] = "scaled_dot_product_attention on the same q, k, v"
+    kernels[0]["library_ms_note"] = ("scaled_dot_product_attention on the same q, k, v (the kv_mask "
+                                     "as its attn_mask); none for the stats row, as SDPA gives no (m, l)")
     kernels[1]["launches_by_path"] = by_path("fused_rms_rope", "rms_rope")
     kernels[1]["library_ms_note"] = ("torch.nn.functional.rms_norm on the same x and scale for the "
                                      "rows without tables; none for the rows that rotate (no single "
@@ -1145,7 +1215,11 @@ def main() -> None:
                                       "training": tr["launches"]["flash_fused"],
                                       "smoke": fused_launches}
     kernels[5]["unfused_b_b_a_ms"] = fused[0]["unfused_b_b_a_ms"]
-    kernels[5]["library_ms_note"] = "scaled_dot_product_attention on q, k normalised and rotated beforehand"
+    kernels[5]["library_ms_note"] = ("scaled_dot_product_attention on q, k normalised and rotated "
+                                     "beforehand by the plain pre-pass")
+    kernels[5]["launches_note"] = "one launch counts a call: the pre-pass and kernel A's mainloop"
+    for i in (0, 5):  # the head row's rates, as for ms and bound_ms
+        kernels[i].update({k: kernels[i]["shapes"][0][k] for k in ("tflops", "bound_share", "vs_library")})
     print(json.dumps({"kernels": kernels, "build": build,
                       "small_reference_max_abs_err": small_err, "small_stage0_reference": small_stage0,
                       "small_train_reference": small_train, "small_icp_reference": small_icp,

@@ -366,6 +366,19 @@ def test_entry_point_tiny_on_cpu(tmp_path, capsys):
         ttrain.main(["--stage", "decoder", "--synthetic"])
 
 
+def test_entry_point_device_defaults_to_cuda(tmp_path, monkeypatch):
+    """Without --device the entry point asks for the card and raises where
+    there is none, instead of carrying on on the CPU; --device cpu runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--synthetic", "--size", "tiny", "--steps", "1", "--log-every", "1",
+            "--ckpt-every", "0", "--out", str(tmp_path / "run")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.run(ttrain.build_args().parse_args(args))
+    assert not (tmp_path / "run").exists()
+    state, history, _ = ttrain.run(ttrain.build_args().parse_args(args + ["--device", "cpu"]))
+    assert state["step"] == 1 and [h["step"] for h in history if "loss" in h] == [1]
+
+
 def test_entry_point_eval_profile_and_resume(tmp_path):
     """Held-out eval on the EMA weights, a profiler trace, and a second
     invocation that resumes from the checkpoint instead of restarting."""

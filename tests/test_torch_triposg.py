@@ -35,7 +35,7 @@ from actionmesh_tpu_torch.models.triposg import vae as tvae
 from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline as TPipeline
 from actionmesh_tpu_torch.models.triposg.pipeline import flow_sample as tflow_sample
 from actionmesh_tpu_torch.ops import rotary as trot
-from actionmesh_tpu_torch.ops.flash_attention import flash_attention_fused
+from actionmesh_tpu_torch.ops.flash_attention import flash_attention_fused, norm_rope_interleaved
 from actionmesh_tpu_torch.utils.weights import params_from_jax
 
 CPU = torch.device("cpu")
@@ -106,33 +106,80 @@ def test_interleaved_rotary_matches_jax():
     )
 
 
-def test_fused_attention_plain_matches_jax_interpret():
+def _bf16_ulp(ref):
+    """One bf16 ulp at each value of ``ref`` (8 significant bits)."""
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_norm_rope_prepass_matches_jax(D, dtype):
+    """Kernel F's pre-pass (plain version) vs the JAX package's own
+    composition: fp32 rms-norm as ``_norm_rope`` computes it
+    (actionmesh_tpu/ops/flash_attention.py:368-370), then
+    ``apply_rotary_embedding(layout="interleaved")``, rounded to the dtype.
+    Ragged S (not a multiple of any block), per-batch tables. Tolerance:
+    fp32 1e-6 (values of order 1, fp32 sums in another order); bf16 one ulp
+    (a last-bit difference in fp32 may round the other way)."""
+    rng = np.random.default_rng(D)
+    B, H, S = 2, 3, 45
+    x = rng.standard_normal((B, H, S, D)).astype(np.float32) * 3
+    scale = (1 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    tables = [jrot.compute_rotary_embeddings(D, jnp.asarray(rng.uniform(0, 15, S)), layout="interleaved")
+              for _ in range(B)]
+    cos = np.stack([_np(c) for c, _ in tables])
+    sin = np.stack([_np(s) for _, s in tables])
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    xf = jnp.asarray(x).astype(jdt).astype(jnp.float32)
+    var = jnp.mean(xf * xf, axis=-1, keepdims=True)
+    xf = xf * jax.lax.rsqrt(var + 1e-6) * jnp.asarray(scale)
+    ref = _np(jrot.apply_rotary_embedding(xf, jnp.asarray(cos), jnp.asarray(sin),
+                                          layout="interleaved").astype(jdt))
+    out = norm_rope_interleaved(torch.from_numpy(x).to(tdt), torch.from_numpy(scale),
+                                torch.from_numpy(cos), torch.from_numpy(sin))
+    assert out.dtype == tdt and out.shape == (B, H, S, D)
+    tol = 1e-6 if dtype == "f32" else _bf16_ulp(ref)
+    assert np.all(np.abs(_np(out) - ref) <= tol)
+
+
+@pytest.mark.parametrize(
+    "D,dtype,atol",
+    [
+        # the JAX test's own tolerance (tests/test_attention.py)
+        (128, "f32", 3e-5),
+        # q^, k^, P and the output are each rounded to bf16 on both sides,
+        # with fp32 sums in another order: two bf16 ulps at the outputs'
+        # largest magnitude (0.25-0.5 here; one ulp is 2^-9)
+        (64, "bf16", 2 * 2.0**-9),
+    ],
+)
+def test_fused_attention_plain_matches_jax_interpret(D, dtype, atol):
     """Kernel F's plain version vs the Pallas kernel in interpret mode,
-    (1, 2, 300, 128) fp32 with a ragged last block; atol 3e-5, the JAX
-    test's own (tests/test_attention.py)."""
+    (1, 2, 300, D) with a ragged last block."""
     rng = np.random.default_rng(0)
-    B, H, S, D = 1, 2, 300, 128
+    B, H, S = 1, 2, 300
     q, k, v = (rng.standard_normal((B, H, S, D)).astype(np.float32) for _ in range(3))
     qs = (1 + 0.1 * rng.standard_normal(D)).astype(np.float32)
     ks = (0.9 * qs).astype(np.float32)
     cos, sin = jrot.compute_rotary_embeddings(D, jnp.linspace(0, 3, S), layout="interleaved")
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
     orig = pl.pallas_call
     try:
         pl.pallas_call = functools.partial(orig, interpret=True)
         ref = jfa.flash_attention_fused(
-            *(jnp.asarray(a) for a in (q, k, v)), cos[None], sin[None],
+            *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), cos[None], sin[None],
             jnp.asarray(qs), jnp.asarray(ks), block_q=128, block_k=128,
         )
     finally:
         pl.pallas_call = orig
     flash_attention_fused.launches = 0
     out = flash_attention_fused(
-        *(torch.from_numpy(a) for a in (q, k, v)),
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
         torch.from_numpy(_np(cos).copy())[None], torch.from_numpy(_np(sin).copy())[None],
         torch.from_numpy(qs), torch.from_numpy(ks),
     )
-    assert out.shape == (B, H, S, D) and out.dtype == torch.float32
-    np.testing.assert_allclose(_np(out), _np(ref), atol=3e-5)
+    assert out.shape == (B, H, S, D) and out.dtype == tdt
+    np.testing.assert_allclose(_np(out), _np(ref), atol=atol)
     assert flash_attention_fused.launches == 0  # CPU tensors: the plain version
 
 
