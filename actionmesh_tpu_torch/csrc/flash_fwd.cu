@@ -74,13 +74,11 @@
 // q^, k^ and v (bf16 the TMA + wgmma kernel, fp32 the SIMT kernel). The
 // TPU kernel instead re-normalised each K block once per Q block.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -291,12 +289,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        const uint64_t dv = wgmma_desc(v_addr + kk * 16 * 128, kAtomBytes, 1024);
-        if constexpr (D == 128) {
-          wgmma_m64n128k16_rs(o, pa[kk], dv, 1);
-        } else {
-          wgmma_m64n64k16_rs(o, pa[kk], dv, 1);
-        }
+        wgmma_rs<D>(o, pa[kk], wgmma_desc(v_addr + kk * 16 * 128, kAtomBytes, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -329,53 +322,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda at run time through the CUDA
-// runtime's entry-point query, so that the library needs no link against it.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// Error codes of the tensor-map encode, beside the cudaError_t values.
-constexpr int kErrNoEncoder = 10000;    // no cuTensorMapEncodeTiled was found
-constexpr int kErrEncodeBase = 20000;   // + the CUresult of a refused encode
-
-// Rank-4 tensor map (D, S, H, B) of a bf16 tensor with element strides
-// (ss, sh, sb), box 64 columns x 128 rows, 128-byte swizzle, zero fill.
-int make_tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
-                    long long ss, long long sh, long long sb) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, kBlockN, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
-}
-
 template <int D>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_tensor_map(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb);
-  if (err == 0) err = make_tensor_map(&tk, p.k, D, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb);
-  if (err == 0) err = make_tensor_map(&tv, p.v, D, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb);
+  int err = make_tensor_map(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBlockM);
+  if (err == 0) err = make_tensor_map(&tk, p.k, D, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb, kBlockN);
+  if (err == 0) err = make_tensor_map(&tv, p.v, D, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb, kBlockN);
   if (err != 0) return err;
   constexpr int smem = SmemLayout<D>::kAlloc;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,

@@ -1,8 +1,9 @@
 // sm_90a (Hopper) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor loads, wgmma shared-memory descriptors and products, and
-// setmaxnreg. Inline PTX only (no CUTLASS/CuTe), so a source that includes
-// this header builds in seconds. Compile with -gencode arch=compute_90a,
-// code=sm_90a: wgmma and setmaxnreg exist only for that target.
+// TMA tensor loads and the host-side tensor-map encoder, wgmma shared-memory
+// descriptors and products, setmaxnreg, and bf16 packing. Inline PTX only
+// (no CUTLASS/CuTe), so a source that includes this header builds in
+// seconds. Compile with -gencode arch=compute_90a,code=sm_90a: wgmma and
+// setmaxnreg exist only for that target.
 //
 // Shared-memory layout the descriptors below assume (what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes): an "atom" holds R rows of 64 bf16
@@ -20,7 +21,15 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // ---------------------------------------------------------------------------
 // mbarrier
@@ -89,6 +98,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_
 
 __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time through the CUDA
+// runtime's entry-point query, so that the library needs no link against it.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// Error codes of the tensor-map encode, beside the cudaError_t values.
+constexpr int kErrNoEncoder = 10000;    // no cuTensorMapEncodeTiled was found
+constexpr int kErrEncodeBase = 20000;   // + the CUresult of a refused encode
+
+// Rank-4 tensor map (D, S, H, B) of a bf16 tensor with element strides
+// (ss, sh, sb), box 64 columns x `box_rows` rows (one swizzle atom column),
+// 128-byte swizzle, zero fill beyond the tensor. Returns 0 or an error code.
+inline int make_tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+                           long long ss, long long sh, long long sb, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
 }
 
 // ---------------------------------------------------------------------------
@@ -209,4 +260,55 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, shared) * B (64 x 16, shared), both K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The products above by output width N (64 or 128): D is 64 x N, N / 2
+// accumulator registers a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 128) {
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 128) {
+    wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
+  } else {
+    wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+  }
+}
+
+// Keeps register A fragments alive (in their registers) up to this point:
+// an asynchronous product reads them until the wgmma_wait that covers it.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }

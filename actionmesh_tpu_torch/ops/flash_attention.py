@@ -8,8 +8,11 @@ and meets both contracts. Its bf16 path is a warp-specialised TMA + ``wgmma``
 kernel (a producer warpgroup feeding a ring of K/V tiles, two consumer
 warpgroups of 64 query rows each); its fp32 path is SIMT FMA. Kernels C (dK,
 dV) and D (dQ) replace the two kernels of ``actionmesh_tpu/ops/
-flash_attention_bwd.py:flash_attention_bwd``; ``flash_attention_trainable``
-joins A with C and D as that module's ``custom_vjp`` does. Kernel F replaces
+flash_attention_bwd.py:flash_attention_bwd``; their bf16 paths are built the
+same way (C: a CTA owns 128 keys and walks 64-query steps; D: a CTA owns 128
+queries and walks 128-key tiles), deterministic, without atomics; their fp32
+paths are SIMT FMA. ``flash_attention_trainable`` joins A with C and D as
+that module's ``custom_vjp`` does. Kernel F replaces
 ``actionmesh_tpu/ops/flash_attention.py:flash_attention_fused``; no path of
 either package calls it. See the notes at the top of the CUDA sources for
 their design. On CPU tensors each wrapper runs its plain version (from
@@ -78,6 +81,22 @@ def _bwd_library():
         lib.flash_bwd_dkv.restype = lib.flash_bwd_dq.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
+
+
+def _check_launch(what: str, err: int) -> None:
+    """Raise on a nonzero return of a C entry point: a cudaError_t, or one of
+    the tensor-map codes of ``csrc/sm90.cuh`` (10000: no
+    cuTensorMapEncodeTiled in the driver; 20000 + CUresult: a refused
+    encode)."""
+    if err == 0:
+        return
+    if err == 10000:
+        detail = "no cuTensorMapEncodeTiled was found in the CUDA driver"
+    elif err >= 20000:
+        detail = f"the tensor-map encode was refused (CUresult {err - 20000})"
+    else:
+        detail = f"CUDA error {err}"
+    raise RuntimeError(f"{what} launch failed: {detail}")
 
 
 def kernel_takes_layout(x: torch.Tensor) -> bool:
@@ -168,8 +187,7 @@ def flash_attention(
         B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+    _check_launch("flash_fwd", err)
     flash_attention.launches += 1
     if return_stats:
         return out, (m, l)
@@ -246,13 +264,10 @@ def launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, which=("dkv",
     lib = _bwd_library()
     if "dkv" in which:
         err = lib.flash_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *common)
-        if err != 0:
-            raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
+        _check_launch("flash_bwd_dkv", err)
         flash_attention_bwd.dkv_launches += 1
     if "dq" in which:
-        err = lib.flash_bwd_dq(*inputs, dq.data_ptr(), *common)
-        if err != 0:
-            raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
+        _check_launch("flash_bwd_dq", lib.flash_bwd_dq(*inputs, dq.data_ptr(), *common))
         flash_attention_bwd.dq_launches += 1
 
 
@@ -401,8 +416,7 @@ def flash_attention_fused(
         B, H, S, D, _DTYPE_CODES[q.dtype], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"flash_fused launch failed: CUDA error {err}")
+    _check_launch("flash_fused", err)
     flash_attention_fused.launches += 1
     return out
 

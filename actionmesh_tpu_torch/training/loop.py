@@ -217,9 +217,15 @@ def run_flow_training(
     ``out_dir/ckpt_latest.npz`` when present (``cfg.resume``).
     ``eval_batches`` (held-out numpy batches) adds ``eval_loss`` records
     every ``cfg.eval_every`` steps: the loss of the EMA weights (when kept)
-    with fixed draws and no context dropout. Returns (final state, log).
+    with fixed draws and no context dropout. Runs on the card unless
+    ``device`` says otherwise, and raises where there is none. Returns
+    (final state, log).
     """
-    device = torch.device(device or "cpu")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("run_flow_training: CUDA is not available (use --device cpu)")
+        device = torch.device("cuda")
+    device = torch.device(device)
     if params is None:
         params = init_denoiser(torch.Generator(device).manual_seed(cfg.seed), model_cfg, device=device)
     optimizer = make_optimizer(cfg)

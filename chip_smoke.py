@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (csrc/flash_bwd.cu) and E (csrc/nn_argmin.cu) with nvcc, one process
      per source, and the native geometry library
      (native/actionmesh_native.cpp) with g++, all in parallel, from this
-     checkout; Triton compiles kernel B at its first launch;
+     checkout, and prints each CUDA kernel's registers and spills as
+     ptxas reports them; Triton compiles kernel B at its first launch;
   3. the inference slice: ActionMeshPipeline at the full widths of the
      default preset (random weights from seed 0) on 16 synthetic RGBA
      frames, Stage 0 the real TripoSG path (DevTripoSG: DINOv2, 100 DiT
@@ -33,8 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      beforehand, and at the Stage-I shape beside the unfused composition
      (kernel B twice, then kernel A);
   6. the backward kernels C and D at the Stage-I training shapes (on
-     kernel A's stats), timed beside SDPA's forward + backward, and kernel
-     B's backward;
+     kernel A's stats), timed beside SDPA's forward + backward and SDPA's
+     backward alone (over one retained forward), at a small fp32, a D = 64
+     and two ragged bf16 shapes (a one-row last query tile, a one-key last
+     key tile), two calls bit-equal at the Stage-I cross and a small shape;
+     and kernel B's backward;
   7. kernel E at the evaluator's shape and small shapes;
   8. small references: the inference slice (Stage-0 stub) and a small
      TripoSG Stage 0 (DiT 3 x 128, VAE decoder 2 x 128, dense 5 / fine 6 /
@@ -179,7 +183,13 @@ def phase_build() -> dict:
     log(f"build: {', '.join(f'{n}.cu' for n in cuda_build.SOURCES)} compiled with nvcc in "
         f"{nvcc_s:.1f} s, native/actionmesh_native.cpp with g++ in {gxx_s:.1f} s, in parallel; "
         f"all loaded in {seconds:.1f} s")
-    return {"seconds": seconds, "nvcc_seconds": nvcc_s, "gxx_seconds": gxx_s}
+    ptxas = {name: cuda_build.ptxas_report(cuda_build.ptxas_output.get(name, ""))
+             for name in cuda_build.SOURCES}
+    for name, rows in ptxas.items():
+        log(f"ptxas {name}.cu: " + "; ".join(
+            f"{r['kernel']} {r['registers']} registers, spills {r['spill_store_bytes']} B stored / "
+            f"{r['spill_load_bytes']} B loaded" for r in rows))
+    return {"seconds": seconds, "nvcc_seconds": nvcc_s, "gxx_seconds": gxx_s, "ptxas": ptxas}
 
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense), for the bounds.
@@ -498,23 +508,32 @@ def phase_fused() -> tuple[list, int]:
 # Stage-I training shapes of kernels C and D: the inflated self-attention
 # (2 samples x 16 frames x 2049 tokens) and the per-frame cross-attention
 # (32 frames onto 257 DINOv2 tokens), both head dim 128; plus small ragged
-# fp32 and D=64 shapes, so every instantiation runs.
+# fp32 and D=64 shapes, so every instantiation runs, and the bf16 tiles'
+# edges: 129 queries leave one row in the last query tile (64 rows in C,
+# 128 in D), 385 keys one key in the last 128-key tile.
 BWD_CASES = [
     ("stage1_self", (2, 16, 32784, 32784, 128), torch.bfloat16),
     ("stage1_cross", (32, 16, 2049, 257, 128), torch.bfloat16),
     ("small_f32", (2, 4, 1000, 1100, 128), torch.float32),
     ("small_d64", (2, 4, 777, 1029, 64), torch.bfloat16),
+    ("edge_d128", (1, 2, 129, 385, 128), torch.bfloat16),
+    ("edge_d64", (1, 2, 129, 385, 64), torch.bfloat16),
 ]
+BWD_DETERMINISM = ("stage1_cross", "small_d64")
 
 
 def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict:
     """Kernels C and D against the plain backward (chunked_attention_
-    trainable's), from the same q, k, v, o, m, l and dO."""
+    trainable's), from the same q, k, v, o, m, l and dO; for the
+    BWD_DETERMINISM shapes a second call must give bit-equal gradients."""
     B, H, Sq, Sk, D = shape
     q, do = heads_view(gen, B, Sq, H, D, dtype), heads_view(gen, B, Sq, H, D, dtype)
     k, v = heads_view(gen, B, Sk, H, D, dtype), heads_view(gen, B, Sk, H, D, dtype)
     o, (m, l) = flash_attention(q, k, v, return_stats=True)
     got = flash_attention_bwd(q, k, v, o, m, l, do)
+    deterministic = None
+    if name in BWD_DETERMINISM:
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd(q, k, v, o, m, l, do)))
     ref = attention_bwd_reference(q, k, v, o, m, l, do)
     torch.cuda.synchronize()
     # bf16: P and dS rounded to bf16 at other entries than the plain
@@ -535,7 +554,16 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         return torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), do)
 
-    library_ms = library_time(sdpa_fwd_bwd, reps, f"flash_bwd {name}") if with_library else None
+    library_ms = library_bwd_ms = None
+    if with_library:
+        library_ms = library_time(sdpa_fwd_bwd, reps, f"flash_bwd {name}")
+        # SDPA's backward alone, over one forward kept for it
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = sdpa(qg, kg, vg)
+        library_bwd_ms = library_time(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), reps,
+            f"flash_bwd {name} (backward alone)")
+        del qg, kg, vg, out
     work = B * H * Sq * Sk * D
     tf_c, tf_d = 6 * work / (ms_c * 1e-3) / 1e12, 4 * work / (ms_d * 1e-3) / 1e12
     # The pair's least work is 10*B*H*Sq*Sk*D (S and dP once, then dV, dK,
@@ -549,13 +577,18 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict
         + ", ".join(f"{n} {errs[n]:.3e} (tol {tols[n]:.3e})" for n in errs)
         + f" | kernel C {ms_c:.3f} ms ({tf_c:.1f} TFLOP/s, bound {bnd_c['bound_ms']:.3f}), "
         f"kernel D {ms_d:.3f} ms ({tf_d:.1f} TFLOP/s, bound {bnd_d['bound_ms']:.3f}) | plain "
-        f"(dq, dk, dv together) {plain_ms:.3f} ms | sdpa forward + backward {library_ms} ms")
+        f"(dq, dk, dv together) {plain_ms:.3f} ms | sdpa forward + backward {library_ms} ms, "
+        f"backward alone {library_bwd_ms} ms"
+        + ("" if deterministic is None else f" | two calls bit-equal: {deterministic}"))
     bad = [n for n in errs if not errs[n] <= tols[n]]
     if bad:
         raise AssertionError(f"flash_bwd {name}: {bad} above tolerance: {errs} vs {tols}")
+    if deterministic is False:
+        raise AssertionError(f"flash_bwd {name}: two calls gave different gradients")
     return {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
             "max_abs_err": errs, "tol": tols, "ms_dkv": ms_c, "ms_dq": ms_d,
-            "plain_ms": plain_ms, "library_ms": library_ms, "tflops_dkv": tf_c,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_bwd_ms": library_bwd_ms,
+            "deterministic": deterministic, "tflops_dkv": tf_c,
             "tflops_dq": tf_d, "bound_dkv": bnd_c, "bound_dq": bnd_d}
 
 
@@ -1175,13 +1208,16 @@ def main() -> None:
                  "max_abs_err": max(r["max_abs_err"][g] for g in key[1]),
                  "tol": min(r["tol"][g] for g in key[1]), "ms": r[f"ms_{key[0]}"],
                  "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                 "library_bwd_ms": r["library_bwd_ms"], "deterministic": r["deterministic"],
                  **r[f"bound_{key[0]}"], "tflops": r[f"tflops_{key[0]}"]} for r in bwd]
         out = summary(name, "actionmesh_tpu_torch/csrc/flash_bwd.cu", replaces, rows,
                       tr["launches"][name])
+        out["library_bwd_ms"] = rows[0]["library_bwd_ms"]
         out["launches_by_path"] = {"training": tr["launches"][name]}
         out["plain_ms_note"] = "the plain backward computes dq, dk and dv together"
         out["library_ms_note"] = ("scaled_dot_product_attention forward plus backward: one call "
-                                  "pair for kernels A, C and D together")
+                                  "pair for kernels A, C and D together; library_bwd_ms is its "
+                                  "backward alone over one retained forward, for C and D together")
         return out
 
     kernels = [

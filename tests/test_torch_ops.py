@@ -347,15 +347,20 @@ def test_chunked_attention_trainable_grads_match_jax(sq, sk):
             np.testing.assert_allclose(_np(g), _np(gc), rtol=2e-4, atol=2e-4, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Sk", [(200, 400), (129, 385)])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_flash_attention_bwd_from_stats_matches_jax(dt):
+def test_flash_attention_bwd_from_stats_matches_jax(dt, Sq, Sk, D):
     """The backward from explicitly passed residuals and stats (JAX's own
-    o, m, l on both sides)."""
+    o, m, l on both sides), at the edges of the card kernels' tiles: 129
+    queries leave one row in the last 64- or 128-row query tile, 385 keys
+    one key in the last 128-key tile. The JAX forward pads Sk to a multiple
+    of block_k * unroll = 256 by 112 or 127, under block_k (ROADMAP Queue 3)."""
     from actionmesh_tpu.ops.flash_attention_bwd import flash_attention_bwd as jbwd
     from actionmesh_tpu_torch.ops.flash_attention import flash_attention_bwd
 
     rng = np.random.default_rng(11)
-    B, H, Sq, Sk, D = 2, 2, 200, 400, 128  # Sk pads by 112 < block_k
+    B, H = 2, 2
     q, do = rng.standard_normal((2, B, H, Sq, D))
     k, v = rng.standard_normal((2, B, H, Sk, D))
     jdt, tdt = (jnp.float32, torch.float32) if dt == "f32" else (jnp.bfloat16, torch.bfloat16)
@@ -374,6 +379,49 @@ def test_flash_attention_bwd_from_stats_matches_jax(dt):
             # kernel scales a bf16-rounded q), plus one rounding of the result
             err = np.abs(_np(a) - _np(b)).max()
             assert err <= 2e-2 * np.abs(_np(b)).max(), (name, err)
+
+
+def test_launch_errors_name_the_tensor_map_codes():
+    """A nonzero return of a C entry point raises, and the message names
+    the tensor-map codes of csrc/sm90.cuh apart from CUDA errors."""
+    from actionmesh_tpu_torch.ops.flash_attention import _check_launch
+
+    _check_launch("flash_bwd_dq", 0)
+    for err, text in ((700, "CUDA error 700"), (10000, "no cuTensorMapEncodeTiled"),
+                      (20001, "the tensor-map encode was refused \\(CUresult 1\\)")):
+        with pytest.raises(RuntimeError, match=f"flash_bwd_dq launch failed: {text}"):
+            _check_launch("flash_bwd_dq", err)
+
+
+def test_ptxas_report_names_kernels_and_reads_spills():
+    """What the build's ``-Xptxas -v`` prints, read into each kernel's
+    registers and spill bytes (chip_smoke.py prints them)."""
+    from actionmesh_tpu_torch.utils.cuda_build import ptxas_report
+
+    text = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flash_bwd_dkv_bf16_kernel"
+        "ILi128EEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_125flash_bwd_dkv_bf16_kernel\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, 1536 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116norm_rope_kernelILi64EfEEv"
+        "NS_6ParamsEPT0_S3_PKfS5_S5_S5_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116norm_rope_kernel\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z16nn_argmin_kernelILi3E13__nv_bfloat16EvPKf'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Used 64 registers\n"
+    )
+    assert ptxas_report(text) == [
+        {"kernel": "flash_bwd_dkv_bf16_kernel<128>", "registers": 168,
+         "spill_store_bytes": 0, "spill_load_bytes": 0},
+        {"kernel": "norm_rope_kernel<64, float>", "registers": 40,
+         "spill_store_bytes": 12, "spill_load_bytes": 16},
+        {"kernel": "nn_argmin_kernel<3, __nv_bfloat16>", "registers": 64,
+         "spill_store_bytes": None, "spill_load_bytes": None},
+    ]
 
 
 @pytest.mark.parametrize("with_norm,table_batch", [(True, 2), (True, None), (False, 0)])

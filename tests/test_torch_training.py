@@ -244,13 +244,15 @@ def test_resume_is_bit_exact(tmp_path):
     """4 steps straight == 2 steps, checkpoint, restore, 2 more."""
     batches = _synthetic_batches(tmp_path, 4)
     _, tp = _bridge()
+    cpu = torch.device("cpu")
     straight, hist = tloop.run_flow_training(
-        TCFG, iter(batches), _tiny_run_cfg(tmp_path / "a"), params=tp)
+        TCFG, iter(batches), _tiny_run_cfg(tmp_path / "a"), params=tp, device=cpu)
     assert [h["step"] for h in hist] == [1, 2, 3, 4]
     assert all(np.isfinite(h["loss"]) for h in hist)
-    tloop.run_flow_training(TCFG, iter(batches[:2]), _tiny_run_cfg(tmp_path / "b"), params=tp)
+    tloop.run_flow_training(
+        TCFG, iter(batches[:2]), _tiny_run_cfg(tmp_path / "b"), params=tp, device=cpu)
     resumed, hist_b = tloop.run_flow_training(
-        TCFG, iter(batches[2:]), _tiny_run_cfg(tmp_path / "b"), params=tp)
+        TCFG, iter(batches[2:]), _tiny_run_cfg(tmp_path / "b"), params=tp, device=cpu)
     assert [h["step"] for h in hist_b] == [3, 4]
     assert resumed["step"] == straight["step"] == 4
     for (n, a), (_, b) in zip(named_leaves(resumed), named_leaves(straight)):
@@ -377,6 +379,21 @@ def test_entry_point_device_defaults_to_cuda(tmp_path, monkeypatch):
     assert not (tmp_path / "run").exists()
     state, history, _ = ttrain.run(ttrain.build_args().parse_args(args + ["--device", "cpu"]))
     assert state["step"] == 1 and [h["step"] for h in history if "loss" in h] == [1]
+
+
+def test_run_flow_training_defaults_to_cuda(tmp_path, monkeypatch):
+    """The library entry asks for the card when no device is given and
+    raises where there is none, instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    batches = _synthetic_batches(tmp_path, 2)
+    _, tp = _bridge()
+    cfg = _tiny_run_cfg(tmp_path / "run", total_steps=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tloop.run_flow_training(TCFG, iter(batches), cfg, params=tp)
+    assert not (tmp_path / "run").exists()
+    state, hist = tloop.run_flow_training(
+        TCFG, iter(batches), cfg, params=tp, device=torch.device("cpu"))
+    assert state["step"] == 2 and [h["step"] for h in hist] == [1, 2]
 
 
 def test_entry_point_eval_profile_and_resume(tmp_path):
