@@ -3,9 +3,9 @@
 Mirrors ``actionmesh_tpu/config.py`` with the values of
 ``actionmesh_tpu/configs/actionmesh.yaml`` written in as defaults, so the
 port needs no yaml reader. Knobs that exist only for the TPU runtime
-(``steps_per_launch``, ``split_cfg_batch``, ``attn_impl``, ``compute_dtype``,
-``clear_autocast``) are left out; ``tests/test_torch_pipeline.py`` pins the
-rest against the JAX ``load_config("actionmesh")``.
+(``steps_per_launch``, ``attn_impl``, ``compute_dtype``, ``clear_autocast``)
+are left out; ``tests/test_torch_pipeline.py`` pins the rest against the
+JAX ``load_config("actionmesh")``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ class SchedulerConfig:
     num_train_timesteps: int = 1000
     shift: float = 3.0
     is_additive: bool = True
+    # run the guidance branches one after the other (low-RAM mode)
+    split_cfg_batch: bool = False
 
 
 @dataclasses.dataclass

@@ -45,9 +45,52 @@
 //   Not in this version (later work): overlap of a warpgroup's softmax with
 //   its next Q K^T, pingpong scheduling of the two consumers, a persistent
 //   tile scheduler, a TMA store of O.
-// fp32 design: plain FMA (no TF32, which flips results at this precision). A
-// block of 128 threads owns 32 query rows; each thread computes a 2x4 score
-// micro-tile and accumulates 2 rows x D/8 output columns.
+//
+// fp32 design: split precision ("3xTF32") on the tensor cores, TMA + wgmma,
+// warp-specialised as the bf16 path. It serves the fp32 islands of the
+// main path: Stage II's vertex cross-attention, (5,8,19153,32784,128),
+// 1.29e13 flop, and Stage 0's SDF query, (1,8,262144,2048,128), 2.2e12
+// flop. Both are bound by the products: their inputs and outputs are ~2.2
+// GB, 0.7 ms at 3.35 TB/s, against 78 ms and 13 ms of products at
+// 495/3 TFLOP/s. Plain TF32 keeps 10 mantissa bits and flips SDF signs near
+// zero, so every product is three TF32 products:
+//   a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the small terms first),
+// dropping a_lo*b_lo (~2^-22 of the product).
+//   * The split (tf32_split below; ops/flash_attention.py:tf32_split is
+//     the same to the bit): hi = x rounded to nearest TF32 (ties away from
+//     zero) on the bit pattern, lo = x - hi exactly. lo is handed to the
+//     tensor core as it is, which reads its top 19 bits (truncation).
+//   * TF32 wgmma takes K-major operands only (no transpose bit). Q and K
+//     are K-major along D; V is not, so a pre-pass (split_kv_kernel, one
+//     launch before the mainloop) reads k and v once through their strides
+//     and writes four contiguous fp32 workspaces that the caller allocates:
+//     k_hi, k_lo (B,H,Sk,D) and v^T's hi and lo (B,H,D,Skp), Skp = Sk
+//     rounded up to 8. Within each group of 8 keys v^T stores key
+//     (p % 4) * 2 + p / 4 at position p, so the S accumulator's columns
+//     (2t, 2t+1) are the A-fragment's columns (t, t+4) of the P V product
+//     and P goes in with no shuffles. At the vertex-cross shape the
+//     workspaces are 2.7 GB, written once per call; every query tile
+//     reuses them.
+//   * Shared memory (D = 128): Q raw fp32, 128 rows, 64 KB, loaded once by
+//     TMA; a ring of two 64 KB slots that alternate K_j (hi, lo: 64 keys)
+//     and V^T_j (hi, lo), so the producer loads V_j while the consumers
+//     compute S_j and K_{j+1} while they compute P_j V_j. 192 KB in all; D
+//     = 64 halves every tile.
+//   * S = Q K^T: wgmma m64n64k8 RS. The consumers read Q's A-fragments
+//     from the swizzled tile (conflict-free), split them in registers, 64
+//     columns (8 k-steps, 64 registers) at a time, K_hi and K_lo from
+//     shared memory. O += P V: m64nDk8 RS, P split in registers, V^T_hi
+//     and V^T_lo from shared memory. Softmax, masking, stats and epilogue
+//     as the bf16 path (online_softmax), with fp32 output.
+//   * Accumulation: the tensor core's own fp32 sums truncate, so a chain of
+//     products over every key drifts (one accumulator for O over the 32,784
+//     keys of the vertex cross missed the 2e-5 bar of the output's range).
+//     Each 64 columns of S and each tile's P V therefore go into a fresh
+//     accumulator, the small products first, and are added to S and O in
+//     IEEE fp32 (at most 24 products in one chain).
+//   Not in this version: pingpong of the consumers, overlap of softmax
+//   and products, a persistent scheduler, TMA multicast of K/V tiles.
+//
 // The caller passes element strides for batch, head and sequence of every
 // tensor; the last axis must be contiguous, strides and addresses 16-byte
 // aligned.
@@ -71,8 +114,9 @@
 // adjacent channels, so every rotating pair sits in one lane's registers and
 // the rms sum over D is a 5-step shuffle) into two contiguous (B,H,S,D)
 // workspaces the caller allocates; kernel A's mainloop then attends over
-// q^, k^ and v (bf16 the TMA + wgmma kernel, fp32 the SIMT kernel). The
-// TPU kernel instead re-normalised each K block once per Q block.
+// q^, k^ and v (bf16 the TMA + wgmma kernel; fp32 its split pre-pass on k^
+// and v, then the 3xTF32 kernel). The TPU kernel instead re-normalised each
+// K block once per Q block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,6 +152,82 @@ __device__ __forceinline__ float mask_score(float s, int col, const Params& p,
   if (col >= p.Sk) return -INFINITY;
   if (mask_row != nullptr && mask_row[col] == 0) return kMaskedScore;
   return s * p.scale;
+}
+
+// Scale and mask one tile's scores, then the online-softmax update of a
+// consumer thread's two rows and the rescaling of its output accumulator.
+// sc[4j + e] is key key0 + 8j + 2t + (e & 1) of row g (e < 2) or g+8
+// (e >= 2); on return it holds the fp32 probabilities. m0/m1 are the running
+// maxima, l0/l1 this thread's partial row sums.
+template <int N, int D>
+__device__ __forceinline__ void online_softmax(float (&sc)[N / 2], float (&o)[D / 2], int key0,
+                                               int t, const Params& p, const int32_t* mask_row,
+                                               float& m0, float& m1, float& l0, float& l1) {
+  if (mask_row != nullptr || key0 + N > p.Sk) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = key0 + j * 8 + 2 * t;
+      sc[4 * j + 0] = mask_score(sc[4 * j + 0], col, p, mask_row);
+      sc[4 * j + 1] = mask_score(sc[4 * j + 1], col + 1, p, mask_row);
+      sc[4 * j + 2] = mask_score(sc[4 * j + 2], col, p, mask_row);
+      sc[4 * j + 3] = mask_score(sc[4 * j + 3], col + 1, p, mask_row);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) sc[i] *= p.scale;
+  }
+  float mx0 = kMaskedScore, mx1 = kMaskedScore;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    sc[4 * j + 0] = __expf(sc[4 * j + 0] - mn0);
+    sc[4 * j + 1] = __expf(sc[4 * j + 1] - mn0);
+    sc[4 * j + 2] = __expf(sc[4 * j + 2] - mn1);
+    sc[4 * j + 3] = __expf(sc[4 * j + 3] - mn1);
+    ps0 += sc[4 * j + 0] + sc[4 * j + 1];
+    ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + ps0;
+  l1 = l1 * alpha1 + ps1;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j + 0] *= alpha0;
+    o[4 * j + 1] *= alpha0;
+    o[4 * j + 2] *= alpha1;
+    o[4 * j + 3] *= alpha1;
+  }
+}
+
+// Sum a consumer thread's partial row sums over the 4 lanes of each row.
+__device__ __forceinline__ void reduce_row_sums(float& l0, float& l1) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+}
+
+// Write the stats (m, l) of rows ra and rb, from the thread of t == 0.
+__device__ __forceinline__ void store_stats(const Params& p, int b, int h, int ra, int rb, int t,
+                                            float m0, float m1, float l0, float l1) {
+  if (p.m_out == nullptr || t != 0) return;
+  const long long base = ((long long)b * p.H + h) * p.Sq;
+  if (ra < p.Sq) { p.m_out[base + ra] = m0; p.l_out[base + ra] = l0; }
+  if (rb < p.Sq) { p.m_out[base + rb] = m1; p.l_out[base + rb] = l1; }
 }
 
 // ---------------------------------------------------------------------------
@@ -225,56 +345,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs(sc);
 
-      // Scale, mask, and the online-softmax update. sc[4j + e] is key
-      // 8j + 2t + (e & 1) of row g (e < 2) or g+8 (e >= 2).
-      const int key0 = n * kBlockN;
-      if (mask_row != nullptr || key0 + kBlockN > p.Sk) {
-#pragma unroll
-        for (int j = 0; j < kBlockN / 8; ++j) {
-          const int col = key0 + j * 8 + 2 * t;
-          sc[4 * j + 0] = mask_score(sc[4 * j + 0], col, p, mask_row);
-          sc[4 * j + 1] = mask_score(sc[4 * j + 1], col + 1, p, mask_row);
-          sc[4 * j + 2] = mask_score(sc[4 * j + 2], col, p, mask_row);
-          sc[4 * j + 3] = mask_score(sc[4 * j + 3], col + 1, p, mask_row);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) sc[i] *= p.scale;
-      }
-      float mx0 = kMaskedScore, mx1 = kMaskedScore;
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-        sc[4 * j + 0] = __expf(sc[4 * j + 0] - mn0);
-        sc[4 * j + 1] = __expf(sc[4 * j + 1] - mn0);
-        sc[4 * j + 2] = __expf(sc[4 * j + 2] - mn1);
-        sc[4 * j + 3] = __expf(sc[4 * j + 3] - mn1);
-        ps0 += sc[4 * j + 0] + sc[4 * j + 1];
-        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
-      }
-      l0 = l0 * alpha0 + ps0;
-      l1 = l1 * alpha1 + ps1;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j + 0] *= alpha0;
-        o[4 * j + 1] *= alpha0;
-        o[4 * j + 2] *= alpha1;
-        o[4 * j + 3] *= alpha1;
-      }
+      online_softmax<kBlockN, D>(sc, o, n * kBlockN, t, p, mask_row, m0, m1, l0, l1);
 
       // O += P V: P (bf16) as register A fragments, 16 keys per product
       uint32_t pa[kBlockN / 16][4];
@@ -297,11 +368,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
     }
 
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
+    reduce_row_sums(l0, l1);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
     __nv_bfloat16* obase = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -314,11 +381,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<uint32_t*>(obase + rb * p.o_ss + col) =
             pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
-    if (p.m_out != nullptr && t == 0) {
-      const long long base = ((long long)b * p.H + h) * p.Sq;
-      if (ra < p.Sq) { p.m_out[base + ra] = m0; p.l_out[base + ra] = l0; }
-      if (rb < p.Sq) { p.m_out[base + rb] = m1; p.l_out[base + rb] = l1; }
-    }
+    store_stats(p, b, h, ra, rb, t, m0, m1, l0, l1);
   }
 }
 
@@ -339,155 +402,351 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 path: SIMT FMA
+// fp32 path: split-precision (3xTF32) TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 128;
-constexpr int kF32BlockM = 32;
-constexpr int kF32BlockN = 32;
+constexpr int kF32BlockN = 64;   // keys per tile
+constexpr int kF32AtomCols = 32;  // fp32 columns of one 128-byte swizzle row
+constexpr int kF32QAtom = kBlockM * 128;  // one Q atom: 128 rows x 32 fp32
+constexpr int kSplitKeys = 32;   // keys per block of the split pre-pass
+constexpr int kSplitThreads = 256;
 
-template <int D>
-constexpr int f32_smem_bytes() {
-  return (2 * kF32BlockM * (D + 1) + kF32BlockN * D + kF32BlockM * (kF32BlockN + 1)) * 4;
+// The split, defined on the bit pattern (ops/flash_attention.py:tf32_split
+// is the same to the bit): hi = x rounded to TF32 (10 mantissa bits) to
+// nearest, ties away from zero, or truncated where rounding would overflow
+// to inf; lo = x - hi, exact in fp32. inf and NaN give hi = x, lo = 0.
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  const uint32_t b = __float_as_uint(x);
+  const bool special = (b & 0x7F800000u) == 0x7F800000u;
+  uint32_t h = (b + 0x1000u) & 0xFFFFE000u;
+  if ((h & 0x7F800000u) == 0x7F800000u) h = b & 0xFFFFE000u;
+  hi = special ? x : __uint_as_float(h);
+  lo = special ? 0.f : x - hi;
 }
 
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  float h, l;
+  tf32_split(x, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
+}
+
+// Storage position p of a key inside its group of 8 in the V^T workspaces:
+// key (p % 4) * 2 + p / 4, so that the S accumulator's columns (2t, 2t+1)
+// of each 8 are the TF32 A-fragment's columns (t, t+4) of the P V product.
+__device__ __forceinline__ int vt_key(int pos) {
+  return (pos & ~7) | ((pos & 3) << 1) | ((pos >> 2) & 1);
+}
+
+// Workspaces of one call, fp32, contiguous: k_hi and k_lo (B,H,Sk,D), then
+// v^T's hi and lo (B,H,D,Skp) with Skp = Sk rounded up to a multiple of 8.
+struct SplitKV {
+  float *kh, *kl, *vth, *vtl;
+  int Skp;
+};
+
+inline SplitKV split_views(float* ws, int B, int H, int Sk, int D) {
+  SplitKV w;
+  w.Skp = (Sk + 7) & ~7;
+  const long long nk = (long long)B * H * Sk * D, nv = (long long)B * H * D * w.Skp;
+  w.kh = ws;
+  w.kl = ws + nk;
+  w.vth = ws + 2 * nk;
+  w.vtl = w.vth + nv;
+  return w;
+}
+
+// Pre-pass: one block per (32 keys, head, batch) splits those keys' rows of
+// k (strided, read once) into k_hi, k_lo and writes the same keys of v,
+// transposed through shared memory and split, into v^T's hi and lo (zeros
+// for keys Sk..Skp-1).
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-flash_fwd_f32_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                              // [BM][D+1]
-  float* Ks = Qs + kF32BlockM * (D + 1);         // [BN][D+1]
-  float* Vs = Ks + kF32BlockN * (D + 1);         // [BN][D]
-  float* Ps = Vs + kF32BlockN * D;               // [BM][BN+1]
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3, cg = tid & 7;  // rows 2rg, 2rg+1; columns cg + 8j
-  const int q0 = blockIdx.x * kF32BlockM;
-
-  const float* qbase = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kbase = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vbase = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int32_t* mask_row = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
-
-  for (int i = tid; i < kF32BlockM * D; i += kF32Threads) {
-    const int r = i / D, c = i % D;
-    Qs[r * (D + 1) + c] = (q0 + r < p.Sq) ? qbase[(long long)(q0 + r) * p.q_ss + c] : 0.f;
+__global__ void __launch_bounds__(kSplitThreads)
+split_kv_kernel(const Params p, const SplitKV w) {
+  __shared__ float vs[kSplitKeys][D + 1];
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kSplitKeys;
+  const long long head = (long long)b * p.H + h;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  for (int i = threadIdx.x; i < kSplitKeys * D / 4; i += kSplitThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4, key = k0 + r;
+    float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < p.Sk) {
+      const float4 kv = *reinterpret_cast<const float4*>(kb + key * p.k_ss + c);
+      float4 hi, lo;
+      tf32_split(kv.x, hi.x, lo.x);
+      tf32_split(kv.y, hi.y, lo.y);
+      tf32_split(kv.z, hi.z, lo.z);
+      tf32_split(kv.w, hi.w, lo.w);
+      const long long o = (head * p.Sk + key) * D + c;
+      *reinterpret_cast<float4*>(w.kh + o) = hi;
+      *reinterpret_cast<float4*>(w.kl + o) = lo;
+      vv = *reinterpret_cast<const float4*>(vb + key * p.v_ss + c);
+    }
+    vs[r][c] = vv.x;
+    vs[r][c + 1] = vv.y;
+    vs[r][c + 2] = vv.z;
+    vs[r][c + 3] = vv.w;
   }
-
-  float acc[2][D / 8];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) acc[i][j] = 0.f;
-  float m[2] = {kMaskedScore, kMaskedScore};
-  float l[2] = {0.f, 0.f};
-
-  for (int n0 = 0; n0 < p.Sk; n0 += kF32BlockN) {
-    __syncthreads();
-    for (int i = tid; i < kF32BlockN * D; i += kF32Threads) {
-      const int r = i / D, c = i % D;
-      const bool in = n0 + r < p.Sk;
-      Ks[r * (D + 1) + c] = in ? kbase[(long long)(n0 + r) * p.k_ss + c] : 0.f;
-      Vs[r * D + c] = in ? vbase[(long long)(n0 + r) * p.v_ss + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qa = Qs[(2 * rg) * (D + 1) + d];
-      const float qb = Qs[(2 * rg + 1) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kv = Ks[(cg + 8 * j) * (D + 1) + d];
-        s[0][j] = fmaf(qa, kv, s[0][j]);
-        s[1][j] = fmaf(qb, kv, s[1][j]);
-      }
-    }
-
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = kMaskedScore;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = mask_score(s[i][j], n0 + cg + 8 * j, p, mask_row);
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      alpha[i] = expf(m[i] - mn);
-      m[i] = mn;
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
-        ps += s[i][j];
-        Ps[(2 * rg + i) * (kF32BlockN + 1) + cg + 8 * j] = s[i][j];
-      }
-      l[i] = l[i] * alpha[i] + ps;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) acc[i][j] *= alpha[i];
-    for (int kk = 0; kk < kF32BlockN; ++kk) {
-      const float pa = Ps[(2 * rg) * (kF32BlockN + 1) + kk];
-      const float pb = Ps[(2 * rg + 1) * (kF32BlockN + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const float vv = Vs[kk * D + cg + 8 * j];
-        acc[0][j] = fmaf(pa, vv, acc[0][j]);
-        acc[1][j] = fmaf(pb, vv, acc[1][j]);
-      }
-    }
-  }
-
-  float* obase = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = q0 + 2 * rg + i;
-    if (row < p.Sq) {
-      const float inv = 1.f / fmaxf(li, 1e-30f);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) obase[(long long)row * p.o_ss + cg + 8 * j] = acc[i][j] * inv;
-      if (p.m_out != nullptr && cg == 0) {
-        const long long idx = ((long long)b * p.H + h) * p.Sq + row;
-        p.m_out[idx] = m[i];
-        p.l_out[idx] = li;
-      }
-    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < D * kSplitKeys; i += kSplitThreads) {
+    const int d = i / kSplitKeys, pos = i % kSplitKeys;
+    if (k0 + pos >= w.Skp) continue;
+    float hi, lo;
+    tf32_split(vs[vt_key(pos)][d], hi, lo);
+    const long long o = (head * D + d) * w.Skp + k0 + pos;
+    w.vth[o] = hi;
+    w.vtl[o] = lo;
   }
 }
 
 template <int D>
-int launch_f32(const Params& p, cudaStream_t stream) {
-  constexpr int smem = f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.Sq + kF32BlockM - 1) / kF32BlockM, p.H, p.B);
-  flash_fwd_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(p);
+int launch_split_kv(const Params& p, const SplitKV& w, cudaStream_t stream) {
+  dim3 grid((w.Skp + kSplitKeys - 1) / kSplitKeys, p.H, p.B);
+  split_kv_kernel<D><<<grid, kSplitThreads, 0, stream>>>(p, w);
   return cudaGetLastError();
 }
 
-int launch(const Params& p, int D, int dtype, cudaStream_t stream) {
+// Shared memory of the fp32 kernel: the Q tile (128 rows, D/32 atoms of 16
+// KB), then a ring of two slots that alternate K_j (hi atoms, then lo) and
+// V^T_j (hi atoms, then lo).
+template <int D>
+struct F32Layout {
+  static constexpr int kKAtom = kF32BlockN * 128;    // 64 keys x 32 fp32
+  static constexpr int kVAtom = D * 128;             // D rows x 32 keys
+  static constexpr int kHalf = kF32BlockN * D * 4;   // hi (or lo) of one K or V^T tile
+  static constexpr int kSlot = 2 * kHalf;
+  static constexpr int kQ = 0;
+  static constexpr int kSlots = kQ + kBlockM * D * 4;  // + slot * kSlot
+  static constexpr int kBars = kSlots + 2 * kSlot;     // q_full, full[2], empty[2]
+  static constexpr int kBytes = kBars + 8 * 5;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+static_assert(F32Layout<128>::kAlloc <= 232448, "shared memory above the 227 KB a block may use");
+
+// Q[row][col] of the swizzled fp32 Q tile in shared memory.
+__device__ __forceinline__ float q_at(const uint8_t* q, int row, int col) {
+  const int chunk = ((col % kF32AtomCols) >> 2) ^ (row & 7);
+  return *reinterpret_cast<const float*>(q + (col / kF32AtomCols) * kF32QAtom +
+                                         row * 128 + chunk * 16 + (col & 3) * 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_kh,
+                     const __grid_constant__ CUtensorMap tm_kl,
+                     const __grid_constant__ CUtensorMap tm_vh,
+                     const __grid_constant__ CUtensorMap tm_vl, const Params p) {
+  using L = F32Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;   // [0]: K slot, [1]: V^T slot
+  uint64_t* empty = full + 2;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockM;
+  const int n_tiles = (p.Sk + kF32BlockN - 1) / kF32BlockN;
+  const int warpgroup = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    // ---- producer: K_0, V^T_0, K_1, V^T_1, ... into the two slots ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_desc(&tm_q);
+      tma_prefetch_desc(&tm_kh);
+      tma_prefetch_desc(&tm_kl);
+      tma_prefetch_desc(&tm_vh);
+      tma_prefetch_desc(&tm_vl);
+      mbar_arrive_expect_tx(q_full, kBlockM * D * 4);
+#pragma unroll
+      for (int a = 0; a < D / kF32AtomCols; ++a)
+        tma_load_4d(smem + L::kQ + a * kF32QAtom, &tm_q, q_full, a * kF32AtomCols, q0, h, b);
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int s = i & 1, j = i >> 1;
+        mbar_wait(&empty[s], (j & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(&full[s], L::kSlot);
+        uint8_t* slot = smem + L::kSlots + s * L::kSlot;
+        if (s == 0) {
+#pragma unroll
+          for (int a = 0; a < D / kF32AtomCols; ++a) {
+            tma_load_4d(slot + a * L::kKAtom, &tm_kh, &full[0], a * kF32AtomCols, j * kF32BlockN, h, b);
+            tma_load_4d(slot + L::kHalf + a * L::kKAtom, &tm_kl, &full[0], a * kF32AtomCols,
+                        j * kF32BlockN, h, b);
+          }
+        } else {
+#pragma unroll
+          for (int a = 0; a < kF32BlockN / kF32AtomCols; ++a) {
+            tma_load_4d(slot + a * L::kVAtom, &tm_vh, &full[1], j * kF32BlockN + a * kF32AtomCols, 0, h, b);
+            tma_load_4d(slot + L::kHalf + a * L::kVAtom, &tm_vl, &full[1],
+                        j * kF32BlockN + a * kF32AtomCols, 0, h, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    setmaxnreg_inc<240>();
+    const int c = warpgroup - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = 64 * c + 16 * warp + g;  // this thread's rows in the tile: r0, r0 + 8
+    const int ra = q0 + r0, rb = ra + 8;
+    const int32_t* mask_row = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
+    const uint8_t* qs = smem + L::kQ;
+    const uint32_t k_addr = smem_addr(smem + L::kSlots);
+    const uint32_t v_addr = k_addr + L::kSlot;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kMaskedScore, m1 = kMaskedScore;
+    float l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int n = 0; n < n_tiles; ++n) {
+      // S = Q K^T over D in k-steps of 8, 64 columns (8 k-steps) at a
+      // time: Q's fragments are read from shared memory and split here; each
+      // 64 columns go into a fresh accumulator, the small products first,
+      // then hi x hi, and are added to S in fp32.
+      mbar_wait(&full[0], n & 1);
+      float sc[kF32BlockN / 2];
+#pragma unroll
+      for (int c64 = 0; c64 < D / 64; ++c64) {
+        uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int col = c64 * 64 + kk * 8 + t;
+          tf32_split(q_at(qs, r0, col), qh[kk][0], ql[kk][0]);
+          tf32_split(q_at(qs, r0 + 8, col), qh[kk][1], ql[kk][1]);
+          tf32_split(q_at(qs, r0, col + 4), qh[kk][2], ql[kk][2]);
+          tf32_split(q_at(qs, r0 + 8, col + 4), qh[kk][3], ql[kk][3]);
+        }
+        float part[kF32BlockN / 2];
+#pragma unroll
+        for (int i = 0; i < kF32BlockN / 2; ++i) part[i] = 0.f;
+        fence_regs(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int ks = c64 * 8 + kk;
+          const uint32_t off = (ks / 4) * L::kKAtom + (ks % 4) * 32;
+          wgmma_tf32_rs<kF32BlockN>(part, ql[kk], wgmma_desc(k_addr + off, 16, 1024));
+          wgmma_tf32_rs<kF32BlockN>(part, qh[kk], wgmma_desc(k_addr + L::kHalf + off, 16, 1024));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int ks = c64 * 8 + kk;
+          const uint32_t off = (ks / 4) * L::kKAtom + (ks % 4) * 32;
+          wgmma_tf32_rs<kF32BlockN>(part, qh[kk], wgmma_desc(k_addr + off, 16, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < kF32BlockN / 2; ++i) sc[i] = c64 == 0 ? part[i] : sc[i] + part[i];
+      }
+      if (lane == 0) mbar_arrive(&empty[0]);  // this warp is done with K_n
+
+      online_softmax<kF32BlockN, D>(sc, o, n * kF32BlockN, t, p, mask_row, m0, m1, l0, l1);
+
+      // O += P V: P split in registers as the A operand, V^T_n (keys
+      // permuted within each 8, vt_key) as the K-major B operand.
+      uint32_t ph[kF32BlockN / 8][4], pl[kF32BlockN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kF32BlockN / 8; ++kk) {
+        tf32_split(sc[4 * kk + 0], ph[kk][0], pl[kk][0]);
+        tf32_split(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+        tf32_split(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+        tf32_split(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      }
+      // This tile's P V goes into a fresh accumulator (the small products
+      // first), added to O in fp32: the tensor core's own fp32 sums round
+      // toward zero, and a chain over every key of Sk would drift.
+      float pv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+      fence_regs(pv);
+      mbar_wait(&full[1], n & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kF32BlockN / 8; ++kk) {
+        const uint32_t off = (kk / 4) * L::kVAtom + (kk % 4) * 32;
+        wgmma_tf32_rs<D>(pv, pl[kk], wgmma_desc(v_addr + off, 16, 1024));
+        wgmma_tf32_rs<D>(pv, ph[kk], wgmma_desc(v_addr + L::kHalf + off, 16, 1024));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kF32BlockN / 8; ++kk) {
+        const uint32_t off = (kk / 4) * L::kVAtom + (kk % 4) * 32;
+        wgmma_tf32_rs<D>(pv, ph[kk], wgmma_desc(v_addr + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+      if (lane == 0) mbar_arrive(&empty[1]);  // this warp is done with V^T_n
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] += pv[i];
+    }
+
+    reduce_row_sums(l0, l1);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    float* obase = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (ra < p.Sq)
+        *reinterpret_cast<float2*>(obase + ra * p.o_ss + col) =
+            make_float2(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
+      if (rb < p.Sq)
+        *reinterpret_cast<float2*>(obase + rb * p.o_ss + col) =
+            make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+    store_stats(p, b, h, ra, rb, t, m0, m1, l0, l1);
+  }
+}
+
+// The pre-pass, then the mainloop, on the caller's workspace `ws`.
+template <int D>
+int launch_f32(const Params& p, float* ws, cudaStream_t stream) {
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitKV w = split_views(ws, p.B, p.H, p.Sk, D);
+  int err = launch_split_kv<D>(p, w, stream);
+  if (err != 0) return err;
+  CUtensorMap tq, tkh, tkl, tvh, tvl;
+  const long long ks = D, kh = (long long)p.Sk * D, kb = (long long)p.H * kh;
+  const long long vs = w.Skp, vh = (long long)D * w.Skp, vb = (long long)p.H * vh;
+  err = make_tensor_map_f32(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBlockM);
+  if (err == 0) err = make_tensor_map_f32(&tkh, w.kh, D, p.Sk, p.H, p.B, ks, kh, kb, kF32BlockN);
+  if (err == 0) err = make_tensor_map_f32(&tkl, w.kl, D, p.Sk, p.H, p.B, ks, kh, kb, kF32BlockN);
+  if (err == 0) err = make_tensor_map_f32(&tvh, w.vth, w.Skp, D, p.H, p.B, vs, vh, vb, D);
+  if (err == 0) err = make_tensor_map_f32(&tvl, w.vtl, w.Skp, D, p.H, p.B, vs, vh, vb, D);
+  if (err != 0) return err;
+  constexpr int smem = F32Layout<D>::kAlloc;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.H, p.B);
+  flash_fwd_tf32x3_kernel<D><<<grid, kThreads, smem, stream>>>(tq, tkh, tkl, tvh, tvl, p);
+  return cudaGetLastError();
+}
+
+int launch(const Params& p, int D, int dtype, float* ws, cudaStream_t stream) {
   if (dtype == 0 && D == 128) return launch_bf16<128>(p, stream);
   if (dtype == 0 && D == 64) return launch_bf16<64>(p, stream);
-  if (dtype == 1 && D == 128) return launch_f32<128>(p, stream);
-  if (dtype == 1 && D == 64) return launch_f32<64>(p, stream);
+  if (dtype == 1 && D == 128) return launch_f32<128>(p, ws, stream);
+  if (dtype == 1 && D == 64) return launch_f32<64>(p, ws, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -593,29 +852,49 @@ int launch_prepass(const Params& p, void* qn, void* kn, const float* cos, const 
 
 // C entry point, loaded with ctypes. `strides` holds 12 element strides:
 // (batch, head, seq) for q, k, v, o in that order. dtype: 0 = bf16, 1 = fp32.
-// Returns 0 on success, else the cudaError_t of the launch, or 10000 when no
-// tensor-map encoder was found, or 20000 + the CUresult of a refused tensor
-// map.
+// `ws`: fp32 only (null for bf16), the caller's workspace of
+// 2*B*H*Sk*D + 2*B*H*D*Skp floats, Skp = Sk rounded up to a multiple of 8,
+// for the split pre-pass (k_hi, k_lo, v^T_hi, v^T_lo). Returns 0 on
+// success, else the cudaError_t of the launch, or 10000 when no tensor-map
+// encoder was found, or 20000 + the CUresult of a refused tensor map.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         const int32_t* kv_mask, float* m_out, float* l_out,
+                         const int32_t* kv_mask, float* m_out, float* l_out, float* ws,
                          const long long* strides, int B, int H, int Sq, int Sk,
                          int D, int dtype, float scale, void* stream) {
   Params p = strided_params(q, k, v, o, strides);
   p.kv_mask = kv_mask; p.m_out = m_out; p.l_out = l_out;
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk; p.scale = scale;
-  return launch(p, D, dtype, static_cast<cudaStream_t>(stream));
+  return launch(p, D, dtype, ws, static_cast<cudaStream_t>(stream));
+}
+
+// The fp32 path's split pre-pass alone (flash_fwd launches it itself), for
+// checking its workspaces: k, v fp32 (B,H,Sk,D) with `strides` (batch,
+// head, seq) of k then v; `ws` as flash_fwd's.
+extern "C" int flash_split_kv(const void* k, const void* v, float* ws, const long long* strides,
+                              int B, int H, int Sk, int D, void* stream) {
+  Params p = {};
+  p.k = k; p.v = v;
+  p.k_sb = strides[0]; p.k_sh = strides[1]; p.k_ss = strides[2];
+  p.v_sb = strides[3]; p.v_sh = strides[4]; p.v_ss = strides[5];
+  p.B = B; p.H = H; p.Sk = Sk;
+  const SplitKV w = split_views(ws, B, H, Sk, D);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch_split_kv<128>(p, w, st);
+  if (D == 64) return launch_split_kv<64>(p, w, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Kernel F's C entry point: self-attention (Sq = Sk = S) of pre-norm q, k, v
 // with fp32 qk-norm + interleaved RoPE. Launches the pre-pass, which writes
 // q^ and k^ into the caller's contiguous (B,H,S,D) workspaces qn, kn (the
-// dtype of q), then kernel A's mainloop on q^, k^ and v. cos/sin contiguous
-// (B,S,D) fp32, the norm scales contiguous (D,) fp32; `strides`, dtype and
-// the return value as flash_fwd's.
+// dtype of q), then kernel A's mainloop on q^, k^ and v (fp32: its split
+// pre-pass on k^ and v into `ws`, then the mainloop). cos/sin contiguous
+// (B,S,D) fp32, the norm scales contiguous (D,) fp32; `strides`, dtype, `ws`
+// and the return value as flash_fwd's.
 extern "C" int flash_fused(const void* q, const void* k, const void* v, void* o, void* qn,
                            void* kn, const float* cos, const float* sin, const float* q_scale,
-                           const float* k_scale, const long long* strides, int B, int H,
-                           int S, int D, int dtype, float scale, void* stream) {
+                           const float* k_scale, float* ws, const long long* strides, int B,
+                           int H, int S, int D, int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p = strided_params(q, k, v, o, strides);
   p.B = B; p.H = H; p.Sq = S; p.Sk = S; p.scale = scale;
@@ -629,5 +908,5 @@ extern "C" int flash_fused(const void* q, const void* k, const void* v, void* o,
   const long long dense[3] = {(long long)H * S * D, (long long)S * D, D};
   p.q = qn; p.q_sb = dense[0]; p.q_sh = dense[1]; p.q_ss = dense[2];
   p.k = kn; p.k_sb = dense[0]; p.k_sh = dense[1]; p.k_ss = dense[2];
-  return launch(p, D, dtype, st);
+  return launch(p, D, dtype, ws, st);
 }

@@ -6,10 +6,11 @@
 // setmaxnreg exist only for that target.
 //
 // Shared-memory layout the descriptors below assume (what a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B writes): an "atom" holds R rows of 64 bf16
-// (128 bytes each) with the 16-byte chunks of row r XOR-ed by (r % 8); the
-// atom starts at a 1024-byte aligned address. A D=128 row spans two atoms
-// (columns 0-63, 64-127), placed one after the other.
+// CU_TENSOR_MAP_SWIZZLE_128B writes): an "atom" holds R rows of 64 bf16 or
+// 32 fp32 (128 bytes each) with the 16-byte chunks of row r XOR-ed by
+// (r % 8); the atom starts at a 1024-byte aligned address. A D=128 bf16 row
+// spans two atoms (columns 0-63, 64-127), an fp32 row four, placed one after
+// the other.
 //
 // wgmma accumulator layout (m64nN, fp32), thread i of the warpgroup, warp
 // w = i / 32, g = (i % 32) / 4, t = i % 4: d[4j + 0..1] = D[16w + g][8j + 2t
@@ -124,22 +125,38 @@ inline EncodeTiledFn encode_tiled() {
 constexpr int kErrNoEncoder = 10000;    // no cuTensorMapEncodeTiled was found
 constexpr int kErrEncodeBase = 20000;   // + the CUresult of a refused encode
 
-// Rank-4 tensor map (D, S, H, B) of a bf16 tensor with element strides
-// (ss, sh, sb), box 64 columns x `box_rows` rows (one swizzle atom column),
-// 128-byte swizzle, zero fill beyond the tensor. Returns 0 or an error code.
-inline int make_tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
-                           long long ss, long long sh, long long sb, int box_rows) {
+// Rank-4 tensor map (D, S, H, B) of a tensor of `type` (`elem_bytes` each)
+// with element strides (ss, sh, sb), box 128 bytes of columns (64 bf16, 32
+// fp32: one swizzle atom column) x `box_rows` rows, 128-byte swizzle, zero
+// fill beyond the tensor. Returns 0 or an error code.
+inline int make_tensor_map_typed(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                                 const void* ptr, int D, int S, int H, int B, long long ss,
+                                 long long sh, long long sb, int box_rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(ss * elem_bytes), (cuuint64_t)(sh * elem_bytes),
+                                 (cuuint64_t)(sb * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
+}
+
+// The bf16 map: box 64 columns x `box_rows` rows.
+inline int make_tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+                           long long ss, long long sh, long long sb, int box_rows) {
+  return make_tensor_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, D, S, H, B, ss, sh,
+                               sb, box_rows);
+}
+
+// The fp32 map: box 32 columns x `box_rows` rows.
+inline int make_tensor_map_f32(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+                               long long ss, long long sh, long long sb, int box_rows) {
+  return make_tensor_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, D, S, H, B, ss, sh,
+                               sb, box_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -300,6 +317,64 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
   } else {
     wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+  }
+}
+
+// TF32 products (fp32 bit patterns in, of which the tensor core reads the
+// top 19 bits: sign, exponent, 10 mantissa bits). TF32 operands are K-major
+// only, 8 deep (32 bytes, as 16 bf16). The register A-fragment of m64nNk8
+// is a0 = A[16w + g][t], a1 = A[16w + g + 8][t], a2 = A[16w + g][t + 4],
+// a3 = A[16w + g + 8][t + 4].
+
+// D (64 x 64, fp32) += A (64 x 8, registers) * B (64 x 8, shared, K-major).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 8, registers) * B (128 x 8, shared, K-major).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The TF32 products above by output width N (64 or 128), accumulating.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "wgmma_tf32_rs: N is 64 or 128");
+  if constexpr (N == 128) {
+    wgmma_m64n128k8_tf32_rs(d, a, desc_b);
+  } else {
+    wgmma_m64n64k8_tf32_rs(d, a, desc_b);
   }
 }
 

@@ -6,7 +6,11 @@ Kernel A replaces ``actionmesh_tpu/ops/flash_attention.py:
 flash_attention_pipelined`` and ``flash_attention`` (the Pallas TPU kernels)
 and meets both contracts. Its bf16 path is a warp-specialised TMA + ``wgmma``
 kernel (a producer warpgroup feeding a ring of K/V tiles, two consumer
-warpgroups of 64 query rows each); its fp32 path is SIMT FMA. Kernels C (dK,
+warpgroups of 64 query rows each); its fp32 path is built the same way on
+TF32 ``wgmma`` with fp32 accuracy, each product three TF32 products of split
+operands (``tf32_split``; a pre-pass writes k and v^T split into a
+workspace allocated here; ``split_precision_attention_reference`` is the
+plain model of that arithmetic). Kernels C (dK,
 dV) and D (dQ) replace the two kernels of ``actionmesh_tpu/ops/
 flash_attention_bwd.py:flash_attention_bwd``; their bf16 paths are built the
 same way (C: a CTA owns 128 keys and walks 64-query steps; D: a CTA owns 128
@@ -21,7 +25,8 @@ whose pre-pass is ``norm_rope_interleaved``); on CUDA tensors it launches its
 kernel or raises. ``flash_attention.launches``,
 ``flash_attention_bwd.dkv_launches``, ``flash_attention_bwd.dq_launches`` and
 ``flash_attention_fused.launches`` count calls that launch their kernels (one
-call of F launches two device kernels, the pre-pass and the mainloop).
+fp32 call of A launches two device kernels, the split pre-pass and the
+mainloop; one call of F launches its qk-norm pre-pass, then A's).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional
 import torch
 
 from actionmesh_tpu_torch.ops.attention import (
+    NEG_INF,
     attention_bwd_reference,
     bwd_row_stats,
     chunked_attention,
@@ -51,19 +57,18 @@ def _library():
         from actionmesh_tpu_torch.utils.cuda_build import load_library
 
         lib = load_library("flash_fwd")
+        # q, k, v, o, kv_mask, m, l, the fp32 split workspace, strides (host int64[12])
         lib.flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_void_p]  # strides (host int64[12])
-            + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         )
-        lib.flash_fwd.restype = ctypes.c_int
         # kernel F: q, k, v, o, q^, k^ (workspaces), cos, sin, q_scale, k_scale,
-        # strides (host int64[12])
+        # the fp32 split workspace, strides (host int64[12])
         lib.flash_fused.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         )
-        lib.flash_fused.restype = ctypes.c_int
+        # the split pre-pass alone: k, v, workspace, strides (host int64[6])
+        lib.flash_split_kv.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.flash_fwd.restype = lib.flash_fused.restype = lib.flash_split_kv.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -175,6 +180,7 @@ def flash_attention(
     if return_stats:
         m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ws = split_workspace(B, H, Sk, D, q.device)[0] if q.dtype == torch.float32 else None
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
@@ -183,6 +189,7 @@ def flash_attention(
         mask.data_ptr() if mask is not None else None,
         m.data_ptr() if m is not None else None,
         l.data_ptr() if l is not None else None,
+        ws.data_ptr() if ws is not None else None,
         ctypes.cast(strides, ctypes.c_void_p),
         B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -195,6 +202,144 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's fp32 path: split precision (3xTF32). Plain versions of the split
+# and of the arithmetic, for the tests and the card's checks; the main path
+# calls none of them.
+# ---------------------------------------------------------------------------
+
+_TF32_KEEP = -0x2000  # 0xFFFFE000 as int32: sign, exponent, top 10 mantissa bits
+_EXPONENT = 0x7F800000
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 ``x``, the kernel's split to the bit: hi = x rounded
+    to TF32 (10 mantissa bits) to nearest, ties away from zero, on the bit
+    pattern (truncated where rounding would overflow to inf); lo = x - hi,
+    exact in fp32, so hi + lo == x and |lo| <= 2^-11 |x|. inf and NaN give
+    hi = x, lo = 0."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_split takes fp32, got {x.dtype}")
+    bits = x.view(torch.int32)
+    special = (bits & _EXPONENT) == _EXPONENT
+    rounded = (torch.where(special, 0, bits) + 0x1000) & _TF32_KEEP
+    overflow = (rounded & _EXPONENT) == _EXPONENT
+    hi_bits = torch.where(special, bits, torch.where(overflow, bits & _TF32_KEEP, rounded))
+    hi = hi_bits.view(torch.float32)
+    return hi, torch.where(special, torch.zeros_like(x), x - hi)
+
+
+def _tensor_core_view(x: torch.Tensor) -> torch.Tensor:
+    """What a TF32 product reads of an fp32 operand: its top 19 bits."""
+    return (x.view(torch.int32) & _TF32_KEEP).view(torch.float32)
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (fp32) as the kernel forms it: a_lo*b_hi + a_hi*b_lo, then
+    a_hi*b_hi, each product of two TF32 values exact in fp32 (three fp32
+    matmuls; a TF32 product on the card would round)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    al, bl = _tensor_core_view(al), _tensor_core_view(bl)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def split_precision_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """Plain model of kernel A's fp32 path: ``chunked_attention``'s online
+    softmax over the same chunks (same masking, stats and output rule) with
+    every product of QK^T and PV formed from split operands as the kernel
+    forms them (``_split_matmul``). fp32 q, k, v (B, H, S, D)."""
+    q_chunk, k_chunk = 512, 1024
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.dtype == k.dtype == v.dtype == torch.float32:
+        raise ValueError("split_precision_attention_reference takes fp32 q, k, v")
+    Sq, Sk = q.shape[2], k.shape[2]
+    valid = None if kv_mask is None else (kv_mask != 0)[:, None, None, :]
+    outs, ms, ls = [], [], []
+    for q0 in range(0, Sq, q_chunk):
+        qb = q[:, :, q0 : q0 + q_chunk]
+        acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+        m = torch.full(qb.shape[:3], NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(qb.shape[:3], dtype=torch.float32, device=q.device)
+        for k0 in range(0, Sk, k_chunk):
+            s = _split_matmul(qb, k[:, :, k0 : k0 + k_chunk].transpose(-1, -2)) * scale
+            if valid is not None:
+                s = torch.where(valid[..., k0 : k0 + k_chunk], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + _split_matmul(p, v[:, :, k0 : k0 + k_chunk])
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+        ms.append(m)
+        ls.append(l)
+    out = torch.cat(outs, dim=2)
+    if return_stats:
+        return out, (torch.cat(ms, dim=2), torch.cat(ls, dim=2))
+    return out
+
+
+def split_workspace(B: int, H: int, Sk: int, D: int, device):
+    """The fp32 path's workspace, one fp32 allocation, and its four views:
+    k_hi, k_lo (B, H, Sk, D) and v^T's hi and lo (B, H, D, Skp), Skp = Sk
+    rounded up to a multiple of 8."""
+    skp = -(-Sk // 8) * 8
+    nk, nv = B * H * Sk * D, B * H * D * skp
+    ws = torch.empty(2 * nk + 2 * nv, dtype=torch.float32, device=device)
+    views = (
+        ws[:nk].view(B, H, Sk, D), ws[nk : 2 * nk].view(B, H, Sk, D),
+        ws[2 * nk : 2 * nk + nv].view(B, H, D, skp), ws[2 * nk + nv :].view(B, H, D, skp),
+    )
+    return ws, views
+
+
+def vt_key_order(skp: int) -> torch.Tensor:
+    """Key at each position of the v^T workspaces: within each group of 8,
+    position p holds key (p % 4) * 2 + p // 4."""
+    pos = torch.arange(skp)
+    return (pos & ~7) | ((pos & 3) << 1) | ((pos >> 2) & 1)
+
+
+def split_kv_reference(k: torch.Tensor, v: torch.Tensor):
+    """Plain version of the fp32 path's pre-pass: (k_hi, k_lo, vt_hi, vt_lo)
+    as ``split_workspace``'s views hold them after it (keys Sk..Skp-1 of v^T
+    zero)."""
+    B, H, Sk, D = k.shape
+    skp = -(-Sk // 8) * 8
+    kh, kl = tf32_split(k.contiguous())
+    vp = torch.nn.functional.pad(v, (0, 0, 0, skp - Sk))
+    vt = vp[:, :, vt_key_order(skp).to(v.device)].transpose(-1, -2).contiguous()
+    vh, vl = tf32_split(vt)
+    return kh, kl, vh, vl
+
+
+def tf32_split_kv(k: torch.Tensor, v: torch.Tensor):
+    """The fp32 path's pre-pass alone on the card (``flash_attention``
+    launches it itself before the mainloop; this is for checking it):
+    returns ``split_workspace``'s four views. Not counted as a launch."""
+    _check(k, k, v, None)
+    if k.dtype != torch.float32:
+        raise ValueError("tf32_split_kv: the split pre-pass is the fp32 path's")
+    B, H, Sk, D = k.shape
+    _, views = split_workspace(B, H, Sk, D, k.device)
+    strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
+    err = _library().flash_split_kv(
+        k.data_ptr(), v.data_ptr(), views[0].data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
+        B, H, Sk, D, torch.cuda.current_stream(k.device).cuda_stream,
+    )
+    _check_launch("flash_split_kv", err)
+    return views
 
 
 def flash_attention_bwd(
@@ -406,12 +551,14 @@ def flash_attention_fused(
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     qn, kn = torch.empty((2, B, H, S, D), dtype=q.dtype, device=q.device)
+    ws = split_workspace(B, H, S, D, q.device)[0] if q.dtype == torch.float32 else None
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
     err = _library().flash_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qn.data_ptr(), kn.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), q_norm_scale.data_ptr(), k_norm_scale.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
         ctypes.cast(strides, ctypes.c_void_p),
         B, H, S, D, _DTYPE_CODES[q.dtype], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,

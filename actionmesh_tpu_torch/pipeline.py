@@ -215,6 +215,7 @@ class ActionMeshPipeline:
             torch.as_tensor(timesteps, device=self.device),
             torch.as_tensor(distances, device=self.device),
             is_additive=self.cfg.scheduler.is_additive,
+            split_cfg_batch=self.cfg.scheduler.split_cfg_batch,
         )
 
     def generate_3d_latents(

@@ -3,7 +3,8 @@
 Counterpart of ``actionmesh_tpu/sampling/denoise_loop.py``: a Python loop
 over steps (PyTorch runs eagerly; JAX scans). The CFG branch batch and the
 RoPE tables are built once per window. The schedule and the Euler update
-are fp32; frames with mask=1 are frozen.
+are fp32; frames with mask=1 are frozen. ``split_cfg_batch`` runs the
+guidance branches one at a time instead of as one batch.
 """
 
 from __future__ import annotations
@@ -56,12 +57,19 @@ def denoise_window(
     timesteps: torch.Tensor,
     distances: torch.Tensor,
     is_additive: bool = True,
+    split_cfg_batch: bool = False,
 ) -> torch.Tensor:
     """Denoise one AR window.
 
     init_latent (B, T, N, D): conditioning latents where mask=1, noise
     elsewhere; context (B, T, S, Dc); mask (B, T); framestep (B, T);
     timesteps (steps+1,) and distances (steps,) fp32. Returns (B, T, N, D).
+
+    ``split_cfg_batch``: run the guidance branches one after the other, each
+    on its own slice of the RoPE tables, context, framestep and mask, and
+    concatenate the predictions (the reference's low-RAM mode, reference
+    ``scheduler.py:139-170``; ``actionmesh_tpu/sampling/denoise_loop.py``
+    does the same), so only one branch's activations are live at a time.
     """
     B, T, N, _ = init_latent.shape
     compute_dtype = init_latent.dtype
@@ -77,18 +85,34 @@ def denoise_window(
 
     latents = init_latent
     for i in range(distances.shape[0]):
-        hidden = torch.cat([latents] * g, dim=0)
-        pred = denoiser_forward(
-            params,
-            dcfg,
-            hidden,
-            context_g,
-            framestep_g,
-            timesteps[i].expand(g * B),
-            mask=mask_f,
-            freqs_rot=freqs_rot,
-            uncond_batch=guidance.leading_uncond_image_branches * B,
-        )
+        if split_cfg_batch and g > 1:
+            preds = []
+            for b in range(g):
+                sl = slice(b * B, (b + 1) * B)
+                preds.append(denoiser_forward(
+                    params,
+                    dcfg,
+                    latents,
+                    context_g[sl],
+                    framestep_g[sl],
+                    timesteps[i].expand(B),
+                    mask=mask_f[sl] if mask_f is not None else None,
+                    freqs_rot=tuple(f[sl] for f in freqs_rot),
+                ))
+            pred = torch.cat(preds, dim=0)
+        else:
+            hidden = torch.cat([latents] * g, dim=0)
+            pred = denoiser_forward(
+                params,
+                dcfg,
+                hidden,
+                context_g,
+                framestep_g,
+                timesteps[i].expand(g * B),
+                mask=mask_f,
+                freqs_rot=freqs_rot,
+                uncond_batch=guidance.leading_uncond_image_branches * B,
+            )
         pred32 = guidance.aggregate_cfg(pred).float()
         lat32 = latents.float()
         sign = 1.0 if is_additive else -1.0

@@ -10,14 +10,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      per source, and the native geometry library
      (native/actionmesh_native.cpp) with g++, all in parallel, from this
      checkout, and prints each CUDA kernel's registers and spills as
-     ptxas reports them; Triton compiles kernel B at its first launch;
+     ptxas reports them (kernel A's fp32 kernel and its split pre-pass
+     must spill nothing); Triton compiles kernel B at its first launch;
   3. the inference slice: ActionMeshPipeline at the full widths of the
      default preset (random weights from seed 0) on 16 synthetic RGBA
      frames, Stage 0 the real TripoSG path (DevTripoSG: DINOv2, 100 DiT
      steps with CFG 7.5, SDF decode with prefilter 6 / dense 8 / fine 9,
      marching cubes, QEM decimation to 40,000 faces), Stage I cut to 2
      steps; checks the anchor mesh, the meshes, and that the launch
-     counters equal what the path implies;
+     counters equal what the path implies; then one 2^18-point chunk of
+     its fine SDF pass (the slice's weights and decoded latent set) through
+     kernel A's fp32 path and through chunked_attention: no sign flip above
+     1e-5 of the largest |value|;
   4. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Stage 0's included): max abs error against the stated
      tolerance, and CUDA-event times (median of warm runs, each as many
@@ -26,7 +30,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      function, that call (``library_ms``; the port never calls it); kernel
      A also with a kv_mask (ragged Sk, one batch entry with every key
      masked), with its stats (m, l) held against the plain version's, and
-     at D = 64 with ragged Sq and Sk;
+     at D = 64 with ragged Sq and Sk. fp32 rows (3xTF32: fp32 accuracy on
+     TF32 tensor cores) are held within 2e-5 of the output's largest
+     magnitude with their stats, and give their distance from the plain
+     model of the split arithmetic
+     (``split_precision_attention_reference``), SDPA's distance from the
+     plain version and the kernels SDPA launches (torch.profiler, one
+     session for both fp32 shapes); the split pre-pass's workspaces must
+     equal ``split_kv_reference`` bit for bit;
   5. kernel F (qk-norm + interleaved RoPE pre-pass, then kernel A's
      mainloop; on no path) against its plain version at the Stage-I self
      shape, a ragged fp32 and a D = 64 shape, timed beside
@@ -43,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. small references: the inference slice (Stage-0 stub) and a small
      TripoSG Stage 0 (DiT 3 x 128, VAE decoder 2 x 128, dense 5 / fine 6 /
      prefilter 4), each in fp32 on the card and on the CPU (plain
-     versions) with the same weights and noise, agree;
+     versions) with the same weights and noise, agree (Stage 0: equal
+     faces and no fine-lattice sign flip);
   9. small train reference: 3 fp32 train steps of a small denoiser on the
      card and on the CPU, same weights, batches and draws, agree;
  10. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
@@ -63,9 +75,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of its main-path call: the larger of its bytes (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the peak rate of
-their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32), counted from this
-run's shapes. Rows of kernels A and F also give ``tflops`` (the products'
-4*B*H*Sq*Sk*D operations per second), ``bound_share`` (bound_ms / ms) and
+their type, counted from this run's shapes: 989 TFLOP/s for bf16 products;
+495 / 3 TFLOP/s for fp32 products (kernel A's and F's fp32 rows, C and D's
+fp32 row), since an fp32-accurate product on the tensor cores is three
+TF32 products at the data sheet's 495 TFLOP/s; 67 TFLOP/s, the non-tensor
+fp32 rate, for kernels B and E, which are no matrix products. Rows of
+kernels A and F also give ``tflops`` (the products' 4*B*H*Sq*Sk*D
+operations per second), ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
 The line before the last is a JSON object with the per-kernel results; the
 last line is the device JSON.
@@ -101,8 +117,11 @@ from actionmesh_tpu_torch.ops.attention import (
     attention_bwd_reference,
     bwd_row_stats,
     chunked_attention,
+    dot_product_attention,
 )
 from actionmesh_tpu_torch.ops.chunking import chunk_from
+from actionmesh_tpu_torch.models import layers as model_layers
+from actionmesh_tpu_torch.models.triposg import pipeline as triposg_pipeline
 from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -110,13 +129,21 @@ from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention_fused_reference,
     launch_bwd_kernels,
     norm_rope_interleaved,
+    split_kv_reference,
+    split_precision_attention_reference,
+    tf32_split_kv,
 )
 from actionmesh_tpu_torch.ops.nn_argmin import nn_argmin, nn_argmin_reference
 from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope, rms_rope_reference
 from actionmesh_tpu_torch.models.stage0 import _dev_sdf_regularizer, _dev_sdf_regularizer_torch
 from actionmesh_tpu_torch.models.triposg.dit import triposg_dit_config
 from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
-from actionmesh_tpu_torch.models.triposg.vae import TripoSGVAEConfig, decode_kv, query_sdf_at_ids
+from actionmesh_tpu_torch.models.triposg.vae import (
+    QUERY_CHUNK,
+    TripoSGVAEConfig,
+    decode_kv,
+    query_sdf_at_ids,
+)
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
 from actionmesh_tpu_torch.training.checkpoint import restore_train_state
@@ -189,11 +216,28 @@ def phase_build() -> dict:
         log(f"ptxas {name}.cu: " + "; ".join(
             f"{r['kernel']} {r['registers']} registers, spills {r['spill_store_bytes']} B stored / "
             f"{r['spill_load_bytes']} B loaded" for r in rows))
+    # kernel A's fp32 path and its pre-pass must not spill (a library built
+    # by an earlier run in this checkout leaves no report to read)
+    fp32_path = [r for r in ptxas["flash_fwd"]
+                 if r["kernel"].startswith(("flash_fwd_tf32x3_kernel", "split_kv_kernel"))]
+    if "flash_fwd" not in cuda_build.ptxas_output:
+        log("ptxas: flash_fwd.cu was built before this run; no report to check")
+    elif len(fp32_path) != 4 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in fp32_path):
+        raise AssertionError(f"kernel A's fp32 path: ptxas reports {fp32_path}")
     return {"seconds": seconds, "nvcc_seconds": nvcc_s, "gxx_seconds": gxx_s, "ptxas": ptxas}
 
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense), for the bounds.
-BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# An fp32-accurate product on the tensor cores takes three TF32 products
+# (3xTF32), so fp32 attention and its backward are priced at TF32 / 3; fp32
+# work that is no matrix product (kernels B, E) at the non-tensor rate.
+BF16_FLOPS, TF32_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S = 989e12, 495e12, 67e12, 3.35e12
+FP32_PRODUCT_FLOPS = TF32_FLOPS / 3
+
+
+def product_rate(dtype) -> float:
+    """The peak rate of matrix products of ``dtype`` (fp32: 3xTF32)."""
+    return BF16_FLOPS if dtype == torch.bfloat16 else FP32_PRODUCT_FLOPS
 
 
 def bound(flop: float, flop_rate: float, nbytes: float) -> dict:
@@ -271,9 +315,8 @@ def attention_bound(B, H, Sq, Sk, D, dtype, extra_bytes=0) -> dict:
     """QK^T and PV: 4*B*H*Sq*Sk*D operations; q, k, v read, o written once
     (plus ``extra_bytes`` of other inputs)."""
     size = torch.finfo(dtype).bits // 8
-    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     nbytes = (2 * B * H * Sq * D + 2 * B * H * Sk * D) * size + extra_bytes
-    return bound(4 * B * H * Sq * Sk * D, rate, nbytes)
+    return bound(4 * B * H * Sq * Sk * D, product_rate(dtype), nbytes)
 
 
 def attention_rates(B, H, Sq, Sk, D, ms, bound_ms, library_ms) -> dict:
@@ -287,10 +330,66 @@ def sdpa(q, k, v, attn_mask=None):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
 
 
-def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False) -> dict:
+# fp32 attention is held within 2e-5 of its output's largest magnitude: the
+# split products lose ~2^-21 of each product and the sums round in another
+# order, ~1e-6 of the output's range, where plain TF32 (10 mantissa bits)
+# would be ~1e-3 off.
+F32_ATTN_TOL = 2e-5
+
+
+def library_kernels(calls: dict) -> dict:
+    """Names of the device kernels that each call of ``calls`` (name ->
+    function) launches, from one torch.profiler session: in this script's
+    process a session after the first recorded no device kernel, so every
+    call shares one. A call's kernels are those whose midpoint lies inside its
+    ``record_function`` range, which a synchronisation closes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls.items():
+            with record_function(name):
+                fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # the device list holds the ranges' own annotations too: not kernels
+    device = [e for e in events if e.device_type == cuda and e.name not in calls]
+    names = {}
+    for name in calls:
+        rng = next(e.time_range for e in events if e.name == name and e.device_type != cuda)
+        names[name] = sorted({e.name for e in device
+                              if rng.start <= (e.time_range.start + e.time_range.end) / 2 <= rng.end})
+    return names
+
+
+def sdpa_fp32_kernels(n_vertices: int) -> dict:
+    """The kernels SDPA launches at the fp32 main-path shapes (random
+    inputs of those shapes), by case name."""
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    calls = {}
+    for name, (B, H, Sq, Sk, D), dtype, _ in flash_cases(n_vertices):
+        if dtype == torch.float32:
+            q, k, v = (heads_view(gen, B, S, H, D, dtype) for S in (Sq, Sk, Sk))
+            calls[name] = lambda q=q, k=k, v=v: sdpa(q, k, v)
+    names = library_kernels(calls)
+    for name, kernels in names.items():
+        log(f"sdpa fp32 {name}: launches {kernels}")
+    return names
+
+
+def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
+                library_kernel_names=None) -> dict:
     """Kernel A against ``chunked_attention`` on the same inputs. ``masked``:
     a kv_mask with about a third of the keys masked at random and every key
-    of the last batch entry masked; ``stats``: the (m, l) of both too."""
+    of the last batch entry masked; ``stats``: the (m, l) of both too (every
+    fp32 row checks them). fp32 rows also give the kernel's distance from
+    the plain model of its split arithmetic and SDPA's distance from the
+    plain version, carry ``library_kernel_names`` (the kernels SDPA
+    launches) and hold the split pre-pass's workspaces bit-equal to
+    ``split_kv_reference``."""
     B, H, Sq, Sk, D = shape
     q = heads_view(gen, B, Sq, H, D, dtype)
     k = heads_view(gen, B, Sk, H, D, dtype)
@@ -299,11 +398,13 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False) -> d
     if masked:
         kv_mask = torch.rand((B, Sk), generator=gen, device="cuda") > 0.3
         kv_mask[-1] = False
-    out = flash_attention(q, k, v, kv_mask=kv_mask, return_stats=stats)
-    ref = chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=stats)
+    f32 = dtype == torch.float32
+    with_stats = stats or f32
+    out = flash_attention(q, k, v, kv_mask=kv_mask, return_stats=with_stats)
+    ref = chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=with_stats)
     torch.cuda.synchronize()
     stats_err = None
-    if stats:
+    if with_stats:
         (out, (m, l)), (ref, (m_ref, l_ref)) = out, ref
         # fp32 dot products summed in another order: m moves by ~1e-6 of the
         # largest score, and l by the same relative amount
@@ -314,32 +415,48 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False) -> d
     err = (out.float() - ref.float()).abs().max().item()
     finite = bool(torch.isfinite(out).all())
     scale = ref.float().abs().max().item()
+    mask4 = None if kv_mask is None else kv_mask[:, None, None, :]
+    f32_extra = {}
+    if f32:
+        model = split_precision_attention_reference(q, k, v, kv_mask=kv_mask)
+        f32_extra["model_max_abs_diff"] = (out - model).abs().max().item()
+        del model
+        lib = sdpa(q, k, v, mask4)
+        f32_extra["library_max_abs_diff"] = (lib - ref).abs().max().item()
+        del lib
+        f32_extra["library_kernels"] = library_kernel_names
+        got, want = tf32_split_kv(k, v), split_kv_reference(k, v)
+        f32_extra["prepass_bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        del got, want
     del out, ref
     # bf16: one bf16 rounding of P and of the output, in another order
-    tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+    tol = (2e-2 if dtype == torch.bfloat16 else F32_ATTN_TOL) * scale
     ms = cuda_ms(lambda: flash_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
     plain_ms = cuda_ms(lambda: chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
     # SDPA gives no (m, l): no library call for the stats row
-    library_ms = None if stats else library_time(
-        lambda: sdpa(q, k, v, None if kv_mask is None else kv_mask[:, None, None, :]), reps,
-        f"flash {name}")
+    library_ms = None if stats else library_time(lambda: sdpa(q, k, v, mask4), reps, f"flash {name}")
     bnd = attention_bound(B, H, Sq, Sk, D, dtype, 0 if kv_mask is None else B * Sk * 4)
     rates = attention_rates(B, H, Sq, Sk, D, ms, bnd["bound_ms"], library_ms)
     log(f"flash {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}"
         + (" kv_mask" if masked else "") + (" stats" if stats else "")
         + f": max_abs_err {err:.3e} (tol {tol:.3e})"
-        + (f", stats {stats_err} (tol {stats_tol})" if stats else "")
+        + (f", stats {stats_err} (tol {stats_tol})" if with_stats else "")
+        + (f", from the split model {f32_extra['model_max_abs_diff']:.3e}, sdpa from the plain "
+           f"version {f32_extra['library_max_abs_diff']:.3e}, pre-pass bit-equal "
+           f"{f32_extra['prepass_bit_equal']}" if f32 else "")
         + f" | kernel {ms:.3f} ms ({rates['tflops']:.1f} TFLOP/s, {100 * rates['bound_share']:.1f}% "
         f"of the bound) | plain {plain_ms:.3f} ms | sdpa {library_ms} ms | "
         f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
     if not (err <= tol and finite):
         raise AssertionError(f"flash {name}: max abs err {err} > {tol} or not finite ({finite})")
-    if stats and not all(stats_err[n] <= stats_tol[n] for n in stats_err):
+    if with_stats and not all(stats_err[n] <= stats_tol[n] for n in stats_err):
         raise AssertionError(f"flash {name}: stats {stats_err} above {stats_tol}")
+    if f32 and not f32_extra["prepass_bit_equal"]:
+        raise AssertionError(f"flash {name}: the split pre-pass differs from split_kv_reference")
     row = {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, **bnd, **rates}
-    if stats:
+           "library_ms": library_ms, **bnd, **rates, **f32_extra}
+    if with_stats:
         row.update(stats_err=stats_err, stats_tol=stats_tol)
     return row
 
@@ -406,10 +523,13 @@ def check_rms_rope(gen, name, shape, norm, tables, reps=5) -> dict:
 def phase_kernels(n_vertices: int) -> tuple[list, list]:
     """Kernels A and B at the main paths' shapes; ``n_vertices`` is the
     anchor mesh's vertex count (the queries of Stage II's vertex cross)."""
+    sdpa_names = sdpa_fp32_kernels(n_vertices)
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flash = []
     for n, s, d, rep in flash_cases(n_vertices):
-        flash.append(dict(check_flash(gen, n, s, d), replaces=rep))
+        flash.append(dict(check_flash(gen, n, s, d, library_kernel_names=sdpa_names.get(n)),
+                          replaces=rep))
         torch.cuda.empty_cache()
     # the contract's edges, bf16: a kv_mask over a ragged Sk, the training
     # cross shape with stats, and D = 64 with ragged Sq and Sk
@@ -464,7 +584,7 @@ def check_fused(gen, name, shape, dtype, reps=3, compare=False) -> dict:
     ref = flash_attention_fused_reference(q, k, v, cos, sin, qs, ks)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * ref.float().abs().max().item()
+    tol = (2e-2 if dtype == torch.bfloat16 else F32_ATTN_TOL) * ref.float().abs().max().item()
     del out, ref
     ms = cuda_ms(lambda: flash_attention_fused(q, k, v, cos, sin, qs, ks), reps)
     plain_ms = cuda_ms(lambda: flash_attention_fused_reference(q, k, v, cos, sin, qs, ks), reps)
@@ -530,6 +650,14 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict
     q, do = heads_view(gen, B, Sq, H, D, dtype), heads_view(gen, B, Sq, H, D, dtype)
     k, v = heads_view(gen, B, Sk, H, D, dtype), heads_view(gen, B, Sk, H, D, dtype)
     o, (m, l) = flash_attention(q, k, v, return_stats=True)
+    stats_err = None
+    if dtype == torch.float32:
+        # kernel A's fp32 stats, which C and D read, against the plain version's
+        _, (m_ref, l_ref) = chunked_attention(q, k, v, return_stats=True)
+        stats_err = {"m": (m - m_ref).abs().max().item(),
+                     "l_rel": ((l - l_ref).abs() / l_ref).max().item()}
+        stats_tol = {"m": 1e-4 * max(1.0, m_ref.abs().max().item()), "l_rel": 1e-4}
+        del m_ref, l_ref
     got = flash_attention_bwd(q, k, v, o, m, l, do)
     deterministic = None
     if name in BWD_DETERMINISM:
@@ -569,7 +697,7 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict
     # The pair's least work is 10*B*H*Sq*Sk*D (S and dP once, then dV, dK,
     # dQ), counted 6 to C and 4 to D; bytes: C reads q, k, v, dO and writes
     # dk, dv, D reads the same and writes dq.
-    size, rate = torch.finfo(dtype).bits // 8, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    size, rate = torch.finfo(dtype).bits // 8, product_rate(dtype)
     qb, kb = B * H * Sq * D * size, B * H * Sk * D * size
     bnd_c = bound(6 * work, rate, 2 * qb + 4 * kb)
     bnd_d = bound(4 * work, rate, 3 * qb + 2 * kb)
@@ -579,16 +707,19 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict
         f"kernel D {ms_d:.3f} ms ({tf_d:.1f} TFLOP/s, bound {bnd_d['bound_ms']:.3f}) | plain "
         f"(dq, dk, dv together) {plain_ms:.3f} ms | sdpa forward + backward {library_ms} ms, "
         f"backward alone {library_bwd_ms} ms"
-        + ("" if deterministic is None else f" | two calls bit-equal: {deterministic}"))
+        + ("" if deterministic is None else f" | two calls bit-equal: {deterministic}")
+        + ("" if stats_err is None else f" | kernel A's stats {stats_err} (tol {stats_tol})"))
     bad = [n for n in errs if not errs[n] <= tols[n]]
     if bad:
         raise AssertionError(f"flash_bwd {name}: {bad} above tolerance: {errs} vs {tols}")
+    if stats_err is not None and not all(stats_err[n] <= stats_tol[n] for n in stats_err):
+        raise AssertionError(f"flash_bwd {name}: kernel A's stats {stats_err} above {stats_tol}")
     if deterministic is False:
         raise AssertionError(f"flash_bwd {name}: two calls gave different gradients")
     return {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
             "max_abs_err": errs, "tol": tols, "ms_dkv": ms_c, "ms_dq": ms_d,
             "plain_ms": plain_ms, "library_ms": library_ms, "library_bwd_ms": library_bwd_ms,
-            "deterministic": deterministic, "tflops_dkv": tf_c,
+            "deterministic": deterministic, "forward_stats_err": stats_err, "tflops_dkv": tf_c,
             "tflops_dq": tf_d, "bound_dkv": bnd_c, "bound_dq": bnd_d}
 
 
@@ -817,9 +948,9 @@ def fine_lattice_signs(pipe: TripoSGPipeline, latents: torch.Tensor) -> np.ndarr
 def phase_small_stage0() -> dict:
     """The small TripoSG Stage 0 in fp32 on the card (kernels A and B) and
     on the CPU (plain versions): same weights, image and noise. Latents
-    within 1e-4; meshes with equal faces and vertices within 1e-4. The
-    fine-lattice values whose sign differs between the two devices are
-    reported (a flip of a near-zero value would change the faces)."""
+    within 1e-4; meshes with equal faces and vertices within 1e-4; no
+    fine-lattice value whose sign differs between the two devices (a flip
+    of a near-zero value would change the faces)."""
     cpu_dev, gpu_dev = torch.device("cpu"), torch.device("cuda")
     cpu = TripoSGPipeline.from_random(
         seed=5, dtype=torch.float32, dit_cfg=SMALL_STAGE0_DIT, vae_cfg=SMALL_STAGE0_VAE,
@@ -857,9 +988,9 @@ def phase_small_stage0() -> dict:
         f"{flip_report}; chunks {gpu.extract_stats}; launches {launches} (expected {want})")
     if not err_lat <= 1e-4:
         raise AssertionError(f"small Stage 0: latents differ by {err_lat}")
-    if not (same_faces and mesh_c.n_faces > 0 and err_v <= 1e-4):
+    if not (same_faces and mesh_c.n_faces > 0 and err_v <= 1e-4 and not flips.any()):
         raise AssertionError(f"small Stage 0: meshes differ (faces equal {same_faces}, "
-                             f"vertices {err_v}); fine-lattice sign flips {flip_report}")
+                             f"vertices {err_v}) or fine-lattice signs flip: {flip_report}")
     if launches["flash_fwd"] != want["flash_fwd"] or launches["fused_rms_rope"] != want["fused_rms_rope"]:
         raise AssertionError(f"small Stage 0 launches {launches} != {want}")
     return {"latent_err": err_lat, "vertex_err": err_v, "faces": int(mesh_c.n_faces),
@@ -1000,11 +1131,23 @@ def phase_slice() -> dict:
     inp = ActionMeshInput(frames=frames, timesteps=np.arange(N_FRAMES, dtype=np.float32))
     preset_stage1_steps = pipe.cfg.scheduler.num_inference_steps  # the call cuts it
 
+    # keep the arguments of the decode's last SDF query, the fine pass's
+    fine_query = {}
+    query_at_ids = triposg_pipeline.query_sdf_at_ids
+
+    def recording_query(params, cfg, kv, ijk, lo, step, **kw):
+        fine_query.update(params=params, cfg=cfg, kv=kv, ijk=ijk, lo=lo, step=step, kw=kw)
+        return query_at_ids(params, cfg, kv, ijk, lo, step, **kw)
+
+    triposg_pipeline.query_sdf_at_ids = recording_query
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    meshes = pipe(inp, seed=44, stage_1_steps=STAGE1_STEPS)
-    torch.cuda.synchronize()
+    try:
+        meshes = pipe(inp, seed=44, stage_1_steps=STAGE1_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        triposg_pipeline.query_sdf_at_ids = query_at_ids
     total_s = time.perf_counter() - t0
     launches = {"flash_fwd": flash_attention.launches, "rms_rope": fused_rms_rope.launches,
                 "flash_fused": flash_attention_fused.launches}
@@ -1055,7 +1198,43 @@ def phase_slice() -> dict:
             "init_seconds": init_s,
             "call_seconds": total_s, "peak_gib": peak_gib, "sdf_query_chunks": chunks,
             "anchor_vertices": int(anchor.n_vertices), "anchor_faces": int(anchor.n_faces),
-            "derived_clip_seconds": clip_s, "preset_stage1_steps": preset_stage1_steps}
+            "derived_clip_seconds": clip_s, "preset_stage1_steps": preset_stage1_steps}, fine_query
+
+
+def plain_dot_product_attention(q, k, v, scale=None, kv_mask=None, trainable=False):
+    return chunked_attention(q, k, v, scale=scale, kv_mask=kv_mask)
+
+
+def phase_sdf_chunk(fine_query: dict) -> dict:
+    """One 2^18-point chunk of the slice's fine SDF pass, on the slice's
+    DevTripoSG weights and decoded latent set, queried through kernel A's
+    fp32 path and through ``chunked_attention`` on the card. The sign of a
+    (regularized) value decides the faces: a flip is allowed only where
+    |value| <= 1e-5 of the chunk's largest |value|."""
+    q = fine_query
+    args = (q["params"], q["cfg"], q["kv"], q["ijk"][:QUERY_CHUNK], q["lo"], q["step"])
+    launched = flash_attention.launches
+    kernel = query_sdf_at_ids(*args, **q["kw"])
+    if flash_attention.launches == launched:
+        raise AssertionError("the SDF chunk's query launched no kernel")
+    model_layers.dot_product_attention = plain_dot_product_attention
+    try:
+        plain = query_sdf_at_ids(*args, **q["kw"])
+    finally:
+        model_layers.dot_product_attention = dot_product_attention
+    flips = (kernel < 0) != (plain < 0)
+    vmax = float(np.abs(plain).max())
+    flipped = float(np.abs(plain[flips]).max()) if flips.any() else None
+    report = {"points": int(plain.size), "sign_flips": int(flips.sum()),
+              "max_abs_value_flipped": flipped, "max_abs_value": vmax,
+              "max_abs_value_diff": float(np.abs(kernel - plain).max()),
+              "lattice_step": [float(x) for x in np.asarray(q["step"])]}
+    log(f"full-width SDF chunk: {report['points']} fine-pass points, kernel vs plain: "
+        f"max abs diff {report['max_abs_value_diff']:.3e} (max |value| {vmax:.3e}), sign flips "
+        f"{report['sign_flips']}, largest |value| flipped {flipped} (allowed up to {1e-5 * vmax:.3e})")
+    if flipped is not None and flipped > 1e-5 * vmax:
+        raise AssertionError(f"full-width SDF chunk: a sign flips at |value| {flipped}")
+    return report
 
 
 def phase_train() -> dict:
@@ -1179,7 +1358,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     info = phase_device()
     build = phase_build()
-    sl = phase_slice()
+    sl, fine_query = phase_slice()
+    sdf_chunk = phase_sdf_chunk(fine_query)
+    del fine_query
+    torch.cuda.empty_cache()
     flash, rope = phase_kernels(sl["anchor_vertices"])
     fused, fused_launches = phase_fused()
     bwd, rope_bwd = phase_backward()
@@ -1259,7 +1441,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "build": build,
                       "small_reference_max_abs_err": small_err, "small_stage0_reference": small_stage0,
                       "small_train_reference": small_train, "small_icp_reference": small_icp,
-                      "slice": sl, "train": tr, "actionbench": ab, "card": info["nvidia_smi"]}),
+                      "slice": sl, "sdf_chunk": sdf_chunk, "train": tr, "actionbench": ab,
+                      "card": info["nvidia_smi"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

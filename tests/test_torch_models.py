@@ -177,6 +177,41 @@ def test_denoise_window_loop():
     _close(out, ref)
 
 
+@pytest.mark.parametrize("against", ["port_batched", "jax_split"])
+def test_denoise_window_split_cfg_batch(against):
+    """``split_cfg_batch`` runs the guidance branches one after the other:
+    the same fp32 arithmetic as the batched run, branch by branch (1e-5:
+    sums over other batch shapes), and JAX's split path on the same inputs
+    (the model-level 5e-4)."""
+    jcfg = jden.DenoiserConfig(**TINY_DENOISER)
+    tcfg = tden.DenoiserConfig(**TINY_DENOISER)
+    jp, tp = _bridge(jden.init_denoiser(jax.random.PRNGKey(12), jcfg))
+    rng = np.random.default_rng(13)
+    T, N = 4, 8
+    init = _rand(rng, 1, T, N, 8)
+    ctx = _rand(rng, 1, T, 5, 16)
+    mask = np.array([[1, 0, 1, 0]], np.int32)
+    framestep = np.arange(2, 2 + T, dtype=np.float32)[None]
+    ts, dist = get_schedule(3, 1000, 3.0)
+    flags, scales = [[0, 1], [1, 1]], [7.5]
+    t_args = (
+        tp, tcfg, tguidance(flags, scales), torch.from_numpy(init), torch.from_numpy(ctx),
+        torch.from_numpy(mask), torch.from_numpy(framestep), torch.from_numpy(ts),
+        torch.from_numpy(dist),
+    )
+    out = tloop.denoise_window(*t_args, split_cfg_batch=True)
+    np.testing.assert_array_equal(out[0, 0].numpy(), init[0, 0])  # frozen
+    if against == "port_batched":
+        _close(out, tloop.denoise_window(*t_args).numpy(), atol=1e-5)
+    else:
+        ref = jloop.denoise_window(
+            jp, jcfg, jguidance(flags, scales), jnp.asarray(init), jnp.asarray(ctx),
+            jnp.asarray(mask), jnp.asarray(framestep), jnp.asarray(ts), jnp.asarray(dist),
+            split_cfg_batch=True,
+        )
+        _close(out, ref)
+
+
 TINY_AE = dict(temporal_context_size=4, latent_channels=8, width=64, num_layers=3, num_attention_heads=2)
 
 

@@ -168,7 +168,7 @@ def test_config_matches_jax_preset():
     every field it keeps, the TripoSG decode knobs included; the fields it
     leaves out are exactly the TPU runtime knobs."""
     omitted = {
-        "temporal_3D_denoiser.clear_autocast", "scheduler.split_cfg_batch",
+        "temporal_3D_denoiser.clear_autocast",
         "scheduler.steps_per_launch", "compute_dtype", "attn_impl",
     }
 
