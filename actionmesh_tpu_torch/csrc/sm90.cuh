@@ -343,9 +343,10 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// D (64 x 128, fp32) += A (64 x 8, registers) * B (128 x 8, shared, K-major).
+// D (64 x 128, fp32) += A (64 x 8, registers) * B (128 x 8, shared, K-major);
+// scale_d = 0 overwrites D instead.
 __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                        uint64_t desc_b) {
+                                                        uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -363,7 +364,7 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // The TF32 products above by output width N (64 or 128), accumulating.

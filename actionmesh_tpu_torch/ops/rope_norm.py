@@ -1,32 +1,54 @@
-"""Fused per-head qk RMS-norm + half-layout RoPE: a Triton kernel for Hopper.
+"""Fused per-head qk RMS-norm + half-layout RoPE: kernel B, the wrapper of
+the Hopper kernels in ``csrc/rms_rope.cu`` (forward and backward) and their
+plain PyTorch versions.
 
 Replaces ``actionmesh_tpu/ops/rope_norm.py:fused_rms_rope`` (the Pallas TPU
 kernel ``_norm_rope_kernel``). The op reads each (row, head) vector of D=64
 or 128 values once, normalises it in fp32, rotates it and writes it once:
-no matrix product, so it is bound by device-memory bandwidth. One Triton
-program covers BLOCK_S rows of one (batch, head); heads vary fastest across
-programs, so the fp32 cos/sin rows, shared by all heads, are read from
-device memory once and from L2 for the other heads.
+no matrix product, so it is bound by device-memory bandwidth. See the note
+at the top of the CUDA source for the design.
 
-On CPU tensors the wrapper runs the plain version, ``rms_rope_reference``;
-on CUDA tensors it launches the kernel or raises.
-``fused_rms_rope.launches`` counts kernel launches. Where a gradient is
-needed the op is a ``torch.autograd.Function`` whose backward is the vjp of
-``rms_rope_reference``, recomputed from the saved inputs, as the JAX custom
-VJP is (``actionmesh_tpu/ops/rope_norm.py:_fused_bwd``): the TPU has no
-Pallas backward for it either.
+On CPU tensors the wrapper runs the plain versions, ``rms_rope_reference``
+and, for the gradient, ``rms_rope_backward_reference``; on CUDA tensors it
+launches the kernels or raises. Where a gradient is needed the op is a
+``torch.autograd.Function`` whose backward kernel recomputes the norm from
+the saved inputs, as the JAX custom VJP does
+(``actionmesh_tpu/ops/rope_norm.py:_fused_bwd``). ``fused_rms_rope.launches``
+counts forward launches, ``fused_rms_rope.bwd_launches`` backward calls (a
+call launches the backward kernel and its fixed-order sums).
 """
 
 from __future__ import annotations
 
+import ctypes
+import struct
+from array import array
 from typing import Optional
 
 import torch
 
 from actionmesh_tpu_torch.ops.rotary import apply_rotary_embedding
 
-_BLOCK_S = 32
-_kernel = None
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_lib = None
+_bwd_ws_rows = 0
+
+
+def _library():
+    global _lib, _bwd_ws_rows
+    if _lib is None:
+        from actionmesh_tpu_torch.utils.cuda_build import load_library
+
+        lib = load_library("rms_rope")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rms_rope_fwd.argtypes = [ptr]
+        lib.rms_rope_fwd.restype = i32
+        lib.rms_rope_bwd.argtypes = [ptr] * 12 + [i32] * 6 + [ctypes.c_float, ptr]
+        lib.rms_rope_bwd.restype = i32
+        lib.rms_rope_bwd_ws_rows.restype = i32
+        _bwd_ws_rows = lib.rms_rope_bwd_ws_rows()
+        _lib = lib
+    return _lib
 
 
 def rms_rope_reference(
@@ -50,66 +72,88 @@ def rms_rope_reference(
     return xf.to(x.dtype)
 
 
-def _build_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rms_rope_kernel(
-        x_ptr, o_ptr, scale_ptr, cos_ptr, sin_ptr,
-        S, cb, eps,
-        x_sb, x_sh, x_ss, o_sb, o_sh, o_ss, t_sb, t_ss,
-        D: tl.constexpr, HALF: tl.constexpr, BLOCK_S: tl.constexpr,
-        WITH_NORM: tl.constexpr, WITH_ROPE: tl.constexpr,
-    ):
-        h = tl.program_id(0)
-        rows = tl.program_id(1) * BLOCK_S + tl.arange(0, BLOCK_S)
-        b = tl.program_id(2)
-        cols = tl.arange(0, HALF)
-        rmask = (rows < S)[:, None]
-        xp = x_ptr + b * x_sb + h * x_sh + rows[:, None] * x_ss + cols[None, :]
-        x1 = tl.load(xp, mask=rmask, other=0.0).to(tl.float32)
-        x2 = tl.load(xp + HALF, mask=rmask, other=0.0).to(tl.float32)
-        if WITH_NORM:
-            var = (tl.sum(x1 * x1, axis=1) + tl.sum(x2 * x2, axis=1)) / D
-            r = (1.0 / tl.sqrt(var + eps))[:, None]
-            w1 = tl.load(scale_ptr + cols)[None, :]
-            w2 = tl.load(scale_ptr + HALF + cols)[None, :]
-            x1 = x1 * r * w1
-            x2 = x2 * r * w2
-        if WITH_ROPE:
-            tp = (b % cb) * t_sb + rows[:, None] * t_ss + cols[None, :]
-            c1 = tl.load(cos_ptr + tp, mask=rmask, other=0.0)
-            c2 = tl.load(cos_ptr + tp + HALF, mask=rmask, other=0.0)
-            s1 = tl.load(sin_ptr + tp, mask=rmask, other=0.0)
-            s2 = tl.load(sin_ptr + tp + HALF, mask=rmask, other=0.0)
-            y1 = x1 * c1 - x2 * s1
-            y2 = x2 * c2 + x1 * s2
-            x1 = y1
-            x2 = y2
-        op = o_ptr + b * o_sb + h * o_sh + rows[:, None] * o_ss + cols[None, :]
-        tl.store(op, x1.to(o_ptr.dtype.element_ty), mask=rmask)
-        tl.store(op + HALF, x2.to(o_ptr.dtype.element_ty), mask=rmask)
-
-    return rms_rope_kernel
+def _batch_tables(t: torch.Tensor, B: int) -> torch.Tensor:
+    """(S, D) or (cb, S, D) -> (B, 1, S, D), table b % cb for entry b."""
+    if t.ndim == 2:
+        return t[None, None]
+    return t.repeat(B // t.shape[0], 1, 1)[:, None]
 
 
-def _check(x, scale, cos, sin):
+def rms_rope_backward_reference(
+    x: torch.Tensor,
+    scale: Optional[torch.Tensor],
+    cos: Optional[torch.Tensor],
+    sin: Optional[torch.Tensor],
+    g: torch.Tensor,
+    eps: float = 1e-6,
+    table_grads: bool = True,
+):
+    """Plain version of the backward, the kernel's closed form in fp32.
+
+    With u = x r w, r = rsqrt(mean(x^2) + eps) and halves 1, 2 of D:
+    gu = (g1 c1 + g2 s2, g2 c2 - g1 s1) (g without tables); dx = r (gu w) -
+    x r^3 mean(gu w x) (gu without scale), in x's dtype; dscale = the sum of
+    gu x r over (B, H, S); dcos = g u and dsin = g (-u2, u1), summed over
+    the heads and the batch entries that share a table, in the tables'
+    shape (only with ``table_grads``). Returns (dx, dscale, dcos, dsin),
+    None for what does not apply.
+    """
+    B, _, _, D = x.shape
+    half = D // 2
+    xf, gf = x.float(), g.float()
+    g1, g2 = gf[..., :half], gf[..., half:]
+    if cos is not None:
+        c, s = _batch_tables(cos, B), _batch_tables(sin, B)
+        gu = torch.cat([g1 * c[..., :half] + g2 * s[..., half:],
+                        g2 * c[..., half:] - g1 * s[..., :half]], dim=-1)
+    else:
+        gu = gf
+    dscale = None
+    if scale is not None:
+        w = scale.float()
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        n = xf * r
+        dn = gu * w
+        dx = r * dn - xf * r**3 * torch.mean(dn * xf, dim=-1, keepdim=True)
+        dscale = (gu * n).sum(dim=(0, 1, 2))
+        u = n * w
+    else:
+        dx, u = gu, xf
+    dcos = dsin = None
+    if cos is not None and table_grads:
+        u1, u2 = u[..., :half], u[..., half:]
+        per_row_c = torch.cat([g1 * u1, g2 * u2], dim=-1).sum(1)  # (B, S, D)
+        per_row_s = torch.cat([-g1 * u2, g2 * u1], dim=-1).sum(1)
+        cb = 1 if cos.ndim == 2 else cos.shape[0]
+        dcos = per_row_c.view(B // cb, cb, *per_row_c.shape[1:]).sum(0).reshape(cos.shape)
+        dsin = per_row_s.view(B // cb, cb, *per_row_s.shape[1:]).sum(0).reshape(sin.shape)
+    return dx.to(x.dtype), dscale, dcos, dsin
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte aligned rows: the kernels' vector loads and stores."""
+    size = t.element_size()
+    sb, sh, ss, _ = t.stride()
+    return not (t.data_ptr() | sb * size | sh * size | ss * size) & 15
+
+
+def _check(x, scale, cos, sin) -> tuple[int, int, int, int]:
+    """Raise on what the kernels do not take (reading no device memory);
+    the shape (B, H, S, D)."""
     if x.ndim != 4:
         raise ValueError(f"fused_rms_rope: x must be (B, H, S, D), got {tuple(x.shape)}")
     B, H, S, D = x.shape
-    if D not in (64, 128):
+    if D != 128 and D != 64:
         raise ValueError(f"fused_rms_rope: head dim {D} not in (64, 128)")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in _DTYPES:
         raise ValueError(f"fused_rms_rope: unsupported dtype {x.dtype}")
     if x.stride(3) != 1:
         raise ValueError("fused_rms_rope: x's last axis must be contiguous")
-    # grid (H, S / BLOCK_S, B) limits, and 32-bit offsets inside the kernel
-    if B > 65535 or -(-S // _BLOCK_S) > 65535 or x.numel() >= 2**31:
+    if B * S >= 2**31:
         raise ValueError(f"fused_rms_rope: shape {tuple(x.shape)} too large")
     if scale is not None and (
-        scale.shape != (D,) or scale.dtype != torch.float32
-        or not scale.is_contiguous() or scale.device != x.device
+        scale.ndim != 1 or scale.shape[0] != D or scale.dtype != torch.float32
+        or scale.device != x.device or not scale.is_contiguous()
     ):
         raise ValueError("fused_rms_rope: scale must be a contiguous (D,) fp32 CUDA tensor")
     if (cos is None) != (sin is None):
@@ -126,6 +170,101 @@ def _check(x, scale, cos, sin):
                     f"(cb, S, D) with B % cb == 0 on {x.device}; got "
                     f"{tuple(t.shape)} {t.dtype}"
                 )
+    return B, H, S, D
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _f32_aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """An fp32 operand whose base the kernel reads 16 bytes at a time."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current stream of x's device, as the raw handle (the public
+    ``torch.cuda.current_stream`` builds a Stream object, a few us a call)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+def _check_launch(what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+_EPS_BITS: dict[float, int] = {}
+
+
+def _eps_bits(eps: float) -> int:
+    """eps as the bits of an fp32, the kernels' parameter block carries it."""
+    bits = _EPS_BITS.get(eps)
+    if bits is None:
+        bits = _EPS_BITS[eps] = struct.unpack("<i", struct.pack("<f", eps))[0]
+    return bits
+
+
+def _rms_rope_forward(x, scale, cos, sin, eps):
+    if x.device.type == "cpu":
+        return rms_rope_reference(x, scale, cos, sin, eps)
+    if not x.is_cuda:
+        raise ValueError(f"fused_rms_rope: unsupported device {x.device}")
+    B, H, S, D = _check(x, scale, cos, sin)
+    lib = _library()
+    # Kept short: a call at the DiT's small rows is ~10 us of device time,
+    # so the host's work per call counts. No device memory is read.
+    if not _aligned(x):
+        x = x.contiguous() if not x.is_contiguous() else x.clone()
+    sp = cp = sn = 0
+    cb = 1
+    if scale is not None:
+        sp = scale.data_ptr()
+    if cos is not None:
+        cp, sn = cos.data_ptr(), sin.data_ptr()
+        if cos.ndim == 3:
+            cb = cos.shape[0]
+    if (sp | cp | sn) & 15:
+        scale, cos, sin = _f32_aligned(scale), _f32_aligned(cos), _f32_aligned(sin)
+        sp, cp, sn = _ptr(scale) or 0, _ptr(cos) or 0, _ptr(sin) or 0
+    out = torch.empty_like(x)  # x's strides if x is dense, else contiguous
+    xs, os_ = x.stride(), out.stride()
+    params = array("q", (
+        x.data_ptr(), out.data_ptr(), sp, cp, sn, xs[0], xs[1], xs[2], os_[0], os_[1], os_[2],
+        B, H, S, D, cb, _DTYPES[x.dtype], _eps_bits(eps), _stream(x),
+    ))
+    _check_launch("fused_rms_rope", lib.rms_rope_fwd(params.buffer_info()[0]))
+    fused_rms_rope.launches += 1
+    return out
+
+
+def _rms_rope_backward(x, scale, cos, sin, g, eps, table_grads):
+    """The backward kernel on CUDA tensors: (dx, dscale, dcos, dsin)."""
+    lib = _library()
+    if g.stride(3) != 1 or not _aligned(g):
+        g = g.contiguous() if not g.is_contiguous() else g.clone()
+    if not _aligned(x):
+        x = x.contiguous() if not x.is_contiguous() else x.clone()
+    scale, cos, sin = _f32_aligned(scale), _f32_aligned(cos), _f32_aligned(sin)
+    B, H, S, D = x.shape
+    dx = torch.empty_like(x)
+    dscale = ws = None
+    if scale is not None:
+        dscale = torch.empty(D, dtype=torch.float32, device=x.device)
+        ws = torch.empty((_bwd_ws_rows, D), dtype=torch.float32, device=x.device)
+    dcos = dsin = tab_ws = None
+    if cos is not None and table_grads:
+        dcos, dsin = torch.empty_like(cos), torch.empty_like(sin)
+        tab_ws = torch.empty((2, B, S, D), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_longlong * 9)(*x.stride()[:3], *g.stride()[:3], *dx.stride()[:3])
+    err = lib.rms_rope_bwd(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), _ptr(scale), _ptr(cos), _ptr(sin),
+        _ptr(dscale), _ptr(dcos), _ptr(dsin), _ptr(ws), _ptr(tab_ws), ctypes.addressof(strides),
+        B, H, S, D, 1 if cos is None or cos.ndim == 2 else cos.shape[0], _DTYPES[x.dtype],
+        eps, _stream(x),
+    )
+    _check_launch("fused_rms_rope backward", err)
+    fused_rms_rope.bwd_launches += 1
+    return dx, dscale, dcos, dsin
 
 
 class _RmsRope(torch.autograd.Function):
@@ -137,19 +276,17 @@ class _RmsRope(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [
-                None if t is None else t.detach().requires_grad_(need)
-                for t, need in zip(saved, ctx.needs_input_grad)
-            ]
-            out = rms_rope_reference(*inputs, ctx.eps)
-            wrt = [t for t in inputs if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g))
-        return (
-            *(next(grads) if t is not None and t.requires_grad else None for t in inputs),
-            None,
-        )
+        x, scale, cos, sin = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        table_grads = need[2] or need[3]
+        if x.device.type == "cpu":
+            dx, dscale, dcos, dsin = rms_rope_backward_reference(
+                x, scale, cos, sin, g, ctx.eps, table_grads)
+        else:
+            dx, dscale, dcos, dsin = _rms_rope_backward(
+                x, scale, cos, sin, g, ctx.eps, table_grads)
+        return (dx if need[0] else None, dscale if need[1] else None,
+                dcos if need[2] else None, dsin if need[3] else None, None)
 
 
 def fused_rms_rope(
@@ -175,36 +312,5 @@ def fused_rms_rope(
     return _rms_rope_forward(x, scale, cos, sin, eps)
 
 
-def _rms_rope_forward(x, scale, cos, sin, eps):
-    if x.device.type == "cpu":
-        return rms_rope_reference(x, scale, cos, sin, eps)
-    if not x.is_cuda:
-        raise ValueError(f"fused_rms_rope: unsupported device {x.device}")
-    _check(x, scale, cos, sin)
-    global _kernel
-    if _kernel is None:
-        _kernel = _build_kernel()
-    B, H, S, D = x.shape
-    out = torch.empty_like(x)  # x's strides if x is dense, else contiguous
-    with_rope = cos is not None
-    if with_rope and cos.ndim == 2:
-        cos, sin = cos[None], sin[None]
-    dummy = out  # never read when its step is off
-    grid = (H, (S + _BLOCK_S - 1) // _BLOCK_S, B)
-    _kernel[grid](
-        x, out,
-        scale if scale is not None else dummy,
-        cos if with_rope else dummy,
-        sin if with_rope else dummy,
-        S, cos.shape[0] if with_rope else 1, eps,
-        *x.stride()[:3], *out.stride()[:3],
-        cos.stride(0) if with_rope else 0, cos.stride(1) if with_rope else 0,
-        D=D, HALF=D // 2, BLOCK_S=_BLOCK_S,
-        WITH_NORM=scale is not None, WITH_ROPE=with_rope,
-        num_warps=4,
-    )
-    fused_rms_rope.launches += 1
-    return out
-
-
 fused_rms_rope.launches = 0
+fused_rms_rope.bwd_launches = 0

@@ -24,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-SOURCES = ("flash_fwd", "flash_bwd", "nn_argmin")
+SOURCES = ("flash_fwd", "flash_bwd", "nn_argmin", "rms_rope")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 ptxas_output: dict[str, str] = {}  # source name -> ptxas -v output of its last build here
@@ -93,7 +93,7 @@ def _kernel_name(mangled: str) -> str:
     """``name<args>`` from an Itanium-mangled kernel name such as
     ``_ZN12_GLOBAL__N_125flash_bwd_dkv_bf16_kernelILi128EEv...``: the last
     component of the (nested) name and its template arguments (integers,
-    float and named types)."""
+    booleans, float and named types)."""
     m = re.match(r"_ZN?", mangled)
     if not m:
         return mangled
@@ -107,14 +107,17 @@ def _kernel_name(mangled: str) -> str:
         return name
     args, i = [], i + 1
     while i < len(mangled) and mangled[i] != "E":
-        lit = re.match(r"Li(\d+)E|(\d+)|f", mangled[i:])
+        lit = re.match(r"Li(\d+)E|Lb([01])E|(\d+)|f", mangled[i:])
         if lit is None:
             break
         if lit.group(1):
             args.append(lit.group(1))
             i += lit.end()
         elif lit.group(2):
-            n = int(lit.group(2))
+            args.append("true" if lit.group(2) == "1" else "false")
+            i += lit.end()
+        elif lit.group(3):
+            n = int(lit.group(3))
             args.append(mangled[i + lit.end() : i + lit.end() + n])
             i += lit.end() + n
         else:

@@ -413,6 +413,21 @@ def test_ptxas_report_names_kernels_and_reads_spills():
         "ptxas info    : Compiling entry function '_Z16nn_argmin_kernelILi3E13__nv_bfloat16EvPKf'"
         " for 'sm_90a'\n"
         "ptxas info    : Used 64 registers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123nn_argmin_tf32x3_kernel"
+        "ILi3EEEvPKfS2_Piii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 186 registers, 384 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119rms_rope_fwd_kernel"
+        "I13__nv_bfloat16Li128ELb1ELb0EEEvNS_6ParamsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 48 registers, 488 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119rms_rope_bwd_kernel"
+        "IfLi64ELb1ELb1ELb1EEEvNS_6ParamsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, 488 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115sum_rows_kernelEPKfPfii'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Used 12 registers\n"
     )
     assert ptxas_report(text) == [
         {"kernel": "flash_bwd_dkv_bf16_kernel<128>", "registers": 168,
@@ -420,6 +435,14 @@ def test_ptxas_report_names_kernels_and_reads_spills():
         {"kernel": "norm_rope_kernel<64, float>", "registers": 40,
          "spill_store_bytes": 12, "spill_load_bytes": 16},
         {"kernel": "nn_argmin_kernel<3, __nv_bfloat16>", "registers": 64,
+         "spill_store_bytes": None, "spill_load_bytes": None},
+        {"kernel": "nn_argmin_tf32x3_kernel<3>", "registers": 186,
+         "spill_store_bytes": 0, "spill_load_bytes": 0},
+        {"kernel": "rms_rope_fwd_kernel<__nv_bfloat16, 128, true, false>", "registers": 48,
+         "spill_store_bytes": 0, "spill_load_bytes": 0},
+        {"kernel": "rms_rope_bwd_kernel<float, 64, true, true, true>", "registers": 96,
+         "spill_store_bytes": 4, "spill_load_bytes": 8},
+        {"kernel": "sum_rows_kernel", "registers": 12,
          "spill_store_bytes": None, "spill_load_bytes": None},
     ]
 
