@@ -1,19 +1,50 @@
-"""Pipeline configuration: the ``actionmesh`` preset as Python dataclasses.
+"""Pipeline configuration: the eight presets as Python values.
 
 Mirrors ``actionmesh_tpu/config.py`` with the values of
-``actionmesh_tpu/configs/actionmesh.yaml`` written in as defaults, so the
-port needs no yaml reader. Knobs that exist only for the TPU runtime
+``actionmesh_tpu/configs/*.yaml`` written in, so the port needs no yaml
+reader: the dataclass defaults are the ``actionmesh`` preset, and each other
+preset is the preset it builds on (the YAML file's ``defaults``) plus its own
+values, applied in the same order. Knobs that exist only for the TPU runtime
 (``steps_per_launch``, ``attn_impl``, ``compute_dtype``, ``clear_autocast``)
-are left out; ``tests/test_torch_pipeline.py`` pins the rest against the
-JAX ``load_config("actionmesh")``.
+are left out; ``tests/test_torch_presets.py`` pins every preset against the
+JAX ``load_config(name)``. A directory of YAML presets (JAX's
+``config_dir``) is not read.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Optional
 
-PRESETS = ("actionmesh",)
+# preset -> (the preset it builds on, its own values as dotted-path updates)
+_PRESET_LAYERS: dict[str, tuple[Optional[str], dict]] = {
+    "actionmesh": (None, {}),
+    "actionmesh_fast": ("actionmesh", {
+        "stage_0.num_inference_steps": 50,
+        "scheduler.num_inference_steps": 15,
+    }),
+    "actionmesh_lowram": ("actionmesh", {"scheduler.split_cfg_batch": True}),
+    "actionmesh_fast_lowram": ("actionmesh", {
+        "stage_0.num_inference_steps": 50,
+        "scheduler.num_inference_steps": 15,
+        "scheduler.split_cfg_batch": True,
+    }),
+    # guidance-distilled, 30 -> 8 Euler steps, one conditional forward a step
+    "actionmesh_distilled": ("actionmesh", {
+        "scheduler.num_inference_steps": 8,
+        "cf_guidance.guidance_at_inference": [[1, 1]],
+        "cf_guidance.guidance_scales": [],
+    }),
+    "actionmesh_distilled4": ("actionmesh_distilled", {"scheduler.num_inference_steps": 4}),
+    "actionmesh_distilled4_fast": ("actionmesh_distilled4", {"stage_0.num_inference_steps": 50}),
+    # both stages distilled: guidance_scale 0 takes Stage 0's guidance-free path
+    "actionmesh_turbo": ("actionmesh_distilled4", {
+        "stage_0.num_inference_steps": 25,
+        "stage_0.guidance_scale": 0.0,
+    }),
+}
+PRESETS = tuple(_PRESET_LAYERS)
 
 
 @dataclasses.dataclass
@@ -128,15 +159,27 @@ def _apply_updates(obj: Any, updates: dict) -> None:
 
 
 def load_config(
-    config_name: str = "actionmesh", updates: Optional[dict] = None
+    config_name: str = "actionmesh",
+    config_dir: Optional[str] = None,
+    updates: Optional[dict] = None,
 ) -> PipelineConfig:
-    """The named preset plus dotted-path overrides."""
-    name = config_name.removesuffix(".yaml")
-    if name not in PRESETS:
-        raise ValueError(
-            f"Unknown preset {config_name!r}; the port has {PRESETS}"
+    """The named preset (with or without ``.yaml``) plus dotted-path overrides."""
+    if config_dir is not None:
+        raise NotImplementedError(
+            "config_dir (a directory of YAML presets) is not ported; the port's "
+            f"presets are {PRESETS}"
         )
+    name = config_name.removesuffix(".yaml")
+    if name not in _PRESET_LAYERS:
+        raise ValueError(f"Unknown preset {config_name!r}; the port has {PRESETS}")
+    chain = []
+    while name is not None:
+        base, values = _PRESET_LAYERS[name]
+        chain.append(values)
+        name = base
     cfg = PipelineConfig()
+    for values in reversed(chain):
+        _apply_updates(cfg, copy.deepcopy(values))
     if updates:
         _apply_updates(cfg, updates)
     return cfg

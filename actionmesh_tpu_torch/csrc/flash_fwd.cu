@@ -20,7 +20,10 @@
 // above the card's ~295 flop/byte balance point, so it is bound by tensor-core
 // issue and by the exp/max/sum work of the softmax between the two products.
 //
-// bf16 design: TMA + wgmma, warp-specialised (FA3's shape, first version).
+// bf16 and fp16 design: TMA + wgmma, warp-specialised (FA3's shape, first
+// version); one kernel template over the 16-bit element type T, whose
+// products, tensor maps and packing of P and O take T's PTX type (fp16 and
+// bf16 products run at the same rate).
 //   * One CTA per (128-query tile, head, batch), 3 warpgroups. Warpgroup 0 is
 //     the producer (setmaxnreg down to 24): one thread starts TMA loads of the
 //     Q tile once and of K and V tiles of 128 keys into a ring of kStages
@@ -36,7 +39,7 @@
 //     K-major. Softmax per accumulator element, the row max and sum across
 //     the 4 lanes of a row (the accumulator gives each thread rows g and
 //     g+8 of its warp's 16). O += P V: wgmma m64nDk16 with P from registers
-//     (the S accumulator packed pairwise to bf16 is the A fragment) and V
+//     (the S accumulator packed pairwise to T is the A fragment) and V
 //     from shared memory, MN-major (the transpose bit).
 //   * Each product is waited for before its result is read; a consumer warp
 //     arrives on the stage's empty barrier after its last product reading
@@ -114,11 +117,12 @@
 // adjacent channels, so every rotating pair sits in one lane's registers and
 // the rms sum over D is a 5-step shuffle) into two contiguous (B,H,S,D)
 // workspaces the caller allocates; kernel A's mainloop then attends over
-// q^, k^ and v (bf16 the TMA + wgmma kernel; fp32 its split pre-pass on k^
+// q^, k^ and v (bf16, fp16 the TMA + wgmma kernel; fp32 its split pre-pass on k^
 // and v, then the 3xTF32 kernel). The TPU kernel instead re-normalised each
 // K block once per Q block.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -231,7 +235,7 @@ __device__ __forceinline__ void store_stats(const Params& p, int b, int h, int r
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: TMA + wgmma, warp-specialised
+// bf16 and fp16 path: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockM = 128;        // query rows per CTA, 64 per consumer warpgroup
@@ -239,11 +243,11 @@ constexpr int kBlockN = 128;        // keys per tile
 constexpr int kStages = 2;          // K/V ring depth
 constexpr int kThreads = 3 * 128;   // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;   // arrivals that free a stage
-constexpr int kAtomBytes = 128 * 128;  // 128 rows x 64 bf16 (one swizzle atom column)
+constexpr int kAtomBytes = 128 * 128;  // 128 rows x 64 16-bit values (one swizzle atom column)
 
 template <int D>
 struct SmemLayout {
-  static constexpr int kTileBytes = (D / 64) * kAtomBytes;  // 128 rows x D bf16
+  static constexpr int kTileBytes = (D / 64) * kAtomBytes;  // 128 rows x D 16-bit values
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTileBytes;               // + stage * kTileBytes
   static constexpr int kV = kK + kStages * kTileBytes;     // + stage * kTileBytes
@@ -253,9 +257,9 @@ struct SmemLayout {
 };
 static_assert(SmemLayout<128>::kAlloc <= 232448, "shared memory above the 227 KB a block may use");
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+flash_fwd_16bit_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = SmemLayout<D>;
@@ -338,7 +342,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
-        wgmma_m64n128k16_ss(sc, wgmma_desc(q_addr + off, 16, 1024),
+        wgmma_m64n128k16_ss<T>(sc, wgmma_desc(q_addr + off, 16, 1024),
                             wgmma_desc(k_addr + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -347,20 +351,20 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       online_softmax<kBlockN, D>(sc, o, n * kBlockN, t, p, mask_row, m0, m1, l0, l1);
 
-      // O += P V: P (bf16) as register A fragments, 16 keys per product
+      // O += P V: P (rounded to T) as register A fragments, 16 keys per product
       uint32_t pa[kBlockN / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        pa[kk][0] = pack2<T>(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        wgmma_rs<D>(o, pa[kk], wgmma_desc(v_addr + kk * 16 * 128, kAtomBytes, 1024), 1);
+        wgmma_rs<D, T>(o, pa[kk], wgmma_desc(v_addr + kk * 16 * 128, kAtomBytes, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -370,34 +374,34 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     reduce_row_sums(l0, l1);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-    __nv_bfloat16* obase = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+    T* obase = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + 2 * t;
       if (ra < p.Sq)
         *reinterpret_cast<uint32_t*>(obase + ra * p.o_ss + col) =
-            pack_bf16(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
+            pack2<T>(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
       if (rb < p.Sq)
         *reinterpret_cast<uint32_t*>(obase + rb * p.o_ss + col) =
-            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+            pack2<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
     store_stats(p, b, h, ra, rb, t, m0, m1, l0, l1);
   }
 }
 
-template <int D>
-int launch_bf16(const Params& p, cudaStream_t stream) {
+template <int D, typename T>
+int launch_16bit(const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_tensor_map(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBlockM);
-  if (err == 0) err = make_tensor_map(&tk, p.k, D, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb, kBlockN);
-  if (err == 0) err = make_tensor_map(&tv, p.v, D, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb, kBlockN);
+  int err = make_tensor_map<T>(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBlockM);
+  if (err == 0) err = make_tensor_map<T>(&tk, p.k, D, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb, kBlockN);
+  if (err == 0) err = make_tensor_map<T>(&tv, p.v, D, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb, kBlockN);
   if (err != 0) return err;
   constexpr int smem = SmemLayout<D>::kAlloc;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_16bit_kernel<D, T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.H, p.B);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  flash_fwd_16bit_kernel<D, T><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -742,11 +746,14 @@ int launch_f32(const Params& p, float* ws, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// dtype: 0 bf16, 1 fp32, 2 fp16.
 int launch(const Params& p, int D, int dtype, float* ws, cudaStream_t stream) {
-  if (dtype == 0 && D == 128) return launch_bf16<128>(p, stream);
-  if (dtype == 0 && D == 64) return launch_bf16<64>(p, stream);
+  if (dtype == 0 && D == 128) return launch_16bit<128, __nv_bfloat16>(p, stream);
+  if (dtype == 0 && D == 64) return launch_16bit<64, __nv_bfloat16>(p, stream);
   if (dtype == 1 && D == 128) return launch_f32<128>(p, ws, stream);
   if (dtype == 1 && D == 64) return launch_f32<64>(p, ws, stream);
+  if (dtype == 2 && D == 128) return launch_16bit<128, __half>(p, stream);
+  if (dtype == 2 && D == 64) return launch_16bit<64, __half>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -793,11 +800,17 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* src) {
   const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(src);
   return make_float2(__low2float(v), __high2float(v));
 }
+__device__ __forceinline__ float2 load_pair(const __half* src) {
+  return __half22float2(*reinterpret_cast<const __half2*>(src));
+}
 __device__ __forceinline__ float2 load_pair(const float* src) {
   return *reinterpret_cast<const float2*>(src);
 }
 __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_f16(a, b);
 }
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
@@ -851,8 +864,9 @@ int launch_prepass(const Params& p, void* qn, void* kn, const float* cos, const 
 }  // namespace
 
 // C entry point, loaded with ctypes. `strides` holds 12 element strides:
-// (batch, head, seq) for q, k, v, o in that order. dtype: 0 = bf16, 1 = fp32.
-// `ws`: fp32 only (null for bf16), the caller's workspace of
+// (batch, head, seq) for q, k, v, o in that order. dtype: 0 = bf16, 1 = fp32,
+// 2 = fp16.
+// `ws`: fp32 only (null for bf16 and fp16), the caller's workspace of
 // 2*B*H*Sk*D + 2*B*H*D*Skp floats, Skp = Sk rounded up to a multiple of 8,
 // for the split pre-pass (k_hi, k_lo, v^T_hi, v^T_lo). Returns 0 on
 // success, else the cudaError_t of the launch, or 10000 when no tensor-map
@@ -903,6 +917,8 @@ extern "C" int flash_fused(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && D == 64) err = launch_prepass<64, __nv_bfloat16>(p, qn, kn, cos, sin, q_scale, k_scale, st);
   if (dtype == 1 && D == 128) err = launch_prepass<128, float>(p, qn, kn, cos, sin, q_scale, k_scale, st);
   if (dtype == 1 && D == 64) err = launch_prepass<64, float>(p, qn, kn, cos, sin, q_scale, k_scale, st);
+  if (dtype == 2 && D == 128) err = launch_prepass<128, __half>(p, qn, kn, cos, sin, q_scale, k_scale, st);
+  if (dtype == 2 && D == 64) err = launch_prepass<64, __half>(p, qn, kn, cos, sin, q_scale, k_scale, st);
   if (err != 0) return err;
   // the mainloop reads the dense workspaces in place of q and k
   const long long dense[3] = {(long long)H * S * D, (long long)S * D, D};

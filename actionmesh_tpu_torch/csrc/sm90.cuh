@@ -1,13 +1,14 @@
 // sm_90a (Hopper) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor loads and the host-side tensor-map encoder, wgmma shared-memory
-// descriptors and products, setmaxnreg, and bf16 packing. Inline PTX only
+// descriptors and products (bf16, fp16, TF32), setmaxnreg, and bf16/fp16
+// packing. Inline PTX only
 // (no CUTLASS/CuTe), so a source that includes this header builds in
 // seconds. Compile with -gencode arch=compute_90a,code=sm_90a: wgmma and
 // setmaxnreg exist only for that target.
 //
 // Shared-memory layout the descriptors below assume (what a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B writes): an "atom" holds R rows of 64 bf16 or
-// 32 fp32 (128 bytes each) with the 16-byte chunks of row r XOR-ed by
+// CU_TENSOR_MAP_SWIZZLE_128B writes): an "atom" holds R rows of 64 bf16 (or
+// fp16) or 32 fp32 (128 bytes each) with the 16-byte chunks of row r XOR-ed by
 // (r % 8); the atom starts at a 1024-byte aligned address. A D=128 bf16 row
 // spans two atoms (columns 0-63, 64-127), an fp32 row four, placed one after
 // the other.
@@ -15,21 +16,39 @@
 // wgmma accumulator layout (m64nN, fp32), thread i of the warpgroup, warp
 // w = i / 32, g = (i % 32) / 4, t = i % 4: d[4j + 0..1] = D[16w + g][8j + 2t
 // + 0..1], d[4j + 2..3] = D[16w + g + 8][8j + 2t + 0..1]. The register
-// A-fragment of m64nNk16 (bf16) is a0 = A[16w + g][2t..], a1 = A[16w + g +
+// A-fragment of m64nNk16 (bf16, fp16) is a0 = A[16w + g][2t..], a1 = A[16w + g +
 // 8][2t..], a2 = A[16w + g][2t + 8..], a3 = A[16w + g + 8][2t + 8..], so an
-// accumulator over 16 columns, packed pairwise to bf16, is the A operand of
-// the next product.
+// accumulator over 16 columns, packed pairwise to bf16 (or fp16), is the A
+// operand of the next product.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to nearest into one 32-bit pair of T (bf16 or fp16).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    return pack_f16(lo, hi);
+  } else {
+    return pack_bf16(lo, hi);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -145,11 +164,14 @@ inline int make_tensor_map_typed(CUtensorMap* map, CUtensorMapDataType type, int
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
 }
 
-// The bf16 map: box 64 columns x `box_rows` rows.
+// The 16-bit map (T: __nv_bfloat16 or __half): box 64 columns x `box_rows` rows.
+template <typename T = __nv_bfloat16>
 inline int make_tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
                            long long ss, long long sh, long long sb, int box_rows) {
-  return make_tensor_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, D, S, H, B, ss, sh,
-                               sb, box_rows);
+  constexpr CUtensorMapDataType type = std::is_same_v<T, __half>
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return make_tensor_map_typed(map, type, 2, ptr, D, S, H, B, ss, sh, sb, box_rows);
 }
 
 // The fp32 map: box 32 columns x `box_rows` rows.
@@ -216,107 +238,116 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 128, fp32) (+)= A (64 x 16, shared) * B (128 x 16, shared), both K-major.
+// 16-bit products: the element type T of A and B is __nv_bfloat16 or __half
+// (the PTX type bf16 or f16; the accumulator is fp32 either way, and both
+// run at the same rate). The operand lists are shared by the two types.
+template <typename T>
+constexpr bool kIsF16 = std::is_same_v<T, __half>;
+
+#define AM_WGMMA_D32                                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),     \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),     \
+  "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define AM_WGMMA_D64                                                                             \
+  AM_WGMMA_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),    \
+  "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),     \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]),     \
+  "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define AM_REGS_32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define AM_REGS_64                                                                  \
+  AM_REGS_32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+// D (64 x 128) (+)= A (64 x 16, shared) * B (128 x 16, shared), both K-major.
+#define AM_SS_N128(ty)                                                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                 \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " " AM_REGS_64 "}, "               \
+  "%64, %65, p, 1, 1, 0, 0;\n}\n"
+// D (64 x 128) (+)= A (64 x 16, registers) * B (16 x 128, shared, MN-major).
+#define AM_RS_N128(ty)                                                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                 \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " " AM_REGS_64 "}, "               \
+  "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+// D (64 x 64) (+)= A (64 x 16, registers) * B (16 x 64, shared, MN-major).
+#define AM_RS_N64(ty)                                                                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                 \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " " AM_REGS_32 "}, "                \
+  "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+// D (64 x 64) (+)= A (64 x 16, shared) * B (64 x 16, shared), both K-major.
+#define AM_SS_N64(ty)                                                                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                 \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " " AM_REGS_32 "}, "                \
+  "%32, %33, p, 1, 1, 0, 0;\n}\n"
+
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsF16<T>) {
+    asm volatile(AM_SS_N128("f16") : AM_WGMMA_D64 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(AM_SS_N128("bf16") : AM_WGMMA_D64 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
 }
 
-// D (64 x 128, fp32) (+)= A (64 x 16, registers) * B (16 x 128, shared, MN-major).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsF16<T>) {
+    asm volatile(AM_RS_N128("f16") : AM_WGMMA_D64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(AM_RS_N128("bf16") : AM_WGMMA_D64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
 }
 
-// D (64 x 64, fp32) (+)= A (64 x 16, registers) * B (16 x 64, shared, MN-major).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+                                                  uint64_t desc_b, int scale_d) {
+  if constexpr (kIsF16<T>) {
+    asm volatile(AM_RS_N64("f16") : AM_WGMMA_D32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(AM_RS_N64("bf16") : AM_WGMMA_D32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
 }
 
-// D (64 x 64, fp32) (+)= A (64 x 16, shared) * B (64 x 16, shared), both K-major.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
-                                                   uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+                                                  uint64_t desc_b, int scale_d) {
+  if constexpr (kIsF16<T>) {
+    asm volatile(AM_SS_N64("f16") : AM_WGMMA_D32 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(AM_SS_N64("bf16") : AM_WGMMA_D32 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
 }
 
 // The products above by output width N (64 or 128): D is 64 x N, N / 2
 // accumulator registers a thread.
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
   if constexpr (N == 128) {
-    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+    wgmma_m64n128k16_ss<T>(d, desc_a, desc_b, scale_d);
   } else {
-    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+    wgmma_m64n64k16_ss<T>(d, desc_a, desc_b, scale_d);
   }
 }
 
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
   if constexpr (N == 128) {
-    wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
+    wgmma_m64n128k16_rs<T>(d, a, desc_b, scale_d);
   } else {
-    wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+    wgmma_m64n64k16_rs<T>(d, a, desc_b, scale_d);
   }
 }
 

@@ -223,6 +223,11 @@ def save_glb(mesh: Mesh, path: str | Path) -> None:
         "bufferViews": views,
         "accessors": accessors,
     }
+    write_glb(path, gltf, binary)
+
+
+def write_glb(path: str | Path, gltf: dict, binary: bytes) -> None:
+    """A binary glTF file of the JSON ``gltf`` and its 4-byte padded buffer."""
     json_chunk = _pad4(json.dumps(gltf, separators=(",", ":")).encode(), b" ")
     total = 12 + 8 + len(json_chunk) + 8 + len(binary)
     with open(path, "wb") as f:

@@ -1,22 +1,32 @@
-"""Pipeline input: RGBA frames and their timesteps.
+"""Pipeline input: RGBA frames and their timesteps, and the file loaders.
 
-Counterpart of ``ActionMeshInput`` in ``actionmesh_tpu/io/video_input.py``,
-over (H, W, 4) uint8 numpy frames instead of PIL images, and ``natsorted``.
-File and video loaders are not ported yet.
+Counterpart of ``actionmesh_tpu/io/video_input.py``, over (H, W, 4) uint8
+numpy frames instead of PIL images: ``ActionMeshInput``, ``natsorted``,
+``load_from_image_mask_pairs``, ``load_from_image_dir`` and ``load_frames``'
+dispatch. PNG is decoded by ``io/png.py`` (as PIL's ``convert("RGBA")``
+gives it); a mask of another size than its image is resized as PIL's LANCZOS
+does (``lanczos_resize``). The card's host has no JPEG, WebP or video
+decoder, so those files raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import re
-from typing import Sequence
+from pathlib import Path
+from typing import Optional, Sequence
 
 import numpy as np
+
+from actionmesh_tpu_torch.io.png import read_png
 
 logger = logging.getLogger(__name__)
 
 MIN_FRAMES = 16
+VIDEO_EXTENSIONS = {".mp4", ".avi", ".mov"}
+IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".webp"}
 
 
 def natsorted(paths: Sequence) -> list:
@@ -76,3 +86,158 @@ class ActionMeshInput:
         out.frames = [self.frames[int(i)] for i in idx]
         out.timesteps = self.timesteps[idx]
         return out
+
+
+# -- PIL's LANCZOS resize of 8-bit images (libImaging/Resample.c) -------------
+
+_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point coefficients
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """sinc(x) sinc(x / 3) on [-3, 3), else 0."""
+    return np.where((x >= -3.0) & (x < 3.0), np.sinc(x) * np.sinc(x / 3.0), 0.0)
+
+
+def _coefficients(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc``: the first
+    input index (out_size,) and the fixed-point taps (out_size, ksize) of
+    each output pixel."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    taps = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)  # int() truncates, as C's cast
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _lanczos((np.arange(xmax) + xmin - center + 0.5) / filterscale)
+        total = w.sum()
+        if total != 0.0:
+            w = w / total
+        fixed = w * (1 << _PRECISION_BITS)
+        taps[xx, :xmax] = np.trunc(np.where(w < 0, fixed - 0.5, fixed + 0.5)).astype(np.int64)
+        first[xx] = xmin
+    return first, taps
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of PIL's separable resample along ``axis``, rounded to uint8."""
+    first, taps = _coefficients(img.shape[axis], out_size)
+    src = np.moveaxis(img, axis, -1).astype(np.int64)
+    idx = np.minimum(first[:, None] + np.arange(taps.shape[1]), img.shape[axis] - 1)
+    acc = (src[..., idx] * taps).sum(axis=-1) + (1 << (_PRECISION_BITS - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, -1, axis)
+
+
+def lanczos_resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """(H, W[, C]) uint8 resized to ``size`` = (width, height) as PIL's
+    ``Image.resize(size, Image.LANCZOS)``: width first, rounded to uint8,
+    then height, in PIL's fixed-point arithmetic."""
+    width, height = size
+    out = img
+    if width != img.shape[1]:
+        out = _resample_axis(out, width, 1)
+    if height != img.shape[0]:
+        out = _resample_axis(out, height, 0)
+    return out
+
+
+# -- loaders --------------------------------------------------------------------
+
+
+def _to_luma(rgba: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("L")`` of an RGB(A) image (ITU-R 601-2, fixed point)."""
+    rgb = rgba[..., :3].astype(np.int64)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _read_rgba(path: Path) -> np.ndarray:
+    """An image file as (H, W, 4) uint8 RGBA; only PNG can be decoded."""
+    if path.suffix.lower() != ".png":
+        raise NotImplementedError(
+            f"{path.name}: decoding {path.suffix} needs a JPEG/WebP decoder (PIL), which the "
+            "port does not use; convert the frames to PNG"
+        )
+    return read_png(path)
+
+
+def load_from_image_mask_pairs(
+    directory: str | Path, max_frames: Optional[int] = None, stride: int = 1
+) -> ActionMeshInput:
+    """Load *_image.png + *_mask.png pairs as RGBA frames."""
+    directory = Path(directory)
+    image_files = sorted(directory.glob("*_image.png"))
+    if not image_files:
+        raise ValueError(f"No *_image.png files found in '{directory}'")
+    image_files = image_files[::stride]
+    if max_frames is not None:
+        image_files = image_files[:max_frames]
+
+    frames = []
+    for image_file in image_files:
+        prefix = image_file.stem.replace("_image", "")
+        mask_file = directory / f"{prefix}_mask.png"
+        if not mask_file.exists():
+            raise ValueError(f"No mask found for {image_file.name}: {mask_file}")
+        rgba = read_png(image_file)
+        mask = _to_luma(read_png(mask_file))
+        if mask.shape != rgba.shape[:2]:
+            mask = lanczos_resize(mask, (rgba.shape[1], rgba.shape[0]))
+        rgba[..., 3] = mask
+        frames.append(rgba)
+
+    logger.info("Loaded %d frames from image+mask pairs: %s", len(frames), directory)
+    return ActionMeshInput(frames=frames, timesteps=np.arange(len(frames), dtype=np.float32))
+
+
+def load_from_image_dir(
+    path_pattern: str | Path, max_frames: Optional[int] = None, stride: int = 1
+) -> ActionMeshInput:
+    """Load the files a glob pattern matches, in natural order, as RGBA."""
+    path_pattern = Path(path_pattern)
+    image_paths = natsorted(path_pattern.parent.glob(path_pattern.name))
+    if not image_paths:
+        raise ValueError(f"No images found matching '{path_pattern}'")
+    image_paths = image_paths[::stride]
+    if max_frames is not None:
+        image_paths = image_paths[:max_frames]
+    frames = [_read_rgba(p) for p in image_paths]
+    logger.info("Loaded %d frames from image folder: %s", len(frames), path_pattern.parent)
+    return ActionMeshInput(frames=frames, timesteps=np.arange(len(frames), dtype=np.float32))
+
+
+def load_from_video(
+    video_path: str | Path, max_frames: Optional[int] = None, stride: int = 1
+) -> ActionMeshInput:
+    """Not ported: the card's host has no video decoder (cv2, imageio, av)."""
+    raise NotImplementedError(
+        f"{Path(video_path).name}: decoding video needs a video decoder (cv2), which the "
+        "port does not use; extract the frames to PNG files first"
+    )
+
+
+def load_frames(
+    path: str | Path, max_frames: Optional[int] = None, stride: int = 1
+) -> ActionMeshInput:
+    """Auto-dispatch: video file / glob pattern / image dir / mask pairs."""
+    path = Path(path)
+    path_str = str(path)
+    if "*" in path_str or "?" in path_str:
+        return load_from_image_dir(path, max_frames=max_frames, stride=stride)
+    if path.suffix.lower() in VIDEO_EXTENSIONS:
+        return load_from_video(path, max_frames=max_frames, stride=stride)
+    if path.is_dir():
+        if list(path.glob("*_mask.png")):
+            return load_from_image_mask_pairs(path, max_frames=max_frames, stride=stride)
+        for ext in IMAGE_EXTENSIONS:
+            try:
+                return load_from_image_dir(path / f"*{ext}", max_frames=max_frames, stride=stride)
+            except ValueError:
+                continue
+        raise ValueError(f"No images found in directory: {path}")
+    raise ValueError(
+        f"Unsupported input: {path}. Expected video file, image pattern, or directory."
+    )

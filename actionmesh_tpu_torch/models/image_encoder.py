@@ -27,28 +27,32 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
+def resize_bicubic(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """(H, W, C) uint8 resized as PIL's antialiased bicubic does it: width
+    first, then height, rounding to uint8 after each pass."""
+    h, w = img.shape[:2]
+    if (new_h, new_w) == (h, w):  # PIL returns an unchanged copy
+        return np.array(img)
+    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
+    for size in ((h, new_w), (new_h, new_w)):
+        x = F.interpolate(x, size=size, mode="bicubic", antialias=True, align_corners=False)
+        x = (x + 0.5).floor().clamp(0, 255)
+    return x[0].permute(1, 2, 0).to(torch.uint8).numpy()
+
+
 def preprocess_for_dino(
     frames: list[np.ndarray], resize_shortest: int = 256, crop_size: int = 224
 ) -> np.ndarray:
     """(H, W, 3|4) uint8 frames -> (T, crop, crop, 3) float32 normalised."""
     out = []
     for frame in frames:
-        img = torch.from_numpy(np.ascontiguousarray(frame[..., :3]))
-        h, w = img.shape[:2]
+        h, w = frame.shape[:2]
         scale = resize_shortest / min(w, h)
         new_w, new_h = round(w * scale), round(h * scale)
-        if (new_h, new_w) != (h, w):  # PIL returns an unchanged copy otherwise
-            x = img.permute(2, 0, 1)[None].float()
-            # PIL resamples width then height, rounding to uint8 in between
-            for size in ((h, new_w), (new_h, new_w)):
-                x = F.interpolate(
-                    x, size=size, mode="bicubic", antialias=True, align_corners=False
-                )
-                x = (x + 0.5).floor().clamp(0, 255)
-            img = x[0].permute(1, 2, 0).to(torch.uint8)
+        img = resize_bicubic(frame[..., :3], new_h, new_w)
         left = (new_w - crop_size) // 2
         top = (new_h - crop_size) // 2
-        arr = img[top : top + crop_size, left : left + crop_size].numpy()
+        arr = img[top : top + crop_size, left : left + crop_size]
         arr = arr.astype(np.float32) / 255.0
         out.append((arr - IMAGENET_MEAN) / IMAGENET_STD)
     return np.stack(out)

@@ -4,9 +4,10 @@ kernel A's mainloop) and ``csrc/flash_bwd.cu`` (kernels C and D, backward).
 
 Kernel A replaces ``actionmesh_tpu/ops/flash_attention.py:
 flash_attention_pipelined`` and ``flash_attention`` (the Pallas TPU kernels)
-and meets both contracts. Its bf16 path is a warp-specialised TMA + ``wgmma``
-kernel (a producer warpgroup feeding a ring of K/V tiles, two consumer
-warpgroups of 64 query rows each); its fp32 path is built the same way on
+and meets both contracts. Its bf16 and fp16 path is one warp-specialised TMA
++ ``wgmma`` kernel template over the element type (a producer warpgroup
+feeding a ring of K/V tiles, two consumer warpgroups of 64 query rows each);
+its fp32 path is built the same way on
 TF32 ``wgmma`` with fp32 accuracy, each product three TF32 products of split
 operands (``tf32_split``; a pre-pass writes k and v^T split into a
 workspace allocated here; ``split_precision_attention_reference`` is the
@@ -15,8 +16,8 @@ dV) and D (dQ) replace the two kernels of ``actionmesh_tpu/ops/
 flash_attention_bwd.py:flash_attention_bwd``; their bf16 paths are built the
 same way (C: a CTA owns 128 keys and walks 64-query steps; D: a CTA owns 128
 queries and walks 128-key tiles), deterministic, without atomics; their fp32
-paths are SIMT FMA. ``flash_attention_trainable`` joins A with C and D as
-that module's ``custom_vjp`` does. Kernel F replaces
+paths are SIMT FMA; they take no fp16. ``flash_attention_trainable`` joins A
+with C and D as that module's ``custom_vjp`` does. Kernel F replaces
 ``actionmesh_tpu/ops/flash_attention.py:flash_attention_fused``; no path of
 either package calls it. See the notes at the top of the CUDA sources for
 their design. On CPU tensors each wrapper runs its plain version (from
@@ -45,7 +46,7 @@ from actionmesh_tpu_torch.ops.attention import (
 )
 from actionmesh_tpu_torch.ops.rotary import apply_rotary_embedding
 
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _lib = None
 _bwd_lib = None
@@ -119,7 +120,7 @@ def _check(q, k, v, kv_mask):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; the kernel "
-            "takes bf16 or fp32, the same for q, k and v"
+            "takes bf16, fp16 or fp32, the same for q, k and v"
         )
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k, v must be (B, H, S, D)")
@@ -367,6 +368,8 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, o, m, l, do, scale)
     _check(q, k, v, None)
+    if q.dtype == torch.float16:
+        raise ValueError("flash_attention_bwd: kernels C and D take bf16 or fp32, not fp16")
     B, H, Sq, _ = q.shape
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
@@ -534,7 +537,7 @@ def flash_attention_fused(
     """Self-attention with fp32 rms qk-norm and interleaved RoPE fused in.
 
     Port of ``actionmesh_tpu/ops/flash_attention.py:flash_attention_fused``.
-    q, k, v (B, H, S, D) pre-norm projections, bf16 or fp32, strided views
+    q, k, v (B, H, S, D) pre-norm projections, bf16, fp16 or fp32, strided views
     with a contiguous last axis allowed; cos/sin (B, S, D) fp32 interleaved
     tables; q_norm_scale, k_norm_scale (D,) fp32. Returns (B, H, S, D) in
     q.dtype with q's strides where q is dense. On the card the normalised

@@ -59,7 +59,14 @@ class ActionMeshPipeline:
         dtype: torch.dtype = torch.bfloat16,
         init_seed: int = 0,
         config_updates: Optional[dict] = None,
+        lazy_loading: bool = False,
     ):
+        """``config_name``: one of ``config.PRESETS``; ``dtype``: bf16, fp16 or
+        fp32 compute (the fp32 islands stay fp32). ``lazy_loading`` (the
+        low-RAM presets' CPU/GPU weight residency in the reference) is
+        accepted and does nothing, as in the JAX package: the weights stay
+        on the device."""
+        del lazy_loading
         self.cfg: PipelineConfig = load_config(config_name, updates=config_updates)
         self.device = torch.device(device)
         self._dtype = dtype

@@ -1,17 +1,20 @@
 """ctypes binding to the repository's native C++ geometry library (``native/``).
 
-Counterpart of ``actionmesh_tpu/utils/native.py``, binding only what Stage 0
+Counterpart of ``actionmesh_tpu/utils/native.py``, binding what the port
 calls: ``marching_cubes_grid`` (triangulation of the hierarchical SDF
-lattice), ``quadric_decimate`` (QEM edge collapse) and
-``grid_cluster_simplify`` (its clustering pre-pass).
+lattice), ``quadric_decimate`` (QEM edge collapse), ``grid_cluster_simplify``
+(its clustering pre-pass) and ``rasterize_zbuffer`` (the preview renderer's
+visibility pass). Beside it, the port's own ``csrc/png_unfilter.cpp``
+(``png_unfilter``, for ``io/png.py``) is built and loaded the same way.
 
 ``native/actionmesh_native.cpp`` is compiled with g++, with the flags of
 ``native/build.sh``, into ``actionmesh_tpu_torch/_build/
 actionmesh_native-<hash>.so``, keyed by a hash of the source,
 ``native/mc_table.h``, the flags and the target that ``-march=native``
 resolves to on this host (a build directory copied to another CPU is then
-rebuilt, not loaded), at first use; nothing is written into ``native/``. A failed build raises: there is no numpy fallback, because
-another triangulation or decimation algorithm would change the anchor mesh.
+rebuilt, not loaded), at first use; nothing is written into ``native/``. A
+failed build raises: there is no numpy fallback, because another
+triangulation or decimation algorithm would change the anchor mesh.
 """
 
 from __future__ import annotations
@@ -27,14 +30,16 @@ from pathlib import Path
 
 import numpy as np
 
-from actionmesh_tpu_torch.utils.cuda_build import BUILD_DIR, PACKAGE_DIR
+from actionmesh_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC_DIR, PACKAGE_DIR
 
 NATIVE_DIR = PACKAGE_DIR.parent / "native"
 SOURCE = NATIVE_DIR / "actionmesh_native.cpp"
 HEADERS = (NATIVE_DIR / "mc_table.h",)
+PNG_SOURCE = CSRC_DIR / "png_unfilter.cpp"
 CXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", "-std=c++17"]
 
 _lib = None
+_png_lib = None
 
 
 def find_cxx() -> str:
@@ -54,19 +59,19 @@ def host_target() -> str:
     ).stdout
 
 
-def library_path() -> Path:
-    """Where the library builds to, keyed by the source, header, flags and
+def library_path(source: Path = SOURCE, headers: tuple = HEADERS) -> Path:
+    """Where ``source`` builds to, keyed by it, its headers, the flags and
     the host's target."""
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     digest.update(host_target().encode())
-    for path in (SOURCE, *HEADERS):
+    for path in (source, *headers):
         digest.update(path.read_bytes())
-    return BUILD_DIR / f"actionmesh_native-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is built already; return its path."""
-    lib_path = library_path()
+def build(source: Path = SOURCE, headers: tuple = HEADERS) -> Path:
+    """Compile ``source`` unless it is built already; return its path."""
+    lib_path = library_path(source, headers)
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -74,11 +79,11 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     proc = subprocess.run(
-        [find_cxx(), *CXX_FLAGS, str(SOURCE), "-o", tmp], capture_output=True, text=True
+        [find_cxx(), *CXX_FLAGS, str(source), "-o", tmp], capture_output=True, text=True
     )
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ failed for {SOURCE} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed for {source} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -103,8 +108,25 @@ def _load() -> ctypes.CDLL:
     ]
     lib.am_free.restype = None
     lib.am_free.argtypes = [ctypes.c_void_p]
+    f32p, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+    lib.rasterize_zbuffer.restype = None
+    lib.rasterize_zbuffer.argtypes = [
+        f32p, f32p, f32p, ctypes.c_int64, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_float,
+        i32p, f32p,
+    ]
     _lib = lib
     return lib
+
+
+def _load_png() -> ctypes.CDLL:
+    global _png_lib
+    if _png_lib is None:
+        lib = ctypes.CDLL(str(build(PNG_SOURCE, ())))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.png_unfilter.restype = ctypes.c_int64
+        lib.png_unfilter.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, u8p]
+        _png_lib = lib
+    return _png_lib
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -189,3 +211,58 @@ def marching_cubes_grid(
         if faces_ptr:
             lib.am_free(faces_ptr)
     return v, f
+
+
+def rasterize_zbuffer(
+    px: np.ndarray,
+    py: np.ndarray,
+    z: np.ndarray,
+    faces: np.ndarray,
+    size: int,
+    near: float = 1e-4,
+) -> tuple[np.ndarray, np.ndarray]:
+    """C++ z-buffer visibility pass of the preview renderer.
+
+    Screen-space x, y and camera depth per vertex (V,), faces (F, 3), the
+    (supersampled) image size. Returns win_fid (size*size,) int32, -1 for
+    background, and win_bary (size*size, 3) float32, the perspective-correct
+    barycentrics of the winning face's sample.
+    """
+    lib = _load()
+    px = np.ascontiguousarray(px, np.float32)
+    py = np.ascontiguousarray(py, np.float32)
+    z = np.ascontiguousarray(z, np.float32)
+    f = np.ascontiguousarray(faces, np.int32)
+    if not (px.shape == py.shape == z.shape and px.ndim == 1) or f.ndim != 2 or f.shape[1] != 3:
+        raise ValueError(
+            f"rasterize_zbuffer: px, py, z (V,) and faces (F, 3), got {px.shape} {py.shape} "
+            f"{z.shape} {f.shape}"
+        )
+    if f.size and (f.min() < 0 or f.max() >= len(px)):
+        raise ValueError(f"rasterize_zbuffer: face indices outside [0, {len(px)})")
+    win_fid = np.empty(size * size, np.int32)
+    win_bary = np.empty((size * size, 3), np.float32)
+    lib.rasterize_zbuffer(
+        _ptr(px, ctypes.c_float), _ptr(py, ctypes.c_float), _ptr(z, ctypes.c_float), len(px),
+        _ptr(f, ctypes.c_int32), len(f), int(size), float(near),
+        _ptr(win_fid, ctypes.c_int32), _ptr(win_bary, ctypes.c_float),
+    )
+    return win_fid, win_bary
+
+
+def png_unfilter(data: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo PNG filter method 0: ``data`` holds ``height`` rows of a
+    filter-type byte and ``stride`` filtered bytes; returns (height, stride)
+    uint8. ``bpp`` is the bytes of one complete pixel (at least 1)."""
+    buf = np.ascontiguousarray(data, np.uint8)
+    if buf.size != height * (stride + 1):
+        raise ValueError(
+            f"png_unfilter: {buf.size} bytes of image data, expected {height} rows of "
+            f"1 + {stride} bytes"
+        )
+    out = np.empty((height, stride), np.uint8)
+    bad = _load_png().png_unfilter(_ptr(buf, ctypes.c_uint8), height, stride, bpp,
+                                   _ptr(out, ctypes.c_uint8))
+    if bad:
+        raise ValueError(f"PNG: unknown filter type in row {bad - 1}")
+    return out

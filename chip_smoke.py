@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cli "--fast" "--distilled4" "--dtype float16"
+
+The second form runs only the CLI phase (4 below), once per quoted set of
+flags, and prints its results (a run that fails is reported, not raised).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card (nvidia-smi name, power limit)
@@ -23,7 +27,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      its fine SDF pass (the slice's weights and decoded latent set) through
      kernel A's fp32 path and through chunked_attention: no sign flip above
      1e-5 of the largest |value|;
-  4. kernels vs their plain PyTorch versions on the card, at the main
+  4. the command line: ``python -m actionmesh_tpu_torch.inference.
+     video_to_animated_mesh``'s ``main`` in process on the 16 synthetic
+     frames written as NN_image.png + NN_mask.png pairs, at the default
+     preset (full width, 30 Stage-I steps) and at --turbo; checks 16
+     mesh_XX.glb files that load back with the anchor's topology, the
+     deformation arrays, an animated GLB with 16 morph targets, a non-blank
+     preview and launch counts equal to what each preset's path implies;
+     prints each clip's seconds (load, pipeline phases, export, render), and
+     times the host PNG reader (1024^2 RGBA) and GIF writer (16 x 256 x 1024);
+  5. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Stage 0's included): max abs error against the stated
      tolerance, and CUDA-event times (median of warm runs, each as many
      back-to-back calls as last about 1 ms) of the kernel (kernel B's
@@ -32,7 +45,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      function, that call (``library_ms``; the port never calls it); kernel
      A also with a kv_mask (ragged Sk, one batch entry with every key
      masked), with its stats (m, l) held against the plain version's, and
-     at D = 64 with ragged Sq and Sk. fp32 rows (3xTF32: fp32 accuracy on
+     at D = 64 with ragged Sq and Sk; every bf16 row again in fp16 (the
+     --dtype float16 path; 2.5e-3 of max|ref| against bf16's 2e-2), and
+     kernel B's forward at the DiT q/k shape in fp16. fp32 rows (3xTF32: fp32 accuracy on
      TF32 tensor cores) are held within 2e-5 of the output's largest
      magnitude with their stats, and give their distance from the plain
      model of the split arithmetic
@@ -40,13 +55,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain version and the kernels SDPA launches (torch.profiler, one
      session for both fp32 shapes); the split pre-pass's workspaces must
      equal ``split_kv_reference`` bit for bit;
-  5. kernel F (qk-norm + interleaved RoPE pre-pass, then kernel A's
+  6. kernel F (qk-norm + interleaved RoPE pre-pass, then kernel A's
      mainloop; on no path) against its plain version at the Stage-I self
-     shape, a ragged fp32 and a D = 64 shape, timed beside
+     shape, a ragged fp32, a D = 64 and an fp16 shape, timed beside
      scaled_dot_product_attention on q and k normalised and rotated
      beforehand, and at the Stage-I shape beside the unfused composition
      (kernel B twice, then kernel A);
-  6. the backward kernels C and D at the Stage-I training shapes (on
+  7. the backward kernels C and D at the Stage-I training shapes (on
      kernel A's stats), timed beside SDPA's forward + backward and SDPA's
      backward alone (over one retained forward), at a small fp32, a D = 64
      and two ragged bf16 shapes (a one-row last query tile, a one-key last
@@ -55,30 +70,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      small edge cases, against ``rms_rope_backward_reference`` and autograd
      of the plain composition, dscale bit-equal across two calls, timed
      alone and with the forward, beside rms_norm's forward + backward;
-  7. kernel E at the evaluator's shape and small shapes (C = 1 to 8, ragged
+  8. kernel E at the evaluator's shape and small shapes (C = 1 to 8, ragged
      N and M, exact duplicates), with its pairs a second and its bounds,
      timed beside its yardstick, the simpler CUDA-core design (three FMAs and
      an fminf a pair; checked the same way, and against the plain model of
      its FMA chain), which the port never calls;
-  8. small references: the inference slice (Stage-0 stub) and a small
-     TripoSG Stage 0 (DiT 3 x 128, VAE decoder 2 x 128, dense 5 / fine 6 /
-     prefilter 4), each in fp32 on the card and on the CPU (plain
-     versions) with the same weights and noise, agree (Stage 0: equal
-     faces and no fine-lattice sign flip);
-  9. small train reference: 3 fp32 train steps of a small denoiser on the
+  9. small references: the inference slice (Stage-0 stub) in fp32 (within
+     1e-4) and in fp16 (within 1e-3), and a small TripoSG Stage 0 (DiT 3 x
+     128, VAE decoder 2 x 128, dense 5 / fine 6 / prefilter 4) in fp32, each
+     on the card and on the CPU (plain versions) with the same weights and
+     noise, agree (Stage 0: equal faces and no fine-lattice sign flip);
+ 10. small train reference: 3 fp32 train steps of a small denoiser on the
      card and on the CPU, same weights, batches and draws, agree; kernel B's
      backward runs 4 L times a step and the plain backward never on the
      card;
- 10. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
+ 11. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
      at the production DenoiserConfig (window 16, batch 2, bf16 compute,
      EMA, remat, 3 steps on synthetic clips of production size); checks a
      finite loss, moved params, a checkpoint that restores, and launch
      counts equal to what the path implies;
- 11. small ICP reference: gradient ICP (2 problems x 24 inits, 384 points
+ 12. small ICP reference: gradient ICP (2 problems x 24 inits, 384 points
      0.3 apart, 50 steps) on the card (kernel E) and on the CPU (plain
      version) agree within 1e-3, the winning inits' correspondences checked
      to stay clear of near-ties;
- 12. the ActionBench slice: the synthetic suite (16 frames, 50,000 tracked
+ 13. the ActionBench slice: the synthetic suite (16 frames, 50,000 tracked
      GT points, one sample per class) through
      ``python -m actionmesh_tpu_torch.actionbench.evaluate_dataset``'s code
      path at the evaluator's defaults (10,000 ICP points, 100,000 chamfer
@@ -88,7 +103,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of its main-path call: the larger of its bytes (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the peak rate of
-their type, counted from this run's shapes: 989 TFLOP/s for bf16 products;
+their type, counted from this run's shapes: 989 TFLOP/s for bf16 and fp16 products;
 495 / 3 TFLOP/s for fp32 products (kernel A's and F's fp32 rows, C and D's
 fp32 row), since an fp32-accurate product on the tensor cores is three
 TF32 products at the data sheet's 495 TFLOP/s; 67 TFLOP/s, the non-tensor
@@ -115,9 +130,11 @@ import logging
 import math
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -129,7 +146,12 @@ from actionmesh_tpu_torch.actionbench import evaluate_dataset as ab_eval
 from actionmesh_tpu_torch.actionbench import icp as icp_module
 from actionmesh_tpu_torch.actionbench import synthetic as ab_synth
 from actionmesh_tpu_torch.actionbench.icp import gradient_icp_multi
+from actionmesh_tpu_torch.inference import video_to_animated_mesh as cli
+from actionmesh_tpu_torch.io.mesh import load_glb
+from actionmesh_tpu_torch.io.png import read_png, write_png
 from actionmesh_tpu_torch.io.video_input import ActionMeshInput
+from actionmesh_tpu_torch.render import visualizer
+from actionmesh_tpu_torch.render.utils import write_gif
 from actionmesh_tpu_torch.models.dinov2 import DinoV2Config
 from actionmesh_tpu_torch import train as train_entry
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
@@ -235,7 +257,8 @@ def phase_build() -> dict:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
-        native_job = pool.submit(timed, native.build)
+        # the geometry library and the PNG reader's unfilter routine (g++)
+        native_job = pool.submit(timed, lambda: (native.build(), native.build(native.PNG_SOURCE, ())))
         # one nvcc per source, in parallel
         nvcc_s = timed(lambda: cuda_build.build(cuda_build.SOURCES + (NN_YARDSTICK,)))
         gxx_s = native_job.result()
@@ -245,9 +268,11 @@ def phase_build() -> dict:
     _rope_library()
     cuda_build.load_library(NN_YARDSTICK)
     native._load()
+    native._load_png()
     seconds = time.perf_counter() - t0
     log(f"build: {', '.join(f'{n}.cu' for n in cuda_build.SOURCES + (NN_YARDSTICK,))} compiled with nvcc in "
-        f"{nvcc_s:.1f} s, native/actionmesh_native.cpp with g++ in {gxx_s:.1f} s, in parallel; "
+        f"{nvcc_s:.1f} s, native/actionmesh_native.cpp and csrc/png_unfilter.cpp with g++ in "
+        f"{gxx_s:.1f} s, in parallel; "
         f"all loaded in {seconds:.1f} s")
     ptxas = {name: cuda_build.ptxas_report(cuda_build.ptxas_output.get(name, ""))
              for name in cuda_build.SOURCES + (NN_YARDSTICK,)}
@@ -289,8 +314,19 @@ FP32_PRODUCT_FLOPS = TF32_FLOPS / 3
 
 
 def product_rate(dtype) -> float:
-    """The peak rate of matrix products of ``dtype`` (fp32: 3xTF32)."""
-    return BF16_FLOPS if dtype == torch.bfloat16 else FP32_PRODUCT_FLOPS
+    """The peak rate of matrix products of ``dtype`` (bf16 and fp16 alike;
+    fp32: 3xTF32)."""
+    return FP32_PRODUCT_FLOPS if dtype == torch.float32 else BF16_FLOPS
+
+
+# 16-bit attention is held within 2e-2 of the output's largest magnitude in
+# bf16 (one rounding of P and of the output, 8 mantissa bits) and 2.5e-3 in
+# fp16, which rounds with 3 more bits.
+ATTN_16_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2 / 8}
+
+
+def attention_tol(dtype) -> float:
+    return ATTN_16_TOL.get(dtype, F32_ATTN_TOL)
 
 
 def bound(flop: float, flop_rate: float, nbytes: float) -> dict:
@@ -362,6 +398,13 @@ def flash_cases(n_vertices: int):
         ("stage0_vae_self", (1, 8, 2048, 2048, 128), bf, one_block),
         ("stage0_sdf_query", (1, 8, 1 << 18, 2048, 128), f32, one_block),
     ]
+
+
+def flash_cases_fp16(n_vertices: int):
+    """The fp16 twin of every bf16 main-path row (``--dtype float16`` runs
+    kernel A's fp16 instantiation at these shapes)."""
+    return [(f"{name}_fp16", shape, torch.float16, rep)
+            for name, shape, dtype, rep in flash_cases(n_vertices) if dtype == torch.bfloat16]
 
 
 def attention_bound(B, H, Sq, Sk, D, dtype, extra_bytes=0) -> dict:
@@ -490,8 +533,7 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
         f32_extra["prepass_bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
         del got, want
     del out, ref
-    # bf16: one bf16 rounding of P and of the output, in another order
-    tol = (2e-2 if dtype == torch.bfloat16 else F32_ATTN_TOL) * scale
+    tol = attention_tol(dtype) * scale
     ms = cuda_ms(lambda: flash_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
     plain_ms = cuda_ms(lambda: chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
     # SDPA gives no (m, l): no library call for the stats row
@@ -548,6 +590,7 @@ ROPE_CASES = [
     ("stage1_cross_k", (16, 16, 257, 128), True, None, torch.bfloat16),
     ("stage2_self_qk", (5, 8, 32784, 128), False, 0, torch.bfloat16),
     ("ragged_f32_d64", (2, 4, 1001, 64), True, 2, torch.float32),
+    ("stage0_dit_self_qk_fp16", (2, 16, 2049, 128), True, None, torch.float16),
 ]
 ROPE_PROFILE_CALLS = 20  # back-to-back calls a row in the profiler session
 
@@ -572,16 +615,17 @@ def check_rms_rope(name, shape, norm, tables, dtype, inputs, device_ms, reps=5) 
     ref = rms_rope_reference(x, scale, cos, sin)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
-    # bf16: one bf16 ulp of the output, plus fp32 rounding at the tensor's
-    # scale: x*cos - rot*sin cancels, so a small output carries the fp32
-    # error of its large terms, which fused multiply-adds round differently.
-    # fp32: 2^-20 of the value and of the largest (rsqrt and the products
-    # round in another order).
+    # bf16 (fp16): one bf16 (fp16) ulp of the output, plus fp32 rounding at
+    # the tensor's scale: x*cos - rot*sin cancels, so a small output carries
+    # the fp32 error of its large terms, which fused multiply-adds round
+    # differently. fp32: 2^-20 of the value and of the largest (rsqrt and the
+    # products round in another order).
     ref_abs = ref.float().abs()
     if dtype == torch.float32:
         ulp = 2.0**-20 * ref_abs
     else:
-        ulp = torch.exp2(torch.floor(torch.log2(ref_abs.clamp_min(1e-30))) - 7)
+        mantissa = 7 if dtype == torch.bfloat16 else 10
+        ulp = torch.exp2(torch.floor(torch.log2(ref_abs.clamp_min(1e-30))) - mantissa)
     tol = ulp + 2.0**-20 * ref_abs.max()
     bad = int((diff > tol).sum())
     n_ulp = int((diff > ulp).sum())
@@ -608,7 +652,7 @@ def check_rms_rope(name, shape, norm, tables, dtype, inputs, device_ms, reps=5) 
     bnd = bound(10 * x.numel(), FP32_FLOPS, nbytes)
     dt = str(dtype)[6:]
     log(f"rms_rope {name} {shape} {dt} norm={norm} tables={tables}: max_abs_err "
-        f"{err:.3e}, {n_ulp} elements above 1 {'bf16 ulp' if dtype != torch.float32 else '2^-20 rel'}, "
+        f"{err:.3e}, {n_ulp} elements above 1 {'2^-20 rel' if dtype == torch.float32 else 'ulp'}, "
         f"{bad} above the tolerance | kernel {ms:.4f} ms per call, device {device_ms:.4f} ms "
         f"({gbs:.0f} GB/s; {100 * bnd['bound_ms'] / device_ms:.0f}% of the bound on device time) | "
         f"plain {plain_ms:.3f} ms | rms_norm {library_ms} ms "
@@ -617,7 +661,8 @@ def check_rms_rope(name, shape, norm, tables, dtype, inputs, device_ms, reps=5) 
     if bad:
         raise AssertionError(f"rms_rope {name}: {bad} elements above the tolerance")
     return {"name": name, "shape": list(shape), "dtype": dt, "max_abs_err": err,
-            "tol": "1 bf16 ulp + 2^-20 max|ref| (fp32: 2^-20 |ref| + 2^-20 max|ref|)",
+            "tol": "1 ulp of the dtype (bf16, fp16) + 2^-20 max|ref| "
+                   "(fp32: 2^-20 |ref| + 2^-20 max|ref|)",
             "above_1_ulp": n_ulp, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_diff": lib_err, **bnd,
             "bound_share_device": bnd["bound_ms"] / device_ms}
@@ -642,20 +687,21 @@ def phase_kernels(n_vertices: int) -> tuple[list, list]:
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flash = []
-    for n, s, d, rep in flash_cases(n_vertices):
+    for n, s, d, rep in flash_cases(n_vertices) + flash_cases_fp16(n_vertices):
         flash.append(dict(check_flash(gen, n, s, d, library_kernel_names=sdpa_names.get(n)),
                           replaces=rep))
         torch.cuda.empty_cache()
-    # the contract's edges, bf16: a kv_mask over a ragged Sk, the training
-    # cross shape with stats, and D = 64 with ragged Sq and Sk
+    # the contract's edges, bf16 and fp16: a kv_mask over a ragged Sk, the
+    # training cross shape with stats, and D = 64 with ragged Sq and Sk
     one_block = "actionmesh_tpu/ops/flash_attention.py:612"
-    flash.append(dict(check_flash(gen, "kv_mask", (3, 8, 1000, 1333, 128), torch.bfloat16, masked=True),
-                      replaces=one_block))
-    flash.append(dict(check_flash(gen, "stats", (32, 16, 2049, 257, 128), torch.bfloat16, stats=True),
-                      replaces=one_block))
-    flash.append(dict(check_flash(gen, "d64_ragged", (2, 4, 777, 1029, 64), torch.bfloat16),
-                      replaces=one_block))
-    torch.cuda.empty_cache()
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float16, "_fp16")):
+        flash.append(dict(check_flash(gen, "kv_mask" + suffix, (3, 8, 1000, 1333, 128), dtype,
+                                      masked=True), replaces=one_block))
+        flash.append(dict(check_flash(gen, "stats" + suffix, (32, 16, 2049, 257, 128), dtype,
+                                      stats=True), replaces=one_block))
+        flash.append(dict(check_flash(gen, "d64_ragged" + suffix, (2, 4, 777, 1029, 64), dtype),
+                          replaces=one_block))
+        torch.cuda.empty_cache()
     rope = []
     for name, shape, norm, tables, dtype in ROPE_CASES:
         kernels = prof[f"rms_rope {name}"]["kernels"]
@@ -673,6 +719,7 @@ FUSED_CASES = [
     ("stage1_self", (2, 16, 32784, 128), torch.bfloat16),
     ("ragged_f32", (1, 2, 300, 128), torch.float32),
     ("d64", (2, 4, 777, 64), torch.bfloat16),
+    ("fp16", (2, 4, 777, 128), torch.float16),
 ]
 
 
@@ -696,7 +743,7 @@ def check_fused(gen, name, shape, dtype, reps=3, compare=False) -> dict:
     ref = flash_attention_fused_reference(q, k, v, cos, sin, qs, ks)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    tol = (2e-2 if dtype == torch.bfloat16 else F32_ATTN_TOL) * ref.float().abs().max().item()
+    tol = attention_tol(dtype) * ref.float().abs().max().item()
     del out, ref
     ms = cuda_ms(lambda: flash_attention_fused(q, k, v, cos, sin, qs, ks), reps)
     plain_ms = cuda_ms(lambda: flash_attention_fused_reference(q, k, v, cos, sin, qs, ks), reps)
@@ -754,7 +801,7 @@ BWD_CASES = [
 BWD_DETERMINISM = ("stage1_cross", "small_d64")
 
 
-def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict:
+def check_flash_bwd(gen, name, shape, dtype, reps=2) -> dict:
     """Kernels C and D against the plain backward (chunked_attention_
     trainable's), from the same q, k, v, o, m, l and dO; for the
     BWD_DETERMINISM shapes a second call must give bit-equal gradients."""
@@ -794,16 +841,14 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2, with_library=False) -> dict
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         return torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), do)
 
-    library_ms = library_bwd_ms = None
-    if with_library:
-        library_ms = library_time(sdpa_fwd_bwd, reps, f"flash_bwd {name}")
-        # SDPA's backward alone, over one forward kept for it
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        out = sdpa(qg, kg, vg)
-        library_bwd_ms = library_time(
-            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), reps,
-            f"flash_bwd {name} (backward alone)")
-        del qg, kg, vg, out
+    library_ms = library_time(sdpa_fwd_bwd, reps, f"flash_bwd {name}")
+    # SDPA's backward alone, over one forward kept for it
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = sdpa(qg, kg, vg)
+    library_bwd_ms = library_time(
+        lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), reps,
+        f"flash_bwd {name} (backward alone)")
+    del qg, kg, vg, out
     work = B * H * Sq * Sk * D
     tf_c, tf_d = 6 * work / (ms_c * 1e-3) / 1e12, 4 * work / (ms_d * 1e-3) / 1e12
     # The pair's least work is 10*B*H*Sq*Sk*D (S and dP once, then dV, dK,
@@ -941,7 +986,7 @@ def check_rms_rope_bwd(gen, name, shape, norm, tables, dtype, table_grads, reps=
 
 def phase_backward() -> tuple[list, list]:
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    bwd = [check_flash_bwd(gen, n, s, d, with_library=n.startswith("stage1")) for n, s, d in BWD_CASES]
+    bwd = [check_flash_bwd(gen, n, s, d) for n, s, d in BWD_CASES]
     rope = [check_rms_rope_bwd(gen, *case) for case in ROPE_BWD_CASES]
     torch.cuda.empty_cache()
     return bwd, rope
@@ -1184,33 +1229,44 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_small_reference() -> float:
-    """The slice at a small width in fp32, on the card (kernels) and on the
-    CPU (plain versions), same weights, seeds and frames: vertices agree."""
-    pipes = {}
-    for dev in ("cpu", "cuda"):
-        pipe = ActionMeshPipeline(
-            config_updates=dict(SMALL_UPDATES), device=torch.device(dev), dtype=torch.float32
-        )
-        pipe.image_encoder = ImageEncoder(torch.device(dev), torch.float32, SMALL_DINO)
-        pipes[dev] = pipe
-    cpu, gpu = pipes["cpu"], pipes["cuda"]
-    gpu.denoiser_params = tree_to(cpu.denoiser_params, "cuda")
-    gpu.autoencoder_params = tree_to(cpu.autoencoder_params, "cuda")
-    gpu.image_encoder.params = tree_to(cpu.image_encoder.params, "cuda")
-    launched = (flash_attention.launches, fused_rms_rope.launches)
-    inp = ActionMeshInput(frames=make_frames(), timesteps=np.arange(N_FRAMES, dtype=np.float32))
-    ref = np.stack([m.vertices for m in cpu(inp, seed=3)])
-    out = np.stack([m.vertices for m in gpu(inp, seed=3)])
-    if (flash_attention.launches, fused_rms_rope.launches) == launched:
-        raise AssertionError("the small run on the card launched no kernel")
-    err = float(np.abs(out - ref).max())
-    # fp32 everywhere (no TF32); sums in another order on the card
-    log(f"small reference: {out.shape[0]} meshes x {out.shape[1]} vertices, "
-        f"card vs CPU max abs err {err:.3e} (tol 1e-4)")
-    if not err <= 1e-4:
-        raise AssertionError(f"card and CPU disagree at small width: {err}")
-    return err
+# Card vs CPU at small width. fp32 everywhere (no TF32): sums in another
+# order on the card. fp16 compute (fp16 weights, fp32 islands as on the main
+# path): this configuration's fp16 run is 1.0e-4 from its fp32 run on the
+# CPU, so 1e-3 leaves ten times that for fp16 rounding in another order.
+SMALL_REFERENCE_TOL = {torch.float32: 1e-4, torch.float16: 1e-3}
+
+
+def phase_small_reference() -> dict:
+    """The slice at a small width in fp32 and in fp16, on the card (kernels)
+    and on the CPU (plain versions), same weights, seeds and frames:
+    vertices agree within SMALL_REFERENCE_TOL."""
+    errs = {}
+    for dtype, tol in SMALL_REFERENCE_TOL.items():
+        pipes = {}
+        for dev in ("cpu", "cuda"):
+            pipe = ActionMeshPipeline(
+                config_updates=dict(SMALL_UPDATES), device=torch.device(dev), dtype=dtype
+            )
+            pipe.image_encoder = ImageEncoder(torch.device(dev), dtype, SMALL_DINO)
+            pipes[dev] = pipe
+        cpu, gpu = pipes["cpu"], pipes["cuda"]
+        gpu.denoiser_params = tree_to(cpu.denoiser_params, "cuda")
+        gpu.autoencoder_params = tree_to(cpu.autoencoder_params, "cuda")
+        gpu.image_encoder.params = tree_to(cpu.image_encoder.params, "cuda")
+        launched = (flash_attention.launches, fused_rms_rope.launches)
+        inp = ActionMeshInput(frames=make_frames(), timesteps=np.arange(N_FRAMES, dtype=np.float32))
+        ref = np.stack([m.vertices for m in cpu(inp, seed=3)])
+        out = np.stack([m.vertices for m in gpu(inp, seed=3)])
+        if (flash_attention.launches, fused_rms_rope.launches) == launched:
+            raise AssertionError("the small run on the card launched no kernel")
+        err = float(np.abs(out - ref).max())
+        name = str(dtype)[6:]
+        log(f"small reference {name}: {out.shape[0]} meshes x {out.shape[1]} vertices, "
+            f"card vs CPU max abs err {err:.3e} (tol {tol:g}), finite {bool(np.isfinite(out).all())}")
+        if not (err <= tol and np.isfinite(out).all()):
+            raise AssertionError(f"card and CPU disagree at small width in {name}: {err}")
+        errs[name] = err
+    return errs
 
 
 # A small TripoSG Stage 0 with head dim 64: DiT 3 blocks x 128, VAE decoder
@@ -1419,6 +1475,14 @@ def expected_launches(pipe: ActionMeshPipeline, n_frames: int) -> tuple[int, int
     cross (q, k rms; flash; conditional only). Stage II, per window and
     target chunk: one flash and two rope-only launches per self block, one
     flash for the vertex cross block.
+
+    The guidance-free branches count the same: a distilled preset's Stage I
+    (guidance [[1, 1]]) runs one conditional branch, and turbo's Stage 0
+    (guidance_scale 0) one conditional DiT forward a step, each still one
+    self and one cross launch per block. ``split_cfg_batch`` (the low-RAM
+    presets) runs each Stage-I branch in its own forward, so every launch of
+    a Stage-I block repeats once per branch (the unconditional one's cross
+    attention on zero context).
     """
     cfg = pipe.cfg
     win1 = len(chunk_from(cfg.anchor_idx, n_frames, cfg.temporal_3D_denoiser.temporal_context_size, cfg.sliding_window_denoiser))
@@ -1430,8 +1494,11 @@ def expected_launches(pipe: ActionMeshPipeline, n_frames: int) -> tuple[int, int
     tripo = pipe.image_to_3d.pipeline
     steps0, L0 = cfg.stage_0.num_inference_steps, tripo.dit_cfg.num_layers
     stage0_flash = dino + 2 * L0 * steps0 + tripo.vae_cfg.decoder_layers + sum(tripo.extract_stats.values())
-    flash = stage0_flash + dino + 2 * L1 * steps * win1 + (L2 + 1) * chunks2
-    rope = 4 * L0 * steps0 + 4 * L1 * steps * win1 + 2 * L2 * chunks2
+    guidance = cfg.cf_guidance
+    branches = len(guidance.guidance_at_inference) if guidance.inference_enabled else 1
+    per_branch = branches if cfg.scheduler.split_cfg_batch and branches > 1 else 1
+    flash = stage0_flash + dino + 2 * L1 * steps * win1 * per_branch + (L2 + 1) * chunks2
+    rope = 4 * L0 * steps0 + 4 * L1 * steps * win1 * per_branch + 2 * L2 * chunks2
     return flash, rope
 
 
@@ -1518,6 +1585,146 @@ def phase_slice() -> dict:
             "call_seconds": total_s, "peak_gib": peak_gib, "sdf_query_chunks": chunks,
             "anchor_vertices": int(anchor.n_vertices), "anchor_faces": int(anchor.n_faces),
             "derived_clip_seconds": clip_s, "preset_stage1_steps": preset_stage1_steps}, fine_query
+
+
+def write_frame_pairs(directory: Path, frames: list[np.ndarray]) -> None:
+    """The frames as NN_image.png (RGB) + NN_mask.png (the alpha), the
+    layout ``load_from_image_mask_pairs`` reads."""
+    directory.mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(frames):
+        write_png(directory / f"{i:02d}_image.png", frame[..., :3])
+        write_png(directory / f"{i:02d}_mask.png", frame[..., 3])
+
+
+def glb_json(path: Path) -> dict:
+    """The JSON chunk of a binary glTF file."""
+    raw = path.read_bytes()
+    length, _ = struct.unpack_from("<II", raw, 12)
+    return json.loads(raw[20 : 20 + length])
+
+
+def run_cli(name: str, flags: list[str], frames_dir: Path, out_dir: Path) -> dict:
+    """One in-process call of the CLI's ``main`` on the frame pairs at full
+    width, then its outputs checked: 16 mesh_XX.glb with the anchor's
+    topology, the deformation arrays, an animated GLB with 16 morph targets,
+    a non-blank preview, and kernel launches equal to what the preset's path
+    implies. Returns the seconds of each step and the counts."""
+    frames_seen = []
+    write = visualizer.write_mp4
+
+    def recording_write(frames, path, fps=8):
+        frames_seen.append(frames)
+        return write(frames, path, fps=fps)
+
+    visualizer.write_mp4 = recording_write
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        result = cli.main(["--input", str(frames_dir), "--output_dir", str(out_dir),
+                           "--seed", "44", *flags])
+        torch.cuda.synchronize()
+    finally:
+        visualizer.write_mp4 = write
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    pipe, meshes = result.pop("pipeline"), result.pop("meshes")
+    want_flash, want_rope = expected_launches(pipe, N_FRAMES)
+    phase_s, steps1 = dict(pipe.phase_seconds), pipe.cfg.scheduler.num_inference_steps
+    steps0 = pipe.cfg.stage_0.num_inference_steps
+    del pipe
+    seconds = result["seconds"]
+    clip_s = sum(seconds.values())
+    log(f"cli {name} ({result['preset']}, {' '.join(flags) or 'no flags'}; Stage 0 {steps0} "
+        f"steps, Stage I {steps1}): clip {clip_s:.2f} s = load {seconds['load']:.2f} + pipeline "
+        f"{seconds['pipeline']:.2f} (" + " ".join(f"{k} {v:.2f}" for k, v in phase_s.items())
+        + f") + export {seconds['export']:.2f} + render {seconds.get('render', 0.0):.2f} s; "
+        f"with the pipeline's set-up {wall_s:.2f} s")
+    log(f"cli {name}: launches flash_fwd {launches['flash_fwd']} (expected {want_flash}), "
+        f"rms_rope {launches['fused_rms_rope']} (expected {want_rope})")
+    if (launches["flash_fwd"], launches["fused_rms_rope"]) != (want_flash, want_rope):
+        raise AssertionError(f"cli {name}: launch counts {launches} != ({want_flash}, {want_rope})")
+    if any(launches[k] for k in COUNTERS[2:]):
+        raise AssertionError(f"cli {name}: a backward kernel or kernel F launched: {launches}")
+
+    if len(meshes) != N_FRAMES:
+        raise AssertionError(f"cli {name}: {len(meshes)} meshes for {N_FRAMES} frames")
+    anchor = meshes[0]
+    verts = np.stack([m.vertices for m in meshes])
+    if not np.isfinite(verts).all():
+        raise AssertionError(f"cli {name}: vertices are not finite")
+    for i, mesh in enumerate(meshes):
+        glb = load_glb(out_dir / f"mesh_{i:02d}.glb")
+        if not (np.array_equal(glb.faces, anchor.faces) and glb.n_vertices == anchor.n_vertices
+                and np.abs(glb.vertices - mesh.vertices).max() <= 1e-6):
+            raise AssertionError(f"cli {name}: mesh_{i:02d}.glb does not hold the mesh with the anchor's faces")
+    dv = np.load(out_dir / "deformations_vertices.npy")
+    df = np.load(out_dir / "deformations_faces.npy")
+    if dv.shape != (N_FRAMES, anchor.n_vertices, 3) or df.shape != (anchor.n_faces, 3):
+        raise AssertionError(f"cli {name}: deformation arrays {dv.shape} {df.shape}")
+    targets = glb_json(out_dir / "animated_mesh.glb")["meshes"][0]["primitives"][0]["targets"]
+    if len(targets) != N_FRAMES:
+        raise AssertionError(f"cli {name}: animated_mesh.glb has {len(targets)} morph targets")
+    preview = result["preview"]
+    if preview is None or not Path(preview).is_file() or Path(preview).stat().st_size == 0:
+        raise AssertionError(f"cli {name}: no preview was written ({preview})")
+    # the three mesh views (right of the input frame) are not all background
+    grids = np.stack(frames_seen[-1])
+    covered = float((grids[:, :, grids.shape[2] // 4 :] != 255).any(axis=-1).mean())
+    if not covered > 0.01:
+        raise AssertionError(f"cli {name}: the preview's mesh views are blank ({covered:.4f} covered)")
+    log(f"cli {name}: {len(meshes)} GLBs with the anchor's {anchor.n_vertices} vertices / "
+        f"{anchor.n_faces} faces, deformations {dv.shape}, {len(targets)} morph targets, preview "
+        f"{Path(preview).name} ({Path(preview).stat().st_size} bytes, {100 * covered:.1f}% of the "
+        f"mesh views covered)")
+    return {"preset": result["preset"], "flags": flags, "clip_seconds": clip_s, "seconds": seconds,
+            "phase_seconds": phase_s, "wall_seconds": wall_s, "stage0_steps": steps0,
+            "stage1_steps": steps1, "launches": launches,
+            "expected_launches": {"flash_fwd": want_flash, "fused_rms_rope": want_rope},
+            "anchor_vertices": int(anchor.n_vertices), "anchor_faces": int(anchor.n_faces),
+            "preview": Path(preview).name, "preview_covered": covered}
+
+
+# the CLI phase's presets: the default (30 Stage-I steps) and turbo
+CLI_PRESETS = {"default": [], "turbo": ["--turbo"]}
+
+
+def phase_cli(presets: dict) -> dict:
+    """The video-to-4D command line on 16 synthetic frames written as
+    image + mask PNG pairs, once per preset, at full width."""
+    work = OUT_DIR / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    frames_dir = work / "frames"
+    write_frame_pairs(frames_dir, make_frames())
+    try:
+        out = {name: run_cli(name, flags, frames_dir, work / "".join(c for c in name if c.isalnum()))
+               for name, flags in presets.items()}
+        out["host_io"] = host_io_seconds(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_io_seconds(work: Path) -> dict:
+    """This host's time for the two host codecs at their target sizes: one
+    1024 x 1024 RGBA PNG read (target 0.5 s) and a 16-frame 256 x 1024 GIF
+    written (target 2 s)."""
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[:1024, :1024]
+    png = np.stack([x % 256, y % 256, (x + y) % 256, (x ^ y) % 256], -1).astype(np.uint8)
+    png = png + rng.integers(0, 4, png.shape, dtype=np.uint8)
+    write_png(work / "frame_1024.png", png)
+    t0 = time.perf_counter()
+    if not np.array_equal(read_png(work / "frame_1024.png"), png):
+        raise AssertionError("read_png does not give back the 1024 x 1024 RGBA frame")
+    png_s = time.perf_counter() - t0
+    frames = [rng.integers(0, 256, (256, 1024, 3), dtype=np.uint8) for _ in range(N_FRAMES)]
+    t0 = time.perf_counter()
+    write_gif(frames, work / "grid.gif")
+    gif_s = time.perf_counter() - t0
+    log(f"host codecs: read_png 1024 x 1024 RGBA {png_s:.3f} s (target 0.5), write_gif "
+        f"{N_FRAMES} x 256 x 1024 {gif_s:.3f} s (target 2)")
+    return {"read_png_1024_rgba_seconds": png_s, "write_gif_16x256x1024_seconds": gif_s}
 
 
 def plain_dot_product_attention(q, k, v, scale=None, kv_mask=None, trainable=False):
@@ -1682,6 +1889,7 @@ def main() -> None:
     sdf_chunk = phase_sdf_chunk(fine_query)
     del fine_query
     torch.cuda.empty_cache()
+    cli_runs = phase_cli(CLI_PRESETS)
     flash, rope = phase_kernels(sl["anchor_vertices"])
     fused, fused_launches = phase_fused()
     bwd, rope_bwd = phase_backward()
@@ -1703,7 +1911,12 @@ def main() -> None:
                 "shape": head["shape"], "shapes": rows}
 
     def by_path(name, inference_name):
-        return {"inference": sl["launches"][inference_name], "training": tr["launches"][name]}
+        return {"inference": sl["launches"][inference_name], "training": tr["launches"][name],
+                **{f"cli_{preset}": run["launches"][name] for preset, run in cli_runs.items()
+                   if preset in CLI_PRESETS}}
+
+    def cli_launches(name):
+        return sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
 
     def bwd_summary(name, replaces, key):
         rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
@@ -1725,10 +1938,11 @@ def main() -> None:
     kernels = [
         summary("flash_fwd", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
                 "actionmesh_tpu/ops/flash_attention.py:302", flash,
-                sl["launches"]["flash_fwd"] + tr["launches"]["flash_fwd"]),
+                sl["launches"]["flash_fwd"] + tr["launches"]["flash_fwd"] + cli_launches("flash_fwd")),
         summary("fused_rms_rope", "actionmesh_tpu_torch/csrc/rms_rope.cu",
                 "actionmesh_tpu/ops/rope_norm.py:94", rope,
-                sl["launches"]["rms_rope"] + tr["launches"]["fused_rms_rope"]),
+                sl["launches"]["rms_rope"] + tr["launches"]["fused_rms_rope"]
+                + cli_launches("fused_rms_rope")),
         bwd_summary("flash_bwd_dkv", "actionmesh_tpu/ops/flash_attention_bwd.py:261", ("dkv", ("dk", "dv"))),
         bwd_summary("flash_bwd_dq", "actionmesh_tpu/ops/flash_attention_bwd.py:287", ("dq", ("dq",))),
         summary("nn_argmin", "actionmesh_tpu_torch/csrc/nn_argmin.cu",
@@ -1776,7 +1990,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "build": build,
                       "small_reference_max_abs_err": small_err, "small_stage0_reference": small_stage0,
                       "small_train_reference": small_train, "small_icp_reference": small_icp,
-                      "slice": sl, "sdf_chunk": sdf_chunk, "train": tr, "actionbench": ab,
+                      "slice": sl, "sdf_chunk": sdf_chunk, "cli": cli_runs, "train": tr,
+                      "actionbench": ab,
                       "card": info["nvidia_smi"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1784,5 +1999,26 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def main_cli_runs(specs: list[str]) -> None:
+    """``chip_smoke.py --cli "FLAGS" ...``: only the CLI phase, once for each
+    quoted set of CLI flags (e.g. "--fast", "--dtype float16"), each checked
+    as in the full run; a run that fails its checks is reported, not
+    raised. Prints one JSON object of the results."""
+    logging.basicConfig(level=logging.WARNING)
+    info = phase_device()
+    phase_build()
+    out = {}
+    for spec in specs:
+        try:
+            out[spec] = phase_cli({spec: spec.split()})[spec]
+        except Exception as e:  # a report of each run: record the failure, go on
+            log(f"cli {spec}: FAILED:\n{traceback.format_exc()}")
+            out[spec] = {"error": f"{type(e).__name__}: {e}"}
+    print(json.dumps({"cli": out, "card": info["nvidia_smi"]}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cli"]:
+        main_cli_runs(sys.argv[2:])
+    else:
+        main()

@@ -237,3 +237,38 @@ def test_port_imports_no_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "actionmesh_tpu", "flax"), f"{path}: {name}"
+
+
+def test_port_runtime_dependencies():
+    """The card's host is promised only torch, numpy, scipy and the standard
+    library: no module of the port imports PIL, yaml, cv2, pandas or
+    skimage, at top level or inside a function (nor by name through
+    importlib); imageio only inside render/utils.py's writer."""
+    banned = {"PIL", "yaml", "cv2", "pandas", "skimage"}
+    port = REPO / "actionmesh_tpu_torch"
+    files = sorted(port.rglob("*.py"))
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(path.read_text())
+        writer = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for node in ast.walk(fn):
+                    writer.setdefault(id(node), fn.name)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            elif (isinstance(node, ast.Call) and node.args
+                  and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+                  and getattr(node.func, "attr", getattr(node.func, "id", None))
+                  in ("import_module", "__import__")):
+                names = [node.args[0].value]
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in banned, f"{path}: imports {name}"
+                if root == "imageio":
+                    where = (path.relative_to(port).as_posix(), writer.get(id(node)))
+                    assert where == ("render/utils.py", "write_mp4"), f"{path}: imports {name}"
