@@ -13,7 +13,10 @@ without a card. It writes ``mesh_XX.glb`` per frame,
 ``--blender_path``, else the built-in morph-target writer) and, unless
 ``--no_render``, the preview ``grid_normal.mp4`` (or ``.gif``). Preview
 rendering is best-effort, as in the JAX CLI: a failure is logged, not
-raised. Input frames must be PNG (``io/video_input.py``).
+raised. Input frames must be PNG (``io/video_input.py``); frames without a
+valid alpha are matted by RMBG-1.4 from ``--weights_dir`` (they raise
+without it). ``--weights_dir`` holds the checkpoint families
+(``pipeline.py``); a missing one runs on random weights.
 """
 
 from __future__ import annotations

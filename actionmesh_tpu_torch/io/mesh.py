@@ -2,7 +2,8 @@
 
 The ``Mesh`` dataclass of ``actionmesh_tpu/io/mesh.py`` with the geometry
 the pipeline needs, ``load_glb`` (every triangle primitive, node transforms
-applied, TEXCOORD_0 kept as ``uv``) and ``save_glb`` (positions, vertex
+applied, TEXCOORD_0 kept as ``uv``, the file's glTF JSON and buffer kept
+as the opaque ``visual``) and ``save_glb`` (positions, vertex
 normals, 32-bit indices; byte for byte the JAX package's file).
 """
 
@@ -38,6 +39,7 @@ class Mesh:
     vertices: np.ndarray
     faces: np.ndarray
     uv: Optional[np.ndarray] = None  # (V, 2) texcoords if present
+    visual: Optional[dict] = None  # opaque texture/material payload (a GLB's JSON + buffer)
 
     def __post_init__(self):
         self.vertices = np.asarray(self.vertices, dtype=np.float64)
@@ -184,7 +186,12 @@ def load_glb(path: str | Path) -> Mesh:
     if not all_verts:
         raise ValueError(f"No triangle geometry found in {path}")
     uv = np.concatenate(all_uv) if (has_uv and all_uv) else None
-    return Mesh(vertices=np.concatenate(all_verts), faces=np.concatenate(all_faces), uv=uv)
+    return Mesh(
+        vertices=np.concatenate(all_verts),
+        faces=np.concatenate(all_faces),
+        uv=uv,
+        visual={"gltf": gltf, "binary": binary},
+    )
 
 
 def _pad4(b: bytes, fill: bytes = b"\x00") -> bytes:
@@ -236,3 +243,45 @@ def write_glb(path: str | Path, gltf: dict, binary: bytes) -> None:
         f.write(json_chunk)
         f.write(struct.pack("<II", len(binary), _CHUNK_BIN))
         f.write(binary)
+
+
+def save_textured_glb(mesh: Mesh, path: str | Path, texture: np.ndarray) -> None:
+    """A .glb of ``mesh`` with its ``uv`` as TEXCOORD_0 and ``texture``
+    ((H, W, 3|4) uint8) as the base-colour image of its one material:
+    positions, uvs and 32-bit indices in one buffer, the PNG after them."""
+    from actionmesh_tpu_torch.io.png import encode_png
+
+    if mesh.uv is None:
+        raise ValueError("save_textured_glb: the mesh has no uv")
+    verts = np.ascontiguousarray(mesh.vertices, dtype=np.float32)
+    uv = np.ascontiguousarray(mesh.uv, dtype=np.float32)
+    faces = np.ascontiguousarray(mesh.faces, dtype=np.uint32)
+    blobs = [verts.tobytes(), uv.tobytes(), faces.tobytes(), encode_png(texture)]
+    views, offset = [], 0
+    for blob, target in zip(blobs, (34962, 34962, 34963, None)):
+        view = {"buffer": 0, "byteOffset": offset, "byteLength": len(blob)}
+        if target is not None:
+            view["target"] = target
+        views.append(view)
+        offset += len(_pad4(blob))
+    binary = b"".join(_pad4(b) for b in blobs)
+    gltf = {
+        "asset": {"version": "2.0", "generator": "actionmesh_tpu_torch"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "TEXCOORD_0": 1},
+                                    "indices": 2, "material": 0, "mode": 4}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}}}],
+        "textures": [{"source": 0}],
+        "images": [{"bufferView": 3, "mimeType": "image/png"}],
+        "buffers": [{"byteLength": len(binary)}],
+        "bufferViews": views,
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(verts), "type": "VEC3",
+             "min": verts.min(axis=0).tolist(), "max": verts.max(axis=0).tolist()},
+            {"bufferView": 1, "componentType": 5126, "count": len(uv), "type": "VEC2"},
+            {"bufferView": 2, "componentType": 5125, "count": faces.size, "type": "SCALAR"},
+        ],
+    }
+    write_glb(path, gltf, binary)

@@ -110,6 +110,11 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def write_png(path: str | Path, image: np.ndarray) -> None:
     """Write (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 to ``path``."""
+    Path(path).write_bytes(encode_png(image))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as PNG bytes."""
     image = np.asarray(image)
     if image.ndim == 2:
         image = image[..., None]
@@ -119,7 +124,7 @@ def write_png(path: str | Path, image: np.ndarray) -> None:
     rows = np.zeros((h, w * c + 1), np.uint8)  # filter type 0 on every row
     rows[:, 1:] = image.reshape(h, w * c)
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
-    Path(path).write_bytes(
+    return (
         SIGNATURE + _chunk(b"IHDR", header)
         + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b"")
     )

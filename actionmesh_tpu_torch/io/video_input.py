@@ -5,7 +5,7 @@ numpy frames instead of PIL images: ``ActionMeshInput``, ``natsorted``,
 ``load_from_image_mask_pairs``, ``load_from_image_dir`` and ``load_frames``'
 dispatch. PNG is decoded by ``io/png.py`` (as PIL's ``convert("RGBA")``
 gives it); a mask of another size than its image is resized as PIL's LANCZOS
-does (``lanczos_resize``). The card's host has no JPEG, WebP or video
+does (``pil_resize``, which also has PIL's BILINEAR, for the RMBG matte). The card's host has no JPEG, WebP or video
 decoder, so those files raise ``NotImplementedError``.
 """
 
@@ -88,7 +88,7 @@ class ActionMeshInput:
         return out
 
 
-# -- PIL's LANCZOS resize of 8-bit images (libImaging/Resample.c) -------------
+# -- PIL's resize of 8-bit images (libImaging/Resample.c) -----------------------
 
 _PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point coefficients
 
@@ -98,13 +98,24 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), np.sinc(x) * np.sinc(x / 3.0), 0.0)
 
 
-def _coefficients(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """PIL's bilinear filter: 1 - |x| on (-1, 1), else 0."""
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+# PIL's resampling filters: (filter, support)
+FILTERS = {"lanczos": (_lanczos, 3.0), "bilinear": (_triangle, 1.0)}
+
+
+def _coefficients(in_size: int, out_size: int, resample: str) -> tuple[np.ndarray, np.ndarray]:
     """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc``: the first
     input index (out_size,) and the fixed-point taps (out_size, ksize) of
-    each output pixel."""
+    each output pixel. Downscaling widens the filter's support by the scale."""
+    filt, base_support = FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = base_support * filterscale
+    ss = 1.0 / filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     first = np.zeros(out_size, np.int64)
     taps = np.zeros((out_size, ksize), np.int64)
@@ -112,7 +123,7 @@ def _coefficients(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)  # int() truncates, as C's cast
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = _lanczos((np.arange(xmax) + xmin - center + 0.5) / filterscale)
+        w = filt((np.arange(xmax) + xmin - center + 0.5) * ss)
         total = w.sum()
         if total != 0.0:
             w = w / total
@@ -122,9 +133,9 @@ def _coefficients(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
     return first, taps
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, resample: str) -> np.ndarray:
     """One pass of PIL's separable resample along ``axis``, rounded to uint8."""
-    first, taps = _coefficients(img.shape[axis], out_size)
+    first, taps = _coefficients(img.shape[axis], out_size, resample)
     src = np.moveaxis(img, axis, -1).astype(np.int64)
     idx = np.minimum(first[:, None] + np.arange(taps.shape[1]), img.shape[axis] - 1)
     acc = (src[..., idx] * taps).sum(axis=-1) + (1 << (_PRECISION_BITS - 1))
@@ -132,17 +143,22 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, -1, axis)
 
 
-def lanczos_resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+def pil_resize(img: np.ndarray, size: tuple[int, int], resample: str = "lanczos") -> np.ndarray:
     """(H, W[, C]) uint8 resized to ``size`` = (width, height) as PIL's
-    ``Image.resize(size, Image.LANCZOS)``: width first, rounded to uint8,
-    then height, in PIL's fixed-point arithmetic."""
+    ``Image.resize(size, Image.LANCZOS | Image.BILINEAR)``: width first,
+    rounded to uint8, then height, in PIL's fixed-point arithmetic."""
     width, height = size
     out = img
     if width != img.shape[1]:
-        out = _resample_axis(out, width, 1)
+        out = _resample_axis(out, width, 1, resample)
     if height != img.shape[0]:
-        out = _resample_axis(out, height, 0)
+        out = _resample_axis(out, height, 0, resample)
     return out
+
+
+def lanczos_resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``pil_resize`` with PIL's LANCZOS filter."""
+    return pil_resize(img, size, "lanczos")
 
 
 # -- loaders --------------------------------------------------------------------

@@ -71,6 +71,8 @@ def init_dinov2(
         }
 
     def normal(shape):
+        if torch.device(device or "cpu").type == "meta":  # a shape-only tree: meta randn costs seconds
+            return torch.empty(shape, device=device)
         return torch.randn(shape, generator=gen, device=device) * 0.02
 
     return {

@@ -13,6 +13,7 @@ two against each other.
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -59,7 +60,12 @@ def preprocess_for_dino(
 
 
 class ImageEncoder:
-    """DINOv2-large producing (T, S, 1024) context embeddings."""
+    """DINOv2-large producing (T, S, 1024) context embeddings.
+
+    Weights: ``params`` if given, else the checkpoint in ``weights_dir`` (a
+    Hugging Face ``Dinov2Model`` in safetensors) if that exists, else seeded
+    random ones (development mode).
+    """
 
     def __init__(
         self,
@@ -68,14 +74,21 @@ class ImageEncoder:
         config: Optional[DinoV2Config] = None,
         init_seed: int = 1,
         params=None,
+        weights_dir: Optional[str | Path] = None,
     ):
         self.config = config or DinoV2Config()
         self.device = device
         self._dtype = dtype
-        if params is None:
+        if params is None and weights_dir is not None and Path(weights_dir).exists():
+            from actionmesh_tpu_torch.utils.weights import load_dinov2
+
+            logger.info("Loading DINOv2 weights from %s", weights_dir)
+            params = load_dinov2(Path(weights_dir), self.config, dtype=dtype, device=device)
+        elif params is None:
             logger.warning(
-                "DINOv2 weights not given — using seeded random "
-                "initialization (development mode)."
+                "DINOv2 weights not found (%s) — using seeded random "
+                "initialization (development mode).",
+                weights_dir,
             )
             gen = torch.Generator(device=device).manual_seed(init_seed)
             params = init_dinov2(gen, self.config, dtype=dtype, device=device)

@@ -45,6 +45,8 @@ def init_linear(
 
     def uniform(shape):
         u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        if u.is_meta:  # a shape-only tree: meta arithmetic costs seconds of set-up
+            return u.to(dtype)
         return (u * (2 * bound) - bound).to(dtype)
 
     params = {"weight": uniform((out_dim, in_dim))}

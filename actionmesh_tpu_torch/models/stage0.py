@@ -2,8 +2,8 @@
 
 Counterpart of ``actionmesh_tpu/models/stage0.py``. The production backend
 is TripoSG (``models/triposg/``: DINOv2 context, 100-step DiT rectified-flow
-sampling with CFG, the VAE's SDF decode, marching cubes). Its checkpoint is
-not in the repository, so without weights the pipeline runs ``DevTripoSG``,
+sampling with CFG, the VAE's SDF decode, marching cubes), loaded from its
+checkpoint when there is one. Without weights the pipeline runs ``DevTripoSG``,
 the same code path with random weights, at the production latent shape
 (2048, 64); at any other shape, or with ``ACTIONMESH_DEV_STAGE0=stub``, it
 runs the deterministic stub (a seeded latent and a UV sphere).
@@ -113,6 +113,9 @@ class DevTripoSG:
     def __call__(self, image: np.ndarray, **kwargs) -> tuple[torch.Tensor, Mesh]:
         return self.pipeline(image, **kwargs)
 
+    def encode_to_latent(self, surface, seed: Optional[int] = None) -> torch.Tensor:
+        return self.pipeline.encode_to_latent(surface, seed=seed)
+
 
 def _dev_sdf_regularizer(pts: np.ndarray, vals: np.ndarray) -> np.ndarray:
     """Noisy-sphere SDF for random-weight runs: the decoded values perturb a
@@ -135,13 +138,16 @@ def make_image_to_3d(
     dtype: torch.dtype = torch.bfloat16,
     image_encoder=None,
 ):
-    """TripoSG from a checkpoint (not ported yet: raises); without weights
-    ``DevTripoSG`` at the production latent shape unless
+    """TripoSG from the checkpoint in ``weights_dir`` if that exists (its
+    DINOv2 is ``image_encoder`` if given, else the checkpoint beside it);
+    without weights ``DevTripoSG`` at the production latent shape unless
     ``ACTIONMESH_DEV_STAGE0=stub``; the stub otherwise."""
     if weights_dir is not None and Path(weights_dir).exists():
-        raise NotImplementedError(
-            "loading TripoSG checkpoints is not ported yet: it waits until the "
-            "VAST-AI/TripoSG weights are in the repository"
+        from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
+
+        logger.info("Loading TripoSG weights from %s", weights_dir)
+        return TripoSGPipeline.from_pretrained(
+            Path(weights_dir), dtype=dtype, image_encoder=image_encoder, device=device
         )
     if tuple(latent_shape) == (2048, 64) and os.environ.get("ACTIONMESH_DEV_STAGE0", "triposg") != "stub":
         logger.warning(

@@ -6,15 +6,18 @@ a rectified-flow Euler loop with two-branch classifier-free guidance
 (``flow_sample``), the VAE's decoded set, and hierarchical SDF extraction
 with marching cubes (``decode_latents``).
 
-Loading a TripoSG checkpoint (``from_pretrained``, the config.json mapping
-and the safetensors converters) waits until the checkpoint is in the
-repository; the development path builds random weights (``from_random``).
+``from_pretrained`` loads a VAST-AI/TripoSG checkpoint (``transformer/`` and
+``vae/``, each with its config.json, which maps to the configs failing on
+any key it does not know), the development path random weights
+(``from_random``). ``encode_to_latent`` maps a surface (B, N, 6) to a latent
+through the VAE's encoder (the {video + 3D} mode's Stage 0).
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -33,13 +36,16 @@ from actionmesh_tpu_torch.models.triposg.vae import (
     QUERY_CHUNK,
     TripoSGVAEConfig,
     decode_kv,
+    encode_surface,
     init_triposg_vae,
+    presample_size,
     query_sdf,
     query_sdf_at_ids,
     query_sdf_grid_inside,
 )
 from actionmesh_tpu_torch.ops.isosurface import hierarchical_extract_geometry
 from actionmesh_tpu_torch.sampling.flow_schedule import get_schedule
+from actionmesh_tpu_torch.utils.weights import check_config_keys, read_config
 
 logger = logging.getLogger(__name__)
 
@@ -94,6 +100,18 @@ def initial_noise(seed: int, shape: tuple[int, ...], dtype: torch.dtype, device)
     return torch.randn(shape, generator=gen, dtype=torch.float32).to(device=device, dtype=dtype)
 
 
+def encode_draws(seed: int, batch: int, n_points: int, n_presample: int, latent_shape) -> dict:
+    """The seeded encode's random draws, from one CPU generator (the same on
+    every device): ``pre_idx`` (the presample, without replacement; None
+    when it would keep every point), ``start`` (FPS's first pick per batch
+    entry) and the posterior ``noise`` (fp32)."""
+    gen = torch.Generator().manual_seed(seed)
+    pre_idx = torch.randperm(n_points, generator=gen)[:n_presample] if n_presample < n_points else None
+    start = torch.randint(0, n_presample, (batch,), generator=gen)
+    noise = torch.randn(tuple(latent_shape), generator=gen, dtype=torch.float32)
+    return {"pre_idx": pre_idx, "start": start, "noise": noise}
+
+
 def _refuse_coarse_decode_dtype(coarse_decode_dtype: Optional[str]) -> None:
     """The JAX package's reduced-precision coarse pass is not ported: no
     preset sets it, and every query here runs in fp32."""
@@ -102,6 +120,56 @@ def _refuse_coarse_decode_dtype(coarse_decode_dtype: Optional[str]) -> None:
             f"coarse_decode_dtype={coarse_decode_dtype!r}: the reduced-precision "
             "coarse SDF pass is not ported; leave it None (fp32 queries)"
         )
+
+
+def triposg_configs(path: Path):
+    """(DiT config, VAE config) of a TripoSG checkpoint: its
+    ``transformer/config.json`` and ``vae/config.json`` (an absent one
+    gives the defaults) through ``triposg_configs_from``."""
+    return triposg_configs_from(read_config(path / "transformer"), read_config(path / "vae"))
+
+
+def triposg_configs_from(dit_raw: dict, vae_raw: dict):
+    """(DiT config, VAE config) from the two config.json contents, mapped
+    as the JAX package maps them; a key the mapping does not know raises,
+    metadata keys are ignored."""
+
+    def make_picker(raw: dict, which: str):
+        recognized: set = set()
+
+        def pick(default, *keys):
+            recognized.update(keys)
+            for k in keys:
+                if k in raw:
+                    return raw[k]
+            return default
+
+        return pick, lambda: check_config_keys(raw, recognized, f"TripoSG {which}")
+
+    pick, dit_finish = make_picker(dit_raw, "transformer")
+    dit_cfg = triposg_dit_config(
+        num_tokens=pick(2048, "num_tokens", "width_latent"),
+        in_channels=pick(64, "in_channels", "latent_channels"),
+        num_layers=pick(21, "num_layers", "num_hidden_layers", "num_attention_layers"),
+        width=pick(2048, "width", "hidden_size", "inner_dim"),
+        num_attention_heads=pick(16, "num_attention_heads", "num_heads"),
+        cross_attention_dim=pick(1024, "cross_attention_dim", "context_dim", "encoder_hid_dim"),
+    )
+    pick(64, "out_channels")  # == in_channels for a flow model
+    dit_finish()
+
+    pick, vae_finish = make_picker(vae_raw, "vae")
+    vae_cfg = TripoSGVAEConfig(
+        latent_channels=pick(64, "latent_channels", "embed_dim"),
+        num_tokens=pick(2048, "num_tokens", "num_latents"),
+        embed_frequency=pick(8, "embed_frequency", "num_freqs"),
+        encoder_width=pick(512, "width_encoder", "encoder_width"),
+        encoder_layers=pick(8, "num_layers_encoder", "encoder_layers"),
+        decoder_width=pick(1024, "width_decoder", "decoder_width", "width"),
+        decoder_layers=pick(16, "num_layers_decoder", "decoder_layers", "num_layers"),
+    )
+    vae_finish()
+    return dit_cfg, vae_cfg
 
 
 class TripoSGPipeline:
@@ -143,10 +211,41 @@ class TripoSGPipeline:
         self.extract_stats: dict[str, int] = {}
 
     @classmethod
-    def from_pretrained(cls, *_, **__) -> "TripoSGPipeline":
-        raise NotImplementedError(
-            "loading TripoSG checkpoints is not ported yet: it waits until the "
-            "VAST-AI/TripoSG weights are in the repository"
+    def from_pretrained(
+        cls,
+        path: str | Path,
+        dtype: torch.dtype = torch.bfloat16,
+        image_encoder: Optional[ImageEncoder] = None,
+        device: torch.device = torch.device("cuda"),
+    ) -> "TripoSGPipeline":
+        """Load a VAST-AI/TripoSG checkpoint (``transformer/`` + ``vae/``).
+
+        The architecture comes from each subfolder's config.json, mapped as
+        the JAX package maps it. A key the mapping does not know raises: a
+        defaulted hyperparameter
+        would build a wrong model that converts cleanly. Hugging Face
+        metadata keys are ignored. The converted trees are shape-checked
+        against the configured architecture. The DINOv2 encoder is loaded
+        from ``path.parent / "dinov2"`` unless one is given.
+        """
+        from actionmesh_tpu_torch.utils import weights as weights_util
+
+        path = Path(path)
+        device = torch.device(device)
+        dit_cfg, vae_cfg = triposg_configs(path)
+        dit_state = weights_util.load_safetensors_dir(path / "transformer")
+        vae_state = weights_util.load_safetensors_dir(path / "vae")
+        dit_params = weights_util.convert_triposg_dit(dit_state, dit_cfg, dtype)
+        vae_params = weights_util.convert_triposg_vae(vae_state, vae_cfg, dtype)
+        return cls(
+            dit_params=weights_util.params_from_jax(dit_params, device),
+            vae_params=weights_util.params_from_jax(vae_params, device),
+            image_encoder=image_encoder
+            or ImageEncoder(device=device, dtype=dtype, weights_dir=path.parent / "dinov2"),
+            dit_cfg=dit_cfg,
+            vae_cfg=vae_cfg,
+            dtype=dtype,
+            device=device,
         )
 
     @classmethod
@@ -229,10 +328,24 @@ class TripoSGPipeline:
         )
         return latents.float(), meshes[0]
 
+    @torch.no_grad()
     def encode_to_latent(self, surface, seed: Optional[int] = None) -> torch.Tensor:
-        raise NotImplementedError(
-            "the TripoSG VAE encoder is not ported yet; it comes with the {video + 3D} mode"
-        )
+        """surface (B, N, 6) -> latent (B, K, C) fp32.
+
+        Without a seed: FPS over all points from index 0, the posterior's
+        mean (deterministic). With one: ``encode_draws`` gives the presample,
+        FPS's start and the posterior noise, the JAX package's three random
+        draws.
+        """
+        surface = torch.as_tensor(surface, dtype=torch.float32, device=self.device)
+        draws = {}
+        if seed is not None:
+            B, N, _ = surface.shape
+            draws = encode_draws(
+                seed, B, N, presample_size(self.vae_cfg, N),
+                (B, self.vae_cfg.num_tokens, self.vae_cfg.latent_channels),
+            )
+        return encode_surface(self.vae_params, self.vae_cfg, surface, **draws).float()
 
     @torch.no_grad()
     def decode_latents(

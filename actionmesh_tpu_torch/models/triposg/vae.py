@@ -1,6 +1,11 @@
-"""TripoSG vecset VAE, decode side: 2048 x 64 latent -> SDF field.
+"""TripoSG vecset VAE: surface points -> 2048 x 64 latent -> SDF field.
 
-Counterpart of ``actionmesh_tpu/models/triposg/vae.py``. The decoder maps the
+Counterpart of ``actionmesh_tpu/models/triposg/vae.py``. The encoder
+(``encode_moments``, ``encode_surface``) embeds the surface points, picks
+``num_tokens`` queries by farthest point sampling (from a random presample
+of 4x tokens when seeded), lets them cross-attend all points, runs its
+self-attention stack and projects to the posterior's mean and log-variance.
+The decoder maps the
 latent set to width, runs a self-attention stack over it (``decode_kv``),
 and arbitrary 3D query points cross-attend the decoded set to give one SDF
 value each (``query_sdf``). The lattice queries of the extraction generate
@@ -11,8 +16,7 @@ result to the host once per call.
 ``init_triposg_vae`` builds the whole parameter tree, encoder included, so
 that the weight bridge sees the JAX package's keys; the query-side
 projections (``proj_query``, ``dec_cross_attn``, ``dec_proj_out``) stay fp32
-whatever the model dtype. The encoder itself (``encode_moments``,
-``encode_surface``, FPS) is not ported yet: it serves the {video + 3D} mode.
+whatever the model dtype.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from actionmesh_tpu_torch.ops.embeddings import (
     frequency_embedding_out_dim,
     frequency_positional_embedding,
 )
+from actionmesh_tpu_torch.ops.fps import farthest_point_sampling
 
 QUERY_CHUNK = 1 << 18
 
@@ -108,21 +113,71 @@ def init_triposg_vae(
     }
 
 
-def encode_surface(*_, **__):
-    raise NotImplementedError(
-        "the TripoSG VAE encoder (encode_moments, encode_surface, FPS) is not "
-        "ported yet; it comes with the {video + 3D} mode"
-    )
-
-
-encode_moments = encode_surface
-
-
 def _embed_points(cfg: TripoSGVAEConfig, xyz: torch.Tensor) -> torch.Tensor:
     return frequency_positional_embedding(
         xyz.float(), num_freqs=cfg.embed_frequency, logspace=True,
         include_input=True, include_pi=cfg.embed_include_pi,
     )
+
+
+def presample_size(cfg: TripoSGVAEConfig, n_points: int) -> int:
+    """The FPS candidate pool of a seeded encode: 4x tokens, at most all points."""
+    return min(cfg.num_tokens * 4, n_points)
+
+
+def encode_moments(
+    params: Params,
+    cfg: TripoSGVAEConfig,
+    surface: torch.Tensor,
+    pre_idx: Optional[torch.Tensor] = None,
+    start: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """surface (B, N, 3+3) -> posterior (mean, logvar), each (B, K, C).
+
+    ``pre_idx`` (M,): the random presample the FPS picks from (all N points
+    when None); ``start`` (B,): FPS's first pick within it (index 0 when
+    None). The JAX package draws both from its key; ``TripoSGPipeline.
+    encode_to_latent`` draws them from a seeded generator.
+    """
+    xyz = surface[..., :3]
+    feats = torch.cat([_embed_points(cfg, xyz), surface[..., 3:].float()], dim=-1)
+    feats = linear(params["proj_point"], feats)  # (B, N, W)
+    if pre_idx is not None:
+        pre_idx = pre_idx.to(device=surface.device, dtype=torch.long)
+        candidates, cand_feats = xyz[:, pre_idx], feats[:, pre_idx]
+    else:
+        candidates, cand_feats = xyz, feats
+    _, idx = farthest_point_sampling(candidates, cfg.num_tokens, start=start)
+    queries = torch.take_along_dim(cand_feats, idx[..., None], dim=1)
+    x = queries + attention(
+        params["enc_cross_attn"],
+        layer_norm(params["enc_norm_cross"], queries),
+        heads=cfg.encoder_heads,
+        encoder_hidden_states=feats,
+    )
+    for block in params["enc_blocks"]:
+        x = flow_matching_block(block, x, num_attention_heads=cfg.encoder_heads)
+    moments = linear(params["enc_proj_out"], layer_norm(params["enc_norm_out"], x))
+    mean, logvar = moments.chunk(2, dim=-1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def encode_surface(
+    params: Params,
+    cfg: TripoSGVAEConfig,
+    surface: torch.Tensor,
+    pre_idx: Optional[torch.Tensor] = None,
+    start: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """surface (B, N, 3+3) -> latent (B, num_tokens, latent_channels): the
+    posterior's mean, or with ``noise`` (B, K, C) its sample
+    mean + exp(logvar / 2) * noise."""
+    mean, logvar = encode_moments(params, cfg, surface, pre_idx=pre_idx, start=start)
+    if noise is None:
+        return mean
+    std = torch.exp(0.5 * logvar)
+    return mean + std * noise.to(device=mean.device, dtype=mean.dtype)
 
 
 def decode_kv(params: Params, cfg: TripoSGVAEConfig, latents: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,9 @@ Counterpart of ``actionmesh_tpu/ops/rotary.py``. ActionMesh uses real-valued
 
   * ``half`` (the models' layout): channel i pairs with channel D/2+i. The
     q/k projection columns of every checkpoint the JAX package writes are
-    already permuted to it (``actionmesh_tpu/ops/rotary.py:
-    rope_half_permutation``), so the port reads them as they are; the
-    models' rotation runs inside ``ops/rope_norm.py``.
+    already permuted to it (``rope_half_permutation``, applied by the
+    checkpoint converters in ``utils/weights.py``), so the port reads them
+    as they are; the models' rotation runs inside ``ops/rope_norm.py``.
   * ``interleaved`` (the reference's): channels (2i, 2i+1) form the pair.
     Only the plain version of kernel F (``ops/flash_attention.py:
     flash_attention_fused``) uses it.
@@ -15,9 +15,17 @@ Counterpart of ``actionmesh_tpu/ops/rotary.py``. ActionMesh uses real-valued
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LAYOUTS = ("half", "interleaved")
+
+
+def rope_half_permutation(dim_head: int) -> np.ndarray:
+    """Channel permutation taking interleaved RoPE pairs to half-layout
+    pairs: ``new[i] = old[perm[i]]``, even source channels first, then the
+    odd ones, so pair (2i, 2i+1) becomes (i, D/2 + i)."""
+    return np.concatenate([np.arange(0, dim_head, 2), np.arange(1, dim_head, 2)])
 
 
 def compute_rotary_embeddings(

@@ -1,12 +1,20 @@
 """ActionMesh pipeline in PyTorch: video -> animated 3D mesh (4D).
 
 Counterpart of ``actionmesh_tpu/pipeline.py``, with the same phases:
-alpha check + crop -> Stage 0 (anchor latent + mesh) -> DINOv2 encode ->
-Stage I over AR windows -> Stage II -> meshes. Without weights Stage 0 is
-the real TripoSG path with random weights (``models/stage0.py:DevTripoSG``).
-Not ported: device meshes and sharding, segmented launches, profiler traces
-and the static-shape vertex bucketing (padded query rows are independent, so
-dropping it changes no result); RMBG matting comes later.
+background matting (RMBG, for frames without a valid alpha) + crop ->
+Stage 0 (anchor latent + mesh) -> DINOv2 encode -> Stage I over AR windows
+-> Stage II -> meshes. The weights come from ``weights_dir`` (default
+``pretrained_weights``), one directory per checkpoint family:
+``ActionMesh/{denoiser,autoencoder}``, ``TripoSG/{transformer,vae}``,
+``dinov2`` and ``RMBG``, each in the reference's safetensors layout. A
+family whose directory is absent runs on seeded random weights
+(development mode; without TripoSG, Stage 0 is the real TripoSG path with
+random weights, ``models/stage0.py:DevTripoSG``); one that is present but
+malformed raises. Not ported: device meshes and sharding, segmented
+launches, profiler traces, the download of missing checkpoints (the card has
+no network: the missing families are logged) and the static-shape vertex
+bucketing (padded query rows are independent, so dropping it changes no
+result).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from actionmesh_tpu_torch.ops.embeddings import (
     get_scaling,
     interpolate_timesteps,
 )
-from actionmesh_tpu_torch.preprocessing.background import check_alpha
+from actionmesh_tpu_torch.preprocessing.background import BackgroundRemover
 from actionmesh_tpu_torch.preprocessing.image import ImagePreprocessor
 from actionmesh_tpu_torch.preprocessing.mesh import MeshPostprocessor, get_mesh_features
 from actionmesh_tpu_torch.sampling.denoise_loop import denoise_window, get_noise
@@ -47,6 +55,14 @@ from actionmesh_tpu_torch.utils.banks import LatentBank, MeshBank
 
 logger = logging.getLogger(__name__)
 
+# checkpoint family -> (Hugging Face repository, directory under weights_dir)
+WEIGHT_FAMILIES = {
+    "ActionMesh": "facebook/ActionMesh",
+    "TripoSG": "VAST-AI/TripoSG",
+    "dinov2": "facebook/dinov2-large",
+    "RMBG": "briaai/RMBG-1.4",
+}
+
 
 class ActionMeshPipeline:
     """Video -> 4D pipeline (three-stage cascade) on one device."""
@@ -54,7 +70,7 @@ class ActionMeshPipeline:
     def __init__(
         self,
         config_name: str = "actionmesh",
-        weights_dir: Optional[str | Path] = None,
+        weights_dir: Optional[str | Path] = "pretrained_weights",
         device: torch.device = torch.device("cuda"),
         dtype: torch.dtype = torch.bfloat16,
         init_seed: int = 0,
@@ -106,32 +122,67 @@ class ActionMeshPipeline:
             floaters_threshold=self.cfg.mesh_process.floaters_threshold,
         )
 
-        if self._weights_dir is not None and (self._weights_dir / "ActionMesh").exists():
-            raise NotImplementedError(
-                "loading ActionMesh checkpoints is not ported yet; "
-                "utils.weights.load_npz reads the JAX package's npz exports"
-            )
-        logger.warning(
-            "ActionMesh weights not given — using seeded random initialization "
-            "(development mode)."
-        )
-        gen = torch.Generator(device=self.device).manual_seed(init_seed)
-        self.denoiser_params = init_denoiser(gen, self.denoiser_config, dtype, self.device)
-        self.autoencoder_params = init_autoencoder(
-            gen, self.autoencoder_config, dtype, self.device
-        )
-        self.image_encoder = ImageEncoder(device=self.device, dtype=dtype)
-        # the development TripoSG conditions on this same encoder (the JAX
-        # package builds a second one from the same seed)
-        self.image_to_3d = make_image_to_3d(
-            self._weights_dir / "TripoSG" if self._weights_dir else None,
-            latent_shape=self.cfg.denoiser_latent_shape,
-            device=self.device,
-            dtype=dtype,
-            image_encoder=self.image_encoder,
-        )
+        self._init_seed = init_seed
+        self._load_actionmesh_weights()
+        self._load_backends()
         self.phase_seconds: dict[str, float] = {}
         self.stage0_seconds: dict[str, float] = {}
+
+    # -- weights ---------------------------------------------------------
+
+    def _family_dir(self, family: str) -> Optional[Path]:
+        return self._weights_dir / family if self._weights_dir is not None else None
+
+    def _load_actionmesh_weights(self) -> None:
+        """Stage I/II from ``weights_dir/ActionMesh`` if it exists, else
+        seeded random weights (development mode)."""
+        if self._weights_dir is not None:
+            missing = [f"{sub} ({repo})" for sub, repo in WEIGHT_FAMILIES.items()
+                       if not (self._weights_dir / sub).exists()]
+            if missing:
+                logger.warning(
+                    "Checkpoint families missing under %s, running on random weights: %s",
+                    self._weights_dir, ", ".join(missing),
+                )
+        am_dir = self._family_dir("ActionMesh")
+        if am_dir is not None and am_dir.exists():
+            from actionmesh_tpu_torch.utils import weights as weights_util
+
+            logger.info("Loading ActionMesh weights from %s", am_dir)
+            self.denoiser_params = weights_util.load_denoiser(
+                am_dir / "denoiser", self.denoiser_config, self._dtype, self.device
+            )
+            self.autoencoder_params = weights_util.load_autoencoder(
+                am_dir / "autoencoder", self.autoencoder_config, self._dtype, self.device
+            )
+            return
+        logger.warning(
+            "ActionMesh weights not found under %s — using seeded random "
+            "initialization (development mode).",
+            self._weights_dir,
+        )
+        gen = torch.Generator(device=self.device).manual_seed(self._init_seed)
+        self.denoiser_params = init_denoiser(gen, self.denoiser_config, self._dtype, self.device)
+        self.autoencoder_params = init_autoencoder(
+            gen, self.autoencoder_config, self._dtype, self.device
+        )
+
+    def _load_backends(self) -> None:
+        """DINOv2, the Stage-0 backend and RMBG, each from its family's
+        directory when present."""
+        self.image_encoder = ImageEncoder(
+            device=self.device, dtype=self._dtype, weights_dir=self._family_dir("dinov2")
+        )
+        # TripoSG conditions on this same encoder (the JAX package builds a
+        # second one from the same weights)
+        self.image_to_3d = make_image_to_3d(
+            self._family_dir("TripoSG"),
+            latent_shape=self.cfg.denoiser_latent_shape,
+            device=self.device,
+            dtype=self._dtype,
+            image_encoder=self.image_encoder,
+        )
+        self.background_removal = BackgroundRemover(self._family_dir("RMBG"), self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -390,7 +441,8 @@ class ActionMeshPipeline:
             logger.info("phase %s: %.2fs", name, now - t)
             t = now
 
-        input.frames = self.image_process.process_images(check_alpha(input.frames))
+        input.frames = self.background_removal.process_images(input.frames)
+        input.frames = self.image_process.process_images(input.frames)
         phase("preprocess")
         latent_bank, mesh_bank = self.init_banks_from_anchor(input, seed)
         phase("stage0")

@@ -1,0 +1,140 @@
+"""{Video + 3D mesh} -> 4D pipeline: animate a mesh the user supplies.
+
+Counterpart of ``actionmesh_tpu/pipeline_with_3d.py``. It replaces Stage 0:
+the anchor latent is the TripoSG VAE's encoding of the user's mesh surface
+(merged, normalised, 16,384 area-weighted samples with normals), not one
+generated from the anchor frame. After Stage II the vertices are
+de-normalised and re-expanded through the vertex merge map onto the
+pre-merge faces, so the mesh's UV and texture topology survive.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+from actionmesh_tpu_torch.io.mesh import Mesh
+from actionmesh_tpu_torch.io.video_input import ActionMeshInput
+from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
+from actionmesh_tpu_torch.preprocessing.mesh import (
+    denormalize_mesh,
+    merge_and_clean_mesh,
+    normalize_mesh,
+    sample_surface,
+)
+from actionmesh_tpu_torch.utils.banks import LatentBank, MeshBank
+
+logger = logging.getLogger(__name__)
+
+
+class ActionMeshPipelineWithMeshInput(ActionMeshPipeline):
+    """Pipeline variant: the user's anchor mesh encoded by the VAE (topology kept)."""
+
+    def __init__(self, *args, surface_samples: int = 16384, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.surface_samples = surface_samples
+        self.vae = None
+        self._load_vae()
+
+    def _load_vae(self) -> None:
+        """The VAE encode path: the Stage-0 backend's own (TripoSG from its
+        checkpoint, or ``DevTripoSG``, built at first use), else, behind the
+        stub, a random-weight TripoSG at its default widths."""
+        from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
+
+        if hasattr(self.image_to_3d, "encode_to_latent"):
+            self.vae = self.image_to_3d
+        else:
+            self.vae = TripoSGPipeline.from_random(
+                seed=0, dtype=self._dtype, image_encoder=self.image_encoder, device=self.device
+            )
+
+    def init_banks_from_anchor(self, input: ActionMeshInput, anchor_mesh: Mesh, seed: int = 44):
+        """Encode the user's mesh: merge map -> normalise -> sample -> VAE.
+
+        Returns (latent_bank, mesh_bank, (center, factor), vertex_merge_map,
+        pre_merge_faces); the seconds of the sampling (merge, normalise,
+        sample) and of the encode go to ``stage0_seconds``.
+        """
+        t0 = time.perf_counter()
+        merged, vertex_merge_map, pre_merge_faces = merge_and_clean_mesh(anchor_mesh)
+        normalized, center, factor = normalize_mesh(merged)
+        surface = sample_surface(normalized, n_points=self.surface_samples, seed=seed, with_normals=True)
+        t1 = time.perf_counter()
+        anchor_latent = self.vae.encode_to_latent(surface[None], seed=seed)
+        self._sync()
+        self.stage0_seconds = {"sample": t1 - t0, "vae_encode": time.perf_counter() - t1}
+
+        latent_bank = LatentBank(empty_dims=self.cfg.denoiser_latent_shape, device=self.device, verbose=True)
+        mesh_bank = MeshBank(verbose=True)
+        anchor_timestep = input.timesteps[[self.cfg.anchor_idx]]
+        latent_bank.update(timesteps=anchor_timestep, latents=anchor_latent)
+        mesh_bank.update(meshes=[normalized], timesteps=anchor_timestep)
+        return latent_bank, mesh_bank, (center, factor), vertex_merge_map, pre_merge_faces
+
+    def __call__(
+        self,
+        input: ActionMeshInput,
+        anchor_mesh: Mesh,
+        seed: int = 44,
+        stage_0_steps: Optional[int] = None,
+        face_decimation: Optional[int] = None,
+        floaters_threshold: Optional[float] = None,
+        stage_1_steps: Optional[int] = None,
+        guidance_scales: Optional[list[float]] = None,
+        anchor_idx: Optional[int] = None,
+    ) -> list[Mesh]:
+        """Run {video + 3D} -> 4D. The meshes keep the input's topology, uv
+        and visual. Per-phase seconds go to ``self.phase_seconds``
+        (preprocess, stage0 = sampling + VAE encode, encode, stage1, stage2)."""
+        if stage_0_steps is not None:
+            self.cfg.stage_0.num_inference_steps = stage_0_steps
+        if stage_1_steps is not None:
+            self.cfg.scheduler.num_inference_steps = stage_1_steps
+        if guidance_scales is not None:
+            self.cfg.cf_guidance.guidance_scales = guidance_scales
+        if face_decimation is not None:
+            self.mesh_process.face_decimation = face_decimation
+        if floaters_threshold is not None:
+            self.mesh_process.floaters_threshold = floaters_threshold
+        if anchor_idx is not None:
+            self.cfg.anchor_idx = anchor_idx
+
+        # Work on a copy: the caller's frames keep their alpha.
+        input = ActionMeshInput(frames=list(input.frames), timesteps=input.timesteps.copy())
+        phases = {}
+        t = time.perf_counter()
+
+        def phase(name):
+            nonlocal t
+            self._sync()
+            now = time.perf_counter()
+            phases[name] = now - t
+            logger.info("phase %s: %.2fs", name, now - t)
+            t = now
+
+        input.frames = self.background_removal.process_images(input.frames)
+        input.frames = self.image_process.process_images(input.frames)
+        phase("preprocess")
+        latent_bank, mesh_bank, (center, factor), vertex_merge_map, pre_merge_faces = (
+            self.init_banks_from_anchor(input, anchor_mesh, seed)
+        )
+        phase("stage0")
+        context = self.encode_all_frames(input)
+        phase("encode")
+        latent_bank = self.generate_3d_latents(input, context, latent_bank, seed=seed)
+        phase("stage1")
+        mesh_bank = self.generate_mesh_animation(latent_bank, mesh_bank)
+        phase("stage2")
+        self.phase_seconds = phases
+        meshes = [denormalize_mesh(m, center, factor) for m in mesh_bank.get_ordered()[0]]
+        return [
+            Mesh(
+                vertices=m.vertices[vertex_merge_map],
+                faces=pre_merge_faces,
+                uv=anchor_mesh.uv,
+                visual=anchor_mesh.visual,
+            )
+            for m in meshes
+        ]

@@ -1,9 +1,11 @@
-"""Mesh features and post-Stage-0 cleanup (host numpy).
+"""Mesh features, post-Stage-0 cleanup and the {video + 3D} helpers (host numpy).
 
-Copy of the parts of ``actionmesh_tpu/preprocessing/mesh.py`` the main path
+Copy of the parts of ``actionmesh_tpu/preprocessing/mesh.py`` the port
 runs: vertex features, merge/cleanup, QEM decimation (the native library,
 ``utils/native.py``, with its grid-clustering pre-pass on large meshes),
-floater removal, and the seeded ``MeshPostprocessor``. Unlike the JAX
+floater removal, the seeded ``MeshPostprocessor``, and for a user's mesh
+normalisation, area-weighted surface sampling and the vertex merge map
+that keeps its UV topology. Unlike the JAX
 package there is no vertex-clustering fallback: a missing toolchain raises.
 """
 
@@ -131,6 +133,59 @@ def decimate_mesh(mesh: Mesh, target_faces: int = 40000) -> Mesh:
     out = Mesh(vertices=v, faces=f)
     logger.info("Decimated %d -> %d faces (quadric)", mesh.n_faces, out.n_faces)
     return out
+
+
+def normalize_mesh(mesh: Mesh, scale: float = 1.0) -> tuple[Mesh, np.ndarray, float]:
+    """Centre and uniformly scale the mesh into [-scale, scale]^3; returns
+    (normalised mesh, centre, factor), which ``denormalize_mesh`` undoes."""
+    lo, hi = mesh.bounds
+    center = (lo + hi) / 2.0
+    factor = 2.0 * scale / max(float(np.max(hi - lo)), 1e-12)
+    out = Mesh(vertices=(mesh.vertices - center) * factor, faces=mesh.faces, uv=mesh.uv, visual=mesh.visual)
+    return out, center, factor
+
+
+def denormalize_mesh(mesh: Mesh, center: np.ndarray, factor: float) -> Mesh:
+    return Mesh(vertices=mesh.vertices / factor + center, faces=mesh.faces, uv=mesh.uv, visual=mesh.visual)
+
+
+def sample_surface(
+    mesh: Mesh, n_points: int, seed: int | None = None, with_normals: bool = True
+) -> np.ndarray:
+    """Uniform area-weighted surface samples -> (n_points, 3|6) float32
+    (positions, then the face normals), from ``np.random.default_rng(seed)``
+    in the JAX package's order of draws."""
+    rng = np.random.default_rng(seed)
+    face_normals, areas = mesh.face_normals_and_areas()
+    face_idx = rng.choice(len(mesh.faces), size=n_points, p=areas / areas.sum())
+    r1 = rng.random(n_points)
+    r2 = rng.random(n_points)
+    sqrt_r1 = np.sqrt(r1)
+    u = 1.0 - sqrt_r1
+    v = sqrt_r1 * (1.0 - r2)
+    w = sqrt_r1 * r2
+    tri = mesh.vertices[mesh.faces[face_idx]]  # (n, 3, 3)
+    points = u[:, None] * tri[:, 0] + v[:, None] * tri[:, 1] + w[:, None] * tri[:, 2]
+    if with_normals:
+        return np.concatenate([points, face_normals[face_idx]], axis=-1).astype(np.float32)
+    return points.astype(np.float32)
+
+
+def merge_and_clean_mesh(mesh: Mesh, merge_tol: float = 1e-6) -> tuple[Mesh, np.ndarray, np.ndarray]:
+    """Merge vertices closer than ``merge_tol``, keeping the map back.
+
+    Returns (merged mesh, vertex_merge_map (V_orig,), pre_merge_faces):
+    original vertex i is merged vertex ``vertex_merge_map[i]``, so meshes
+    on the merged vertices re-expand onto the original (UV) topology.
+    """
+    from scipy.spatial import cKDTree
+
+    pre_merge_faces = mesh.faces.copy()
+    groups = cKDTree(mesh.vertices).query_ball_point(mesh.vertices, r=merge_tol)
+    merge_to = np.array([min(grp) for grp in groups], dtype=np.int64)
+    unique_ids, vertex_merge_map = np.unique(merge_to, return_inverse=True)
+    merged = Mesh(vertices=mesh.vertices[unique_ids], faces=vertex_merge_map[mesh.faces])
+    return remove_degenerate_and_duplicate_faces(merged), vertex_merge_map, pre_merge_faces
 
 
 @dataclasses.dataclass

@@ -36,6 +36,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      preview and launch counts equal to what each preset's path implies;
      prints each clip's seconds (load, pipeline phases, export, render), and
      times the host PNG reader (1024^2 RGBA) and GIF writer (16 x 256 x 1024);
+ 4b. checkpoints: writes a synthetic ``pretrained_weights/`` tree at the
+     release's names and shapes under outputs/chip_smoke (ActionMesh
+     denoiser and autoencoder bf16, TripoSG transformer and VAE fp16 with
+     the VAE's SDF head shaped to a rounded sphere, DINOv2-L fp32, RMBG-1.4
+     fp32 with its convs routing the frame's brightness to the matte: a
+     random ISNet's matte marks nearly every pixel foreground); reads each
+     family back with the port's safetensors reader, converts, verifies and
+     moves it to the card (seconds, GB, GB/s, peak host RSS); then runs the
+     video-to-4D CLI with ``--weights_dir`` on it at full width and --turbo
+     on the 16 frames as RGB PNGs without alpha, so RMBG mattes them at
+     1024^2: launch counts as the path implies, alpha on the object, each
+     phase's seconds (preprocess with RMBG included);
+ 4c. the {video + 3D} CLI (``video_and_3d_to_animated_mesh``) at full width
+     on the 16 frame pairs and a textured .glb (TEXCOORD_0, a PNG texture),
+     Stage I at the turbo preset's 4 steps: output faces equal the input's,
+     uv and glTF payload kept, finite vertices, launch counts as the path
+     implies with kernel A once at the VAE encoder's cross shape and once
+     per encoder block at its self shape; seconds of the surface sampling,
+     the VAE encode and its FPS, Stage I and II;
   5. kernels vs their plain PyTorch versions on the card, at the main
      paths' shapes (Stage 0's included): max abs error against the stated
      tolerance, and CUDA-event times (median of warm runs, each as many
@@ -79,7 +98,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      1e-4) and in fp16 (within 1e-3), and a small TripoSG Stage 0 (DiT 3 x
      128, VAE decoder 2 x 128, dense 5 / fine 6 / prefilter 4) in fp32, each
      on the card and on the CPU (plain versions) with the same weights and
-     noise, agree (Stage 0: equal faces and no fine-lattice sign flip);
+     noise, agree (Stage 0: equal faces and no fine-lattice sign flip); and
+     a small checkpoint tree (ActionMesh, TripoSG, DINOv2 at small widths,
+     RMBG-1.4 at full size) loaded on both: TripoSG's Stage 0 and the slice
+     from one anchor within 1e-4, RMBG at 1024^2 in fp32 (TF32 off) within
+     1e-4 of its logits' range, one matte level, 0.5% of the alpha;
  10. small train reference: 3 fp32 train steps of a small denoiser on the
      card and on the CPU, same weights, batches and draws, agree; kernel B's
      backward runs 4 L times a step and the plain backward never on the
@@ -125,9 +148,11 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import logging
 import math
+import resource
 import shutil
 import statistics
 import struct
@@ -146,17 +171,22 @@ from actionmesh_tpu_torch.actionbench import evaluate_dataset as ab_eval
 from actionmesh_tpu_torch.actionbench import icp as icp_module
 from actionmesh_tpu_torch.actionbench import synthetic as ab_synth
 from actionmesh_tpu_torch.actionbench.icp import gradient_icp_multi
+from actionmesh_tpu_torch.config import load_config
+from actionmesh_tpu_torch.inference import video_and_3d_to_animated_mesh as cli3d
 from actionmesh_tpu_torch.inference import video_to_animated_mesh as cli
-from actionmesh_tpu_torch.io.mesh import load_glb
+from actionmesh_tpu_torch.io.mesh import Mesh, load_glb, save_textured_glb
 from actionmesh_tpu_torch.io.png import read_png, write_png
-from actionmesh_tpu_torch.io.video_input import ActionMeshInput
+from actionmesh_tpu_torch.io.video_input import ActionMeshInput, pil_resize
 from actionmesh_tpu_torch.render import visualizer
 from actionmesh_tpu_torch.render.utils import write_gif
-from actionmesh_tpu_torch.models.dinov2 import DinoV2Config
+from actionmesh_tpu_torch.models.dinov2 import DinoV2Config, init_dinov2
 from actionmesh_tpu_torch import train as train_entry
+from actionmesh_tpu_torch.models import image_encoder as image_encoder_module
+from actionmesh_tpu_torch.models import rmbg as rmbg_module
+from actionmesh_tpu_torch.models.autoencoder import AutoencoderConfig
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
 from actionmesh_tpu_torch.models.image_encoder import ImageEncoder
-from actionmesh_tpu_torch.models.stage0 import DevTripoSG
+from actionmesh_tpu_torch.models.stage0 import DevTripoSG, make_uv_sphere
 from actionmesh_tpu_torch.ops.attention import (
     attention_bwd_reference,
     bwd_row_stats,
@@ -166,6 +196,7 @@ from actionmesh_tpu_torch.ops.attention import (
 from actionmesh_tpu_torch.ops.chunking import chunk_from
 from actionmesh_tpu_torch.models import layers as model_layers
 from actionmesh_tpu_torch.models.triposg import pipeline as triposg_pipeline
+from actionmesh_tpu_torch.models.triposg import vae as triposg_vae
 from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -192,21 +223,28 @@ from actionmesh_tpu_torch.ops.rope_norm import (
     rms_rope_reference,
 )
 from actionmesh_tpu_torch.models.stage0 import _dev_sdf_regularizer, _dev_sdf_regularizer_torch
-from actionmesh_tpu_torch.models.triposg.dit import triposg_dit_config
-from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
+from actionmesh_tpu_torch.models.triposg.dit import init_triposg_dit, triposg_dit_config
+from actionmesh_tpu_torch.models.triposg.pipeline import (
+    TripoSGPipeline,
+    triposg_configs,
+    triposg_configs_from,
+)
 from actionmesh_tpu_torch.models.triposg.vae import (
     QUERY_CHUNK,
     TripoSGVAEConfig,
     decode_kv,
+    init_triposg_vae,
     query_sdf_at_ids,
 )
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
+from actionmesh_tpu_torch.preprocessing import background
 from actionmesh_tpu_torch.training.checkpoint import restore_train_state
 from actionmesh_tpu_torch.training.flow_train import init_train_state, make_train_step
 from actionmesh_tpu_torch.training.loop import TrainLoopConfig, make_optimizer, step_generator
-from actionmesh_tpu_torch.utils import cuda_build, native
+from actionmesh_tpu_torch.utils import cuda_build, native, weights
 from actionmesh_tpu_torch.utils.tree import leaves, named_leaves, tree_map
+from synthetic_checkpoints import brightness_rmbg, reference_state_dict, shape_vae_sdf, write_checkpoint
 
 STAGE1_STEPS = 2
 N_FRAMES = 16
@@ -397,6 +435,10 @@ def flash_cases(n_vertices: int):
         ("stage0_dit_cross", (1, 16, 2049, 257, 128), bf, one_block),
         ("stage0_vae_self", (1, 8, 2048, 2048, 128), bf, one_block),
         ("stage0_sdf_query", (1, 8, 1 << 18, 2048, 128), f32, one_block),
+        # the {video + 3D} mode's VAE encoder: 2048 FPS queries onto the
+        # 16,384 surface points, then its self-attention blocks
+        ("vae_encoder_cross", (1, 8, 2048, 16384, 64), bf, one_block),
+        ("vae_encoder_self", (1, 8, 2048, 2048, 64), bf, one_block),
     ]
 
 
@@ -1463,7 +1505,7 @@ def make_frames(n: int = N_FRAMES, size: int = 256, seed: int = 0) -> list[np.nd
     return frames
 
 
-def expected_launches(pipe: ActionMeshPipeline, n_frames: int) -> tuple[int, int]:
+def expected_launches(pipe: ActionMeshPipeline, n_frames: int, stage0: bool = True) -> tuple[int, int]:
     """Kernel launches the main path implies for ``n_frames`` frames.
 
     Stage 0 (TripoSG): DINOv2 on the anchor, one flash per layer; per DiT
@@ -1482,7 +1524,8 @@ def expected_launches(pipe: ActionMeshPipeline, n_frames: int) -> tuple[int, int
     self and one cross launch per block. ``split_cfg_batch`` (the low-RAM
     presets) runs each Stage-I branch in its own forward, so every launch of
     a Stage-I block repeats once per branch (the unconditional one's cross
-    attention on zero context).
+    attention on zero context). Stage 0 is TripoSG's, loaded or the
+    development one; ``stage0=False`` leaves it out (the {video + 3D} mode).
     """
     cfg = pipe.cfg
     win1 = len(chunk_from(cfg.anchor_idx, n_frames, cfg.temporal_3D_denoiser.temporal_context_size, cfg.sliding_window_denoiser))
@@ -1491,14 +1534,17 @@ def expected_launches(pipe: ActionMeshPipeline, n_frames: int) -> tuple[int, int
     steps = cfg.scheduler.num_inference_steps
     L1, L2 = cfg.temporal_3D_denoiser.num_layers, cfg.temporal_3D_vae.num_layers
     dino = pipe.image_encoder.config.num_layers
-    tripo = pipe.image_to_3d.pipeline
-    steps0, L0 = cfg.stage_0.num_inference_steps, tripo.dit_cfg.num_layers
-    stage0_flash = dino + 2 * L0 * steps0 + tripo.vae_cfg.decoder_layers + sum(tripo.extract_stats.values())
+    stage0_flash = stage0_rope = 0
+    if stage0:
+        tripo = getattr(pipe.image_to_3d, "pipeline", pipe.image_to_3d)
+        steps0, L0 = cfg.stage_0.num_inference_steps, tripo.dit_cfg.num_layers
+        stage0_flash = dino + 2 * L0 * steps0 + tripo.vae_cfg.decoder_layers + sum(tripo.extract_stats.values())
+        stage0_rope = 4 * L0 * steps0
     guidance = cfg.cf_guidance
     branches = len(guidance.guidance_at_inference) if guidance.inference_enabled else 1
     per_branch = branches if cfg.scheduler.split_cfg_batch and branches > 1 else 1
     flash = stage0_flash + dino + 2 * L1 * steps * win1 * per_branch + (L2 + 1) * chunks2
-    rope = 4 * L0 * steps0 + 4 * L1 * steps * win1 * per_branch + 2 * L2 * chunks2
+    rope = stage0_rope + 4 * L1 * steps * win1 * per_branch + 2 * L2 * chunks2
     return flash, rope
 
 
@@ -1880,6 +1926,453 @@ def phase_actionbench() -> dict:
             "eval_seconds": eval_s, "seconds_per_sample": eval_s / len(uids), "phase_seconds": seconds}
 
 
+# -- checkpoints: a synthetic pretrained_weights/ tree at the release's names
+# and shapes, read back, converted and verified, then through the CLI ----------
+
+CKPT_DIR = OUT_DIR / "pretrained_weights"
+CKPT_SHARD_BYTES = 2 << 30  # a family above this is written as shards with an index
+TRIPOSG_CONFIGS = {
+    "transformer": {"_class_name": "TripoSGDiTModel", "_diffusers_version": "0.30.0", "num_tokens": 2048,
+                    "in_channels": 64, "out_channels": 64, "num_layers": 21, "width": 2048,
+                    "num_attention_heads": 16, "cross_attention_dim": 1024},
+    "vae": {"_class_name": "TripoSGVAEModel", "_diffusers_version": "0.30.0", "latent_channels": 64,
+            "num_tokens": 2048, "embed_frequency": 8, "width_encoder": 512, "num_layers_encoder": 8,
+            "width_decoder": 1024, "num_layers_decoder": 16},
+}
+DINOV2_CONFIG = {"architectures": ["Dinov2Model"], "model_type": "dinov2", "hidden_size": 1024,
+                 "num_hidden_layers": 24, "num_attention_heads": 16, "patch_size": 14, "image_size": 518,
+                 "mlp_ratio": 4, "layerscale_value": 1.0, "torch_dtype": "float32"}
+
+
+def host_peak_rss_gib() -> float:
+    """This process's peak resident set so far (getrusage), GiB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def write_synthetic_tree(root: Path) -> dict:
+    """All four families at production widths: ActionMesh denoiser and
+    autoencoder bf16 (the development weights of the default preset),
+    TripoSG transformer and VAE fp16 (the VAE's SDF head shaped to a rounded
+    sphere, ``shape_vae_sdf``: a random decoder's field has no surface),
+    DINOv2-L fp32, RMBG-1.4 fp32 (``brightness_rmbg``). Returns per family
+    the GB written and the seconds."""
+    shutil.rmtree(root, ignore_errors=True)
+    cuda = torch.device("cuda")
+    written = {}
+
+    def put(name, directory, state, dtype, config=None):
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(directory, state, dtype=dtype, config=config, shard_bytes=CKPT_SHARD_BYTES)
+        written[name] = {"gb": nbytes / 1e9, "write_seconds": time.perf_counter() - t0,
+                         "files": sorted(p.name for p in Path(directory).iterdir())}
+
+    dev = ActionMeshPipeline(config_name="actionmesh", weights_dir=None, device=cuda, init_seed=0)
+    put("denoiser", root / "ActionMesh" / "denoiser",
+        reference_state_dict("denoiser", dev.denoiser_params, dev.denoiser_config.num_attention_heads),
+        torch.bfloat16, {"_class_name": "ActionMeshDenoiser", **dataclasses.asdict(dev.denoiser_config)})
+    put("autoencoder", root / "ActionMesh" / "autoencoder",
+        reference_state_dict("autoencoder", dev.autoencoder_params, dev.autoencoder_config.num_attention_heads),
+        None, {"_class_name": "ActionMeshAutoencoder", **dataclasses.asdict(dev.autoencoder_config)})
+    put("dinov2", root / "dinov2", reference_state_dict("dinov2", dev.image_encoder.params), torch.float32,
+        DINOV2_CONFIG)
+    del dev
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    dit_cfg, vae_cfg = triposg_configs_from(TRIPOSG_CONFIGS["transformer"], TRIPOSG_CONFIGS["vae"])
+    put("triposg_dit", root / "TripoSG" / "transformer",
+        reference_state_dict("triposg_dit", init_triposg_dit(gen, dit_cfg, torch.float16, cuda)),
+        torch.float16, TRIPOSG_CONFIGS["transformer"])
+    vae_state = reference_state_dict("triposg_vae", init_triposg_vae(gen, vae_cfg, torch.float16, cuda))
+    put("triposg_vae", root / "TripoSG" / "vae", shape_vae_sdf(vae_state, vae_cfg), torch.float16,
+        TRIPOSG_CONFIGS["vae"])
+    del vae_state
+    rmbg_state = reference_state_dict("rmbg", rmbg_module.init_rmbg(gen, device=cuda))
+    put("rmbg", root / "RMBG", brightness_rmbg(rmbg_state), torch.float32)
+    torch.cuda.empty_cache()
+    return written
+
+
+def read_tree(root: Path) -> dict:
+    """Each family read with the port's reader (memory-mapped, every float
+    checked finite), converted, shape-verified and placed on the card:
+    seconds, GB, GB/s and the process's peak host RSS after it."""
+    cuda = torch.device("cuda")
+    cfg = load_config("actionmesh")
+    dc, ac = cfg.temporal_3D_denoiser, cfg.temporal_3D_vae
+    den_cfg = DenoiserConfig(
+        num_tokens_nominal=dc.num_tokens_nominal, temporal_context_size=dc.temporal_context_size,
+        in_channels=dc.in_channels, num_layers=dc.num_layers, num_attention_heads=dc.num_attention_heads,
+        width=dc.width, mlp_ratio=dc.mlp_ratio, cross_attention_dim=dc.cross_attention_dim,
+        inflated_layers=tuple(dc.inflated_layers), gelu_approx=dc.gelu_approx,
+    )
+    ae_cfg = AutoencoderConfig(
+        temporal_context_size=ac.temporal_context_size, in_channels=ac.in_channels,
+        in_extra_channels=ac.in_extra_channels, out_dim=ac.out_dim, latent_channels=ac.latent_channels,
+        width=ac.width, num_layers=ac.num_layers, num_attention_heads=ac.num_attention_heads,
+        embed_frequency=ac.embed_frequency, embed_include_pi=ac.embed_include_pi,
+        prediction_mode=ac.prediction_mode, gelu_approx=ac.gelu_approx,
+    )
+    dit_cfg, vae_cfg = triposg_configs(root / "TripoSG")
+    bf = torch.bfloat16
+    families = {
+        "denoiser": (root / "ActionMesh" / "denoiser", lambda s: weights.convert_denoiser(s, den_cfg, bf)),
+        "autoencoder": (root / "ActionMesh" / "autoencoder",
+                        lambda s: weights.convert_autoencoder(s, ae_cfg, bf)),
+        "triposg_dit": (root / "TripoSG" / "transformer", lambda s: weights.convert_triposg_dit(s, dit_cfg, bf)),
+        "triposg_vae": (root / "TripoSG" / "vae", lambda s: weights.convert_triposg_vae(s, vae_cfg, bf)),
+        "dinov2": (root / "dinov2", lambda s: weights.convert_dinov2(s, DinoV2Config(), bf)),
+        "rmbg": (root / "RMBG", rmbg_module.convert_rmbg_weights),
+    }
+    out = {}
+    for name, (path, convert) in families.items():
+        t0 = time.perf_counter()
+        state = weights.load_safetensors_dir(path)
+        nbytes = sum(t.numel() * t.element_size() for t in state.values())
+        t1 = time.perf_counter()
+        tree = convert(state)
+        t2 = time.perf_counter()
+        params = (rmbg_module.conv_weights(tree, cuda) if name == "rmbg" else weights.params_from_jax(tree, cuda))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        n_leaves = len(leaves(params))
+        del state, tree, params
+        out[name] = {"gb": nbytes / 1e9, "seconds": t3 - t0, "read_seconds": t1 - t0,
+                     "convert_verify_seconds": t2 - t1, "to_card_seconds": t3 - t2,
+                     "gb_per_s": nbytes / 1e9 / (t3 - t0), "peak_host_rss_gib": host_peak_rss_gib(),
+                     "leaves": n_leaves}
+        log(f"checkpoint {name}: {nbytes / 1e9:.3f} GB in {t3 - t0:.2f} s ({nbytes / 1e9 / (t3 - t0):.2f} GB/s: "
+            f"read + finite check {t1 - t0:.2f} s, convert + verify {t2 - t1:.2f} s, to the card "
+            f"{t3 - t2:.2f} s), {n_leaves} leaves; peak host RSS {out[name]['peak_host_rss_gib']:.2f} GiB")
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name: str, record):
+    """Replace ``module.name`` by ``record(original)`` for the block."""
+    original = getattr(module, name)
+    setattr(module, name, record(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def timed_on_card(seconds: list):
+    """A wrapper that appends each call's synchronised seconds to ``seconds``."""
+    def wrap(fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return timed
+    return wrap
+
+
+def check_clip(name: str, meshes: list, out_dir: Path, faces=None) -> dict:
+    """16 finite meshes on one topology (``faces`` if given), the per-frame
+    GLBs, the deformation arrays and the animated GLB's 16 morph targets."""
+    if len(meshes) != N_FRAMES:
+        raise AssertionError(f"{name}: {len(meshes)} meshes for {N_FRAMES} frames")
+    faces = meshes[0].faces if faces is None else faces
+    verts = np.stack([m.vertices for m in meshes])
+    if not (np.isfinite(verts).all() and all(np.array_equal(m.faces, faces) for m in meshes)):
+        raise AssertionError(f"{name}: vertices not finite or faces not shared")
+    for i in range(N_FRAMES):
+        if not np.array_equal(load_glb(out_dir / f"mesh_{i:02d}.glb").faces, faces):
+            raise AssertionError(f"{name}: mesh_{i:02d}.glb does not hold the faces")
+    dv = np.load(out_dir / "deformations_vertices.npy")
+    targets = glb_json(out_dir / "animated_mesh.glb")["meshes"][0]["primitives"][0]["targets"]
+    if dv.shape != (N_FRAMES, len(meshes[0].vertices), 3) or len(targets) != N_FRAMES:
+        raise AssertionError(f"{name}: deformations {dv.shape}, {len(targets)} morph targets")
+    return {"vertices": int(verts.shape[1]), "faces": int(len(faces)),
+            "max_displacement": float(np.abs(verts[1:] - verts[0]).max())}
+
+
+def phase_checkpoints() -> dict:
+    """The synthetic production tree written, read back (per family: s, GB,
+    GB/s, peak host RSS), then the video-to-4D CLI with ``--weights_dir`` on
+    it at full width and the turbo preset, on 16 RGB frames without alpha
+    (RMBG mattes them), launch counts checked."""
+    t0 = time.perf_counter()
+    written = write_synthetic_tree(CKPT_DIR)
+    write_s = time.perf_counter() - t0
+    log(f"checkpoints: synthetic tree written in {write_s:.1f} s: " + ", ".join(
+        f"{k} {v['gb']:.3f} GB ({len(v['files'])} files, {v['write_seconds']:.1f} s)" for k, v in written.items()))
+    read = read_tree(CKPT_DIR)
+
+    work = OUT_DIR / "weights_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    frames = make_frames()
+    (work / "frames").mkdir(parents=True)
+    for i, f in enumerate(frames):  # RGB only: no alpha, so RMBG runs
+        write_png(work / "frames" / f"{i:02d}.png", f[..., :3])
+    rmbg_seen = []
+
+    def record_rmbg(fn):
+        def process_images(self, frames_in):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, frames_in)
+            torch.cuda.synchronize()
+            rmbg_seen.append({"seconds": time.perf_counter() - t, "alphas": [o[..., 3] for o in out]})
+            return out
+        return process_images
+
+    reset_counters()
+    t0 = time.perf_counter()
+    with recording(background.BackgroundRemover, "process_images", record_rmbg):
+        result = cli.main(["--input", str(work / "frames"), "--output_dir", str(work / "out"), "--seed", "44",
+                           "--weights_dir", str(CKPT_DIR), "--turbo", "--no_render"])
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    pipe = result.pop("pipeline")
+    if not (isinstance(pipe.image_to_3d, TripoSGPipeline) and pipe.background_removal._model is not None):
+        raise AssertionError("the CLI did not load TripoSG and RMBG from the tree")
+    want_flash, want_rope = expected_launches(pipe, N_FRAMES)
+    phase_s, seconds = dict(pipe.phase_seconds), result["seconds"]
+    stage0_s = dict(pipe.stage0_seconds)
+    del pipe
+    alphas = rmbg_seen[0]["alphas"]
+    coverage = [float((a > 0).mean()) for a in alphas]
+    in_object = [float((a[64:192, 32 + 4 * i : 160 + 4 * i] > 0).mean()) for i, a in enumerate(alphas)]
+    clip = check_clip("checkpoints cli", result["meshes"], work / "out")
+    log(f"checkpoints cli (turbo, --weights_dir): clip {sum(seconds.values()):.2f} s = "
+        + " + ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + " | pipeline phases "
+        + " ".join(f"{k} {v:.2f}" for k, v in phase_s.items()) + " | stage0 "
+        + " ".join(f"{k} {v:.2f}" for k, v in stage0_s.items())
+        + f" | RMBG {rmbg_seen[0]['seconds']:.2f} s for {N_FRAMES} frames at 1024^2 | with the "
+        f"pipeline's set-up (reading the tree) {wall_s:.2f} s")
+    log(f"checkpoints cli: alpha covers {min(coverage):.3f}-{max(coverage):.3f} of each frame, "
+        f"{min(in_object):.3f}-{max(in_object):.3f} of the object; mesh {clip}; launches flash_fwd "
+        f"{launches['flash_fwd']} (expected {want_flash}), rms_rope {launches['fused_rms_rope']} "
+        f"(expected {want_rope})")
+    if (launches["flash_fwd"], launches["fused_rms_rope"]) != (want_flash, want_rope) or not want_flash:
+        raise AssertionError(f"checkpoints cli: launch counts {launches} != ({want_flash}, {want_rope})")
+    if any(launches[k] for k in COUNTERS[2:]):
+        raise AssertionError(f"checkpoints cli: a backward kernel or kernel F launched: {launches}")
+    if not (min(in_object) > 0.95 and max(coverage) < 0.5):
+        raise AssertionError(f"checkpoints cli: RMBG's alpha does not follow the object: {coverage} {in_object}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"written": written, "write_seconds": write_s, "read": read, "launches": launches,
+            "expected_launches": {"flash_fwd": want_flash, "fused_rms_rope": want_rope},
+            "seconds": seconds, "phase_seconds": phase_s, "stage0_seconds": stage0_s,
+            "rmbg_seconds": rmbg_seen[0]["seconds"], "alpha_coverage": coverage,
+            "alpha_in_object": in_object, "wall_seconds": wall_s, "clip": clip}
+
+
+# -- the small tree: card vs CPU from one checkpoint -------------------------------
+
+# TripoSG at small width with head dim 64 everywhere: config.json carries no
+# VAE heads (8 by default), so the VAE is 512 wide; the latent is the small
+# configuration's (32, 8)
+SMALL_TRIPOSG_CONFIGS = {
+    "transformer": {"num_tokens": 32, "in_channels": 8, "num_layers": 3, "width": 128,
+                    "num_attention_heads": 2, "cross_attention_dim": SMALL_DINO.hidden_size},
+    "vae": {"latent_channels": 8, "num_tokens": 32, "embed_frequency": 8, "width_encoder": 512,
+            "num_layers_encoder": 1, "width_decoder": 512, "num_layers_decoder": 2},
+}
+SMALL_CKPT_UPDATES = {"stage_0.num_inference_steps": 4, "stage_0.prefilter_octree_depth": 4}
+RMBG_FRAMES = 2
+
+
+@contextlib.contextmanager
+def small_dinov2():
+    """The pipelines' default DINOv2 config is SMALL_DINO for the block."""
+    with recording(image_encoder_module, "DinoV2Config", lambda _: lambda: SMALL_DINO):
+        yield
+
+
+def phase_small_checkpoint() -> dict:
+    """A small tree (ActionMesh at SMALL_UPDATES, TripoSG and DINOv2 small,
+    RMBG-1.4 at full size, random) loaded on the card and on the CPU:
+    TripoSG's Stage 0 (latents and meshes within 1e-4, equal faces), then
+    the slice from the CPU's anchor on both (vertices within 1e-4, fp32, no
+    TF32); RMBG at 1024² on both: logits within 1e-4 of their largest
+    magnitude, mattes within one level, refined alphas in all but 0.5% of
+    the pixels."""
+    torch.backends.cudnn.allow_tf32 = False
+    root = OUT_DIR / "small_weights"
+    shutil.rmtree(root, ignore_errors=True)
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    dev = ActionMeshPipeline(config_updates=dict(SMALL_UPDATES), weights_dir=None, device=cpu,
+                             dtype=torch.float32)
+    write_checkpoint(root / "ActionMesh" / "denoiser",
+                     reference_state_dict("denoiser", dev.denoiser_params, dev.denoiser_config.num_attention_heads))
+    write_checkpoint(root / "ActionMesh" / "autoencoder",
+                     reference_state_dict("autoencoder", dev.autoencoder_params,
+                                          dev.autoencoder_config.num_attention_heads))
+    gen = torch.Generator().manual_seed(13)
+    write_checkpoint(root / "dinov2", reference_state_dict("dinov2", init_dinov2(gen, SMALL_DINO)))
+    dit_cfg, vae_cfg = triposg_configs_from(SMALL_TRIPOSG_CONFIGS["transformer"], SMALL_TRIPOSG_CONFIGS["vae"])
+    write_checkpoint(root / "TripoSG" / "transformer",
+                     reference_state_dict("triposg_dit", init_triposg_dit(gen, dit_cfg)),
+                     config=SMALL_TRIPOSG_CONFIGS["transformer"])
+    write_checkpoint(root / "TripoSG" / "vae",
+                     shape_vae_sdf(reference_state_dict("triposg_vae", init_triposg_vae(gen, vae_cfg)), vae_cfg),
+                     config=SMALL_TRIPOSG_CONFIGS["vae"])
+    write_checkpoint(root / "RMBG", reference_state_dict("rmbg", rmbg_module.init_rmbg(gen)))
+    del dev
+    pipes, stage0 = {}, {}
+    with small_dinov2():
+        for name, device in (("cpu", cpu), ("cuda", cuda)):
+            pipes[name] = ActionMeshPipeline(config_updates=dict(SMALL_UPDATES, **SMALL_CKPT_UPDATES),
+                                             weights_dir=root, device=device, dtype=torch.float32)
+    for name, pipe in pipes.items():
+        tripo = pipe.image_to_3d
+
+        def anchor(image, _tripo=tripo, _name=name, **kw):
+            stage0[_name] = _tripo(image, **{**kw, **SMALL_STAGE0_DECODE})
+            lat, mesh = stage0["cpu"]  # the CPU's anchor for both
+            return lat.to(_tripo.device), Mesh(vertices=mesh.vertices, faces=mesh.faces)
+
+        pipe.image_to_3d = anchor
+    inp = ActionMeshInput(frames=make_frames(), timesteps=np.arange(N_FRAMES, dtype=np.float32))
+    ref = np.stack([m.vertices for m in pipes["cpu"](inp, seed=3)])
+    reset_counters()
+    out = np.stack([m.vertices for m in pipes["cuda"](inp, seed=3)])
+    launches = read_counters()
+    (lat_c, mesh_c), (lat_g, mesh_g) = stage0["cpu"], stage0["cuda"]
+    lat_err = (lat_g.cpu() - lat_c).abs().max().item()
+    same_faces = np.array_equal(mesh_c.faces, mesh_g.faces)
+    mesh_err = float(np.abs(mesh_c.vertices - mesh_g.vertices).max()) if same_faces else None
+    err = float(np.abs(out - ref).max())
+    log(f"small checkpoint: Stage 0 latents card vs CPU {lat_err:.3e}, mesh {mesh_c.n_faces} faces, equal "
+        f"{same_faces}, vertices {mesh_err}; slice {out.shape[0]} meshes x {out.shape[1]} vertices, max abs "
+        f"err {err:.3e} (tol 1e-4); launches {launches}")
+    if not (lat_err <= 1e-4 and same_faces and mesh_c.n_faces > 0 and mesh_err <= 1e-4):
+        raise AssertionError(f"small checkpoint: Stage 0 differs: {lat_err}, {same_faces}, {mesh_err}")
+    if not (err <= 1e-4 and np.isfinite(out).all() and launches["flash_fwd"] and launches["fused_rms_rope"]):
+        raise AssertionError(f"small checkpoint: card and CPU disagree ({err}) or no kernel ran ({launches})")
+
+    # RMBG-1.4 at its 1024² input, fp32 without TF32, on both
+    models = {n: p.background_removal._model for n, p in pipes.items()}
+    rgb = [f[..., :3] for f in make_frames(RMBG_FRAMES)]
+    x = torch.from_numpy(np.stack([pil_resize(f, (1024, 1024), "bilinear") for f in rgb]))
+    x = (x.permute(0, 3, 1, 2).float() / 255.0 - 0.5) / 1.0
+    with torch.no_grad():
+        logit_c = rmbg_module.rmbg_forward(models["cpu"].params, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logit_g = rmbg_module.rmbg_forward(models["cuda"].params, x.to(cuda))
+        torch.cuda.synchronize()
+        rmbg_s = time.perf_counter() - t0
+    logit_err = (logit_g.cpu() - logit_c).abs().max().item()
+    logit_max = logit_c.abs().max().item()
+    mattes = {n: m.predict_mattes(rgb) for n, m in models.items()}
+    matte_err = max(int(np.abs(a.astype(int) - b).max()) for a, b in zip(mattes["cpu"], mattes["cuda"]))
+    alphas = {n: pipes[n].background_removal.process_images(rgb) for n in pipes}
+    differ = max(float((a[..., 3] != b[..., 3]).mean()) for a, b in zip(alphas["cpu"], alphas["cuda"]))
+    log(f"small checkpoint RMBG 1024^2 fp32 ({RMBG_FRAMES} frames): logits card vs CPU {logit_err:.3e} "
+        f"(max |logit| {logit_max:.3e}, tol {1e-4 * logit_max:.3e}), mattes {matte_err} levels, refined "
+        f"alphas differ in {100 * differ:.3f}% of the pixels; card forward {rmbg_s:.3f} s")
+    if not (logit_err <= 1e-4 * logit_max and matte_err <= 1 and differ <= 0.005):
+        raise AssertionError(f"small checkpoint: RMBG card vs CPU {logit_err}, {matte_err}, {differ}")
+    del pipes, models
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"stage0_latent_err": lat_err, "stage0_vertex_err": mesh_err, "vertex_err": err,
+            "launches": launches, "rmbg_logit_err": logit_err, "rmbg_logit_max": logit_max,
+            "rmbg_matte_levels": matte_err, "rmbg_alpha_differ_share": differ,
+            "rmbg_card_forward_seconds": rmbg_s, "rmbg_frames": RMBG_FRAMES}
+
+
+# -- {video + 3D mesh} -> 4D through its CLI at full width ------------------------
+
+VIDEO_3D_STAGE1_STEPS = 4  # the turbo preset's Stage-I steps
+ENCODER_SHAPES = {"vae_encoder_cross": ((1, 8, 2048, 64), (1, 8, 16384, 64)),
+                  "vae_encoder_self": ((1, 8, 2048, 64), (1, 8, 2048, 64))}
+
+
+def textured_anchor(seed: int = 0) -> Mesh:
+    """A UV sphere off centre, every face on its own three vertices (so the
+    merge map has work), a uv per vertex."""
+    s = make_uv_sphere(n_lat=48, n_lon=96)
+    v = s.vertices[s.faces].reshape(-1, 3) * 0.7 + np.array([0.3, -0.2, 0.1])
+    uv = np.random.default_rng(seed).uniform(0, 1, (len(v), 2))
+    return Mesh(vertices=v, faces=np.arange(len(v)).reshape(-1, 3), uv=uv)
+
+
+def expected_launches_3d(pipe, n_frames: int) -> tuple[int, int]:
+    """``expected_launches`` with Stage 0 the VAE encode: one cross launch
+    onto all surface points and one per encoder block (no qk-norm, no
+    RoPE), DINOv2 on the frames only."""
+    flash, rope = expected_launches(pipe, n_frames, stage0=False)
+    vae_cfg = getattr(pipe.vae, "pipeline", pipe.vae).vae_cfg
+    return flash + 1 + vae_cfg.encoder_layers, rope
+
+
+def phase_video_3d() -> dict:
+    """``python -m actionmesh_tpu_torch.inference.video_and_3d_to_animated_mesh``'s
+    ``main`` at full width on the 16 frame pairs and a textured .glb with
+    TEXCOORD_0, Stage I at the turbo preset's 4 steps: faces equal the
+    input's, uv and glTF payload kept, vertices finite, launches as the path
+    implies, kernel A at the two encoder shapes; seconds of sampling, FPS,
+    the VAE encode, Stage I and II."""
+    work = OUT_DIR / "video_3d"
+    shutil.rmtree(work, ignore_errors=True)
+    write_frame_pairs(work / "frames", make_frames())
+    anchor = textured_anchor()
+    save_textured_glb(anchor, work / "anchor.glb", np.random.default_rng(1).integers(0, 255, (64, 64, 3), np.uint8))
+    shapes, fps_s, encode_s = [], [], []
+
+    def record_attention(fn):
+        def attend(q, k, v, **kw):
+            shapes.append((tuple(q.shape), tuple(k.shape), q.dtype))
+            return fn(q, k, v, **kw)
+        return attend
+
+    reset_counters()
+    t0 = time.perf_counter()
+    with recording(model_layers, "dot_product_attention", record_attention), \
+            recording(triposg_vae, "farthest_point_sampling", timed_on_card(fps_s)), \
+            recording(triposg_pipeline, "encode_surface", timed_on_card(encode_s)):
+        result = cli3d.main(["--input", str(work / "frames"), "--mesh_input", str(work / "anchor.glb"),
+                             "--output_dir", str(work / "out"), "--seed", "44",
+                             "--stage_1_steps", str(VIDEO_3D_STAGE1_STEPS), "--no_render"])
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    pipe = result.pop("pipeline")
+    want_flash, want_rope = expected_launches_3d(pipe, N_FRAMES)
+    want_shapes = {"vae_encoder_cross": 1,
+                   "vae_encoder_self": getattr(pipe.vae, "pipeline", pipe.vae).vae_cfg.encoder_layers}
+    phase_s, stage0_s, seconds = dict(pipe.phase_seconds), dict(pipe.stage0_seconds), result["seconds"]
+    del pipe
+    by_shape = {name: sum(1 for q, k, _ in shapes if (q, k) == want) for name, want in ENCODER_SHAPES.items()}
+    meshes, loaded = result["meshes"], result["anchor_mesh"]
+    clip = check_clip("video_3d", meshes, work / "out", faces=anchor.faces)
+    uv_kept = all(m.uv is loaded.uv for m in meshes) and np.allclose(loaded.uv, anchor.uv.astype(np.float32))
+    visual_kept = all(m.visual is loaded.visual for m in meshes) and "images" in loaded.visual["gltf"]
+    log(f"video_3d (turbo Stage-I steps {VIDEO_3D_STAGE1_STEPS}): clip {sum(seconds.values()):.2f} s = "
+        + " + ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + " | phases "
+        + " ".join(f"{k} {v:.2f}" for k, v in phase_s.items())
+        + f" | stage0: sampling {stage0_s['sample']:.3f} s, VAE encode {encode_s[0]:.3f} s of which FPS "
+        f"{fps_s[0]:.3f} s (stage0 phase {stage0_s['vae_encode']:.3f} s, the random TripoSG built at its "
+        f"first use included) | with set-up {wall_s:.2f} s")
+    log(f"video_3d: {clip['vertices']} vertices / {clip['faces']} faces (the input's {anchor.n_vertices} / "
+        f"{anchor.n_faces}), uv kept {uv_kept}, glTF payload kept {visual_kept}; launches flash_fwd "
+        f"{launches['flash_fwd']} (expected {want_flash}), rms_rope {launches['fused_rms_rope']} (expected "
+        f"{want_rope}); kernel A at the encoder shapes {by_shape}")
+    if (launches["flash_fwd"], launches["fused_rms_rope"]) != (want_flash, want_rope):
+        raise AssertionError(f"video_3d: launch counts {launches} != ({want_flash}, {want_rope})")
+    if by_shape != want_shapes or any(launches[k] for k in COUNTERS[2:]):
+        raise AssertionError(f"video_3d: encoder launches {by_shape}, others {launches}")
+    if not (uv_kept and visual_kept and clip["vertices"] == anchor.n_vertices):
+        raise AssertionError("video_3d: the output lost the input's uv, payload or vertex count")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "expected_launches": {"flash_fwd": want_flash, "fused_rms_rope": want_rope},
+            "encoder_launches": by_shape, "seconds": seconds, "phase_seconds": phase_s,
+            "sample_seconds": stage0_s["sample"], "vae_encode_seconds": encode_s[0], "fps_seconds": fps_s[0],
+            "wall_seconds": wall_s, "clip": clip, "uv_kept": uv_kept}
+
+
 def main() -> None:
     logging.basicConfig(level=logging.WARNING)
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
@@ -1890,12 +2383,15 @@ def main() -> None:
     del fine_query
     torch.cuda.empty_cache()
     cli_runs = phase_cli(CLI_PRESETS)
+    ckpt = phase_checkpoints()
+    v3d = phase_video_3d()
     flash, rope = phase_kernels(sl["anchor_vertices"])
     fused, fused_launches = phase_fused()
     bwd, rope_bwd = phase_backward()
     nn = phase_nn()
     small_err = phase_small_reference()
     small_stage0 = phase_small_stage0()
+    small_ckpt = phase_small_checkpoint()
     small_train = phase_small_train()
     tr = phase_train()
     small_icp = phase_small_icp()
@@ -1913,10 +2409,12 @@ def main() -> None:
     def by_path(name, inference_name):
         return {"inference": sl["launches"][inference_name], "training": tr["launches"][name],
                 **{f"cli_{preset}": run["launches"][name] for preset, run in cli_runs.items()
-                   if preset in CLI_PRESETS}}
+                   if preset in CLI_PRESETS},
+                "cli_checkpoints": ckpt["launches"][name], "video_3d": v3d["launches"][name]}
 
     def cli_launches(name):
-        return sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
+        return (sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
+                + ckpt["launches"][name] + v3d["launches"][name])
 
     def bwd_summary(name, replaces, key):
         rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
@@ -1990,6 +2488,7 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "build": build,
                       "small_reference_max_abs_err": small_err, "small_stage0_reference": small_stage0,
                       "small_train_reference": small_train, "small_icp_reference": small_icp,
+                      "small_checkpoint": small_ckpt, "checkpoints": ckpt, "video_3d": v3d,
                       "slice": sl, "sdf_chunk": sdf_chunk, "cli": cli_runs, "train": tr,
                       "actionbench": ab,
                       "card": info["nvidia_smi"]}),

@@ -224,8 +224,10 @@ def test_npz_bridge_roundtrip(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax or the JAX package."""
-    files = sorted((REPO / "actionmesh_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """No module of the port, nor chip_smoke.py and the checkpoint writer it
+    imports, imports jax or the JAX package."""
+    files = sorted((REPO / "actionmesh_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "synthetic_checkpoints.py"]
     assert len(files) > 20
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -241,12 +243,15 @@ def test_port_imports_no_jax():
 
 def test_port_runtime_dependencies():
     """The card's host is promised only torch, numpy, scipy and the standard
-    library: no module of the port imports PIL, yaml, cv2, pandas or
-    skimage, at top level or inside a function (nor by name through
-    importlib); imageio only inside render/utils.py's writer."""
-    banned = {"PIL", "yaml", "cv2", "pandas", "skimage"}
+    library: no module of the port imports PIL, yaml, cv2, pandas, skimage,
+    safetensors, transformers or huggingface_hub, at top level or inside a
+    function (nor by name through importlib); imageio only inside
+    render/utils.py's writer. Nor do chip_smoke.py and the checkpoint
+    writer it imports, which run on that host too."""
+    banned = {"PIL", "yaml", "cv2", "pandas", "skimage", "safetensors", "transformers",
+              "huggingface_hub"}
     port = REPO / "actionmesh_tpu_torch"
-    files = sorted(port.rglob("*.py"))
+    files = sorted(port.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "synthetic_checkpoints.py"]
     assert len(files) > 20
     for path in files:
         tree = ast.parse(path.read_text())

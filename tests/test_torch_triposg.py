@@ -245,8 +245,8 @@ def test_vae_decode_kv_and_query_sdf_match_jax(vae):
     assert out.shape == (1, 300) and out.dtype == torch.float32
     np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
     assert tparams["dec_cross_attn"]["to_q"]["weight"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        tvae.encode_surface(tparams, tcfg, torch.zeros(1, 64, 6))
+    # the encoder side is ported too (held against JAX's in test_torch_video_3d.py)
+    assert tvae.encode_surface(tparams, tcfg, torch.zeros(1, 64, 6)).shape == (1, 16, 8)
 
 
 REGULARIZERS = {
@@ -359,18 +359,19 @@ def test_tiny_pipeline_matches_jax(monkeypatch):
 
 def test_make_image_to_3d_selection(monkeypatch, tmp_path):
     """DevTripoSG at the production latent shape, built lazily; the stub at
-    other shapes or with ACTIONMESH_DEV_STAGE0=stub; a weights directory
-    raises until the checkpoint loader is ported."""
+    other shapes or with ACTIONMESH_DEV_STAGE0=stub; a weights directory is
+    loaded as a checkpoint, so one without weights raises (never a fallback
+    to random weights)."""
     monkeypatch.delenv("ACTIONMESH_DEV_STAGE0", raising=False)
     dev = tstage0.make_image_to_3d(None, (2048, 64), CPU)
     assert isinstance(dev, tstage0.DevTripoSG) and dev._pipe is None
     assert isinstance(tstage0.make_image_to_3d(None, (16, 8), CPU), tstage0.StubImageTo3D)
     monkeypatch.setenv("ACTIONMESH_DEV_STAGE0", "stub")
     assert isinstance(tstage0.make_image_to_3d(None, (2048, 64), CPU), tstage0.StubImageTo3D)
-    with pytest.raises(NotImplementedError, match="TripoSG"):
+    with pytest.raises(FileNotFoundError, match="transformer"):
         tstage0.make_image_to_3d(tmp_path, (2048, 64), CPU)
-    with pytest.raises(NotImplementedError):
-        TPipeline.from_pretrained(tmp_path)
+    with pytest.raises(FileNotFoundError):
+        TPipeline.from_pretrained(tmp_path, device=CPU)
 
 
 def test_dev_regularizer_torch_mirrors_numpy():
