@@ -60,10 +60,67 @@
 //   Not in this version (later work): overlap of one step's exp work with the
 //   next step's products inside a warpgroup, pingpong scheduling of the two
 //   consumers, a persistent tile scheduler, TMA stores.
-// fp32 design: plain FMA (no TF32). 128 threads, 32 rows of the block's tile;
-// each thread computes a 2x4 micro-tile of S and dP, the tile of P / dS goes
-// through shared memory, then each thread accumulates 2 rows x D/8 columns of
-// its gradients.
+// fp32 design: split precision ("3xTF32") on TF32 wgmma, TMA, warp-specialised,
+// on kernel A's fp32 path and the bf16 skeleton above. Every product is three
+// TF32 products of split operands, a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, the
+// small terms first (tf32_split in sm90.cuh, bit-identical to kernel A's and
+// to ops/flash_attention.py:tf32_split). Both kernels are bound by the
+// products: at the Stage-I self shape (2,16,32784,32784,128) C does 6U and D
+// 4U of least work (U = B*H*Sq*Sk*D = 4.4e12), 160 and 107 ms at 495/3
+// TFLOP/s, against ~3 GB of inputs and outputs (~1 ms at 3.35 TB/s).
+//   * TF32 wgmma takes K-major operands only (no transpose bit), so each
+//     product reduces along a contiguous axis:
+//       C: S^T = K Q^T and dP^T = V dO^T over D (B: q, dO as they are);
+//          dV += P^T dO and dK += dS^T Q over the queries (B: dO^T, q^T);
+//       D: S = Q K^T and dP = dO V^T over D (B: k, v as they are);
+//          dQ += dS K over the keys (B: k^T).
+//     A pre-pass (split_bwd_kernel, one launch before each kernel) reads the
+//     walked inputs once through their strides and writes the B operands
+//     split into hi and lo into one fp32 workspace the caller allocates: C's
+//     q, dO (B,H,Sq,D) and q^T, dO^T (B,H,D,Sqp); D's k, v (B,H,Sk,D) and
+//     k^T (B,H,D,Skp); Sqp, Skp rounded up to 8. Within each group of 8 the
+//     transposed tensors store row vt_key(p) at position p, so an
+//     accumulator's columns (2t, 2t+1) are the A-fragment's columns (t, t+4)
+//     of the next product: P^T, dS^T and dS go from accumulator to register
+//     operand with no shuffles. At Stage-I self one (B,H,S,D) fp32 tensor is
+//     537 MB: C's workspace 4.3 GB, D's 3.2 GB, allocated one after the other.
+//   * The A operands (C: k, v; D: q, dO) are the CTA's own rows: loaded
+//     once by TMA as raw fp32 and split in registers when a step reads them
+//     (kernel A's way with Q), 16 (C) or 32 (D) columns at a time, D into
+//     two buffers so that it splits the next columns while the products
+//     run. That split is the kernels' largest ALU cost (128 values a thread
+//     a step), so it takes tf32_split_finite: three operations, the same
+//     bits for every finite input below 2^128 (1 - 2^-12); an inf or NaN
+//     input gives NaN where tf32_split gives inf or NaN. (With tf32_split
+//     there C took about a quarter and D a third longer at Stage-I self on
+//     an H100.) P, dS and the pre-pass keep tf32_split.
+//   * Shared memory is the binding limit (227 KB). A CTA owns 128 rows (64
+//     a consumer warpgroup) of its two resident inputs, 2 x 64 KB at D = 128,
+//     and walks the other axis in steps of 32 rows through a ring of three
+//     32 KB slots, each holding one split tile (hi, lo) of a step: C reads
+//     q, dO^T, dO, q^T per step, D k, v, k^T. 224 KB, plus C's L and delta
+//     of three steps (768 bytes, staged by the producer with the step's first
+//     tile; rows past Sq as L = 1e30, so their P is exactly 0). D = 64
+//     halves every tile.
+//   * The tensor core's own fp32 sums truncate, so a chain of products over
+//     the walked axis drifts: every step's share of dV and dK (64 columns
+//     at a time) or dQ (all of D) goes into a fresh accumulator (12
+//     products) that is added in IEEE fp32. S (S^T) and dP (dP^T) end with their step: one chain of 3 D / 8
+//     products (48 at D = 128).
+//   * Registers (setmaxnreg 240 for the consumers): C holds dK and dV (64 +
+//     64 a thread at D = 128), and at its peak P's split fragments (32),
+//     dP^T (16) and the A fragments of V being split. A step of C runs S^T,
+//     dV, dP^T, dK in that order, so P's fragments and dP^T are never live
+//     beside a fresh 32-register accumulator; the fragments of P become
+//     dS's in place (P = hi + lo exactly). The resident tiles are read with
+//     32-bit shared addresses: with generic 64-bit ones kernel C spilled.
+//     Spills move non-monotonically with these choices: ptxas decides.
+//   * Keys past Sk: D sets their P to exactly 0; C never stores their rows.
+//     Two kernels, no atomics: bit-for-bit deterministic.
+//   Not in this version: pingpong of the consumers, overlap of the exp work
+//   with the next products, the finite split for P and dS (faster, but
+//   kernel C spilled), a persistent scheduler, multicast of the walked
+//   tiles.
 // The caller passes element strides for batch, head and sequence of every
 // tensor; the last axis must be contiguous, strides and addresses 16-byte
 // aligned.
@@ -99,12 +156,6 @@ struct Params {
   int B, H, Sq, Sk;
   float scale;
 };
-
-template <typename T>
-__device__ __forceinline__ const T* head_ptr(const void* base, long long sb, long long sh,
-                                             int b, int h) {
-  return static_cast<const T*>(base) + b * sb + h * sh;
-}
 
 template <typename T>
 __device__ __forceinline__ T* head_ptr_out(void* base, long long sb, long long sh, int b,
@@ -527,203 +578,480 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 path: SIMT FMA
+// fp32 path: split precision (3xTF32) on TF32 wgmma, TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 128;
-constexpr int kF32Rows = 32;  // rows a block owns, and rows per step of its loop
+constexpr int kF32Rows = 128;     // rows a CTA owns (C: keys, D: queries), 64 per consumer
+constexpr int kF32Step = 32;      // rows of the walked axis a step reads (C: queries, D: keys)
+constexpr int kF32Slots = 3;      // depth of the ring, in tiles
+constexpr int kF32AtomCols = 32;  // fp32 columns of one 128-byte swizzle row
+constexpr int kSplitRows = 32;    // rows per block of the split pre-pass
+constexpr int kSplitThreads = 256;
 
-template <int D>
-constexpr int f32_smem_bytes() {
-  // four [32][D+1] tiles, two [32][33] tiles of P / dS, two stat rows
-  return (4 * kF32Rows * (D + 1) + 2 * kF32Rows * (kF32Rows + 1) + 2 * kF32Rows) * 4;
-}
+// One source of the split pre-pass: x (B,H,S,D) read through its strides,
+// written as hi and lo (B,H,S,D), contiguous, and, where th is not null, as
+// x^T's hi and lo (B,H,D,Sp), Sp = S rounded up to 8, the rows of each group
+// of 8 permuted (vt_key) and zero past S.
+struct SplitJob {
+  const float* x;
+  long long sb, sh, ss;
+  float *hi, *lo, *th, *tl;
+};
 
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long ss,
-                                              int row0, int limit) {
-  for (int i = threadIdx.x; i < kF32Rows * D; i += kF32Threads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = (row0 + r < limit) ? src[(long long)(row0 + r) * ss + c] : 0.f;
-  }
-}
+struct SplitArgs {
+  SplitJob job[2];
+  int B, H, S, Sp;
+};
 
-// Thread (rg, cg) = (tid / 8, tid % 8) computes x . y for rows 2rg, 2rg+1 of
-// X and rows cg + 8j (j < 4) of Y, both smem [32][D+1].
-template <int D>
-__device__ __forceinline__ void dot_2x4(float (&s)[2][4], const float* Xs, const float* Ys,
-                                        int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float xa = Xs[(2 * rg) * (D + 1) + d];
-    const float xb = Xs[(2 * rg + 1) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float y = Ys[(cg + 8 * j) * (D + 1) + d];
-      s[0][j] = fmaf(xa, y, s[0][j]);
-      s[1][j] = fmaf(xb, y, s[1][j]);
+// The workspace of one kernel's call, fp32, contiguous: hi, lo of job 0,
+// hi, lo of job 1 (B,H,S,D each), then the transposed hi, lo of job 0 and,
+// with n_transposed = 2, of job 1 (B,H,D,Sp each). Kernel C: job 0 q, job 1
+// dO, both transposed, S = Sq. Kernel D: job 0 k (transposed), job 1 v,
+// S = Sk.
+SplitArgs split_args(const void* x0, const long long* st0, const void* x1, const long long* st1,
+                     float* ws, int B, int H, int S, int D, int n_transposed) {
+  SplitArgs a = {};
+  a.B = B; a.H = H; a.S = S; a.Sp = (S + 7) & ~7;
+  const long long n = (long long)B * H * S * D, tn = (long long)B * H * D * a.Sp;
+  const void* x[2] = {x0, x1};
+  const long long* st[2] = {st0, st1};
+  float* t = ws + 4 * n;
+  for (int j = 0; j < 2; ++j) {
+    a.job[j].x = static_cast<const float*>(x[j]);
+    a.job[j].sb = st[j][0]; a.job[j].sh = st[j][1]; a.job[j].ss = st[j][2];
+    a.job[j].hi = ws + 2 * j * n;
+    a.job[j].lo = ws + (2 * j + 1) * n;
+    if (j < n_transposed) {
+      a.job[j].th = t + 2 * j * tn;
+      a.job[j].tl = t + (2 * j + 1) * tn;
     }
   }
+  return a;
 }
 
-// acc[i][jd] += sum_r W[2rg+i][r] * Y[r][cg + 8jd] for W smem [32][33], Y smem [32][D+1].
+// Pre-pass: one block per (32 rows, head, batch, job) splits those rows of
+// the job's x (read once) into hi and lo and, for a transposed job, writes
+// the same rows through shared memory, transposed and split.
 template <int D>
-__device__ __forceinline__ void accum_rows(float (&acc)[2][D / 8], const float* Ws,
-                                           const float* Ys, int rg, int cg) {
-  for (int r = 0; r < kF32Rows; ++r) {
-    const float wa = Ws[(2 * rg) * (kF32Rows + 1) + r];
-    const float wb = Ws[(2 * rg + 1) * (kF32Rows + 1) + r];
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      const float y = Ys[r * (D + 1) + cg + 8 * jd];
-      acc[0][jd] = fmaf(wa, y, acc[0][jd]);
-      acc[1][jd] = fmaf(wb, y, acc[1][jd]);
+__global__ void __launch_bounds__(kSplitThreads) split_bwd_kernel(const SplitArgs a) {
+  __shared__ float xs[kSplitRows][D + 1];
+  const int z = blockIdx.z, b = z % a.B, h = blockIdx.y, r0 = blockIdx.x * kSplitRows;
+  const SplitJob w = z < a.B ? a.job[0] : a.job[1];
+  const long long head = (long long)b * a.H + h;
+  const float* xb = w.x + b * w.sb + h * w.sh;
+  for (int i = threadIdx.x; i < kSplitRows * D / 4; i += kSplitThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4, row = r0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < a.S) {
+      x = *reinterpret_cast<const float4*>(xb + row * w.ss + c);
+      float4 hi, lo;
+      tf32_split(x.x, hi.x, lo.x);
+      tf32_split(x.y, hi.y, lo.y);
+      tf32_split(x.z, hi.z, lo.z);
+      tf32_split(x.w, hi.w, lo.w);
+      const long long o = (head * a.S + row) * D + c;
+      *reinterpret_cast<float4*>(w.hi + o) = hi;
+      *reinterpret_cast<float4*>(w.lo + o) = lo;
     }
+    xs[r][c] = x.x;
+    xs[r][c + 1] = x.y;
+    xs[r][c + 2] = x.z;
+    xs[r][c + 3] = x.w;
+  }
+  if (w.th == nullptr) return;  // the same for every thread of the block
+  __syncthreads();
+  for (int i = threadIdx.x; i < D * kSplitRows; i += kSplitThreads) {
+    const int d = i / kSplitRows, pos = i % kSplitRows;
+    if (r0 + pos >= a.Sp) continue;
+    float hi, lo;
+    tf32_split(xs[vt_key(pos)][d], hi, lo);
+    const long long o = (head * D + d) * a.Sp + r0 + pos;
+    w.th[o] = hi;
+    w.tl[o] = lo;
   }
 }
 
 template <int D>
-__device__ __forceinline__ void store_rows_f32(float* base, long long ss, int r0, int limit,
-                                               const float (&acc)[2][D / 8], int rg, int cg) {
+int launch_split(const SplitArgs& a, cudaStream_t stream) {
+  dim3 grid((a.Sp + kSplitRows - 1) / kSplitRows, a.H, 2 * a.B);
+  split_bwd_kernel<D><<<grid, kSplitThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Tensor maps of one fp32 launch: the CTA's own rows of its two resident
+// inputs (C: k, v; D: q, dO; raw fp32 through the caller's strides), the
+// walked inputs' split tiles (C: q, dO; D: k, v; hi, then lo) and the
+// transposed split tiles in the order a step reads them (C: dO^T, then q^T;
+// D: k^T).
+struct F32Maps {
+  CUtensorMap x[2];
+  CUtensorMap nat_hi[2], nat_lo[2];
+  CUtensorMap t_hi[2], t_lo[2];
+};
+
+// Shared memory of the fp32 kernels: the two resident tiles (128 rows, D/32
+// atoms of 16 KB each), a ring of three slots of one walked tile each (hi,
+// then lo: a natural tile is D/32 atoms of 32 rows, a transposed one D rows
+// of 32 positions), and for kernel C three steps' L and delta (a step's
+// stats ride with its first tile). D = 128: 128 + 96 KB + 768 bytes.
+template <int D>
+struct F32Smem {
+  static constexpr int kAtom = kF32Rows * 128;     // 128 rows x 32 fp32 of a resident tile
+  static constexpr int kNatAtom = kF32Step * 128;  // 32 rows x 32 fp32 of a natural tile
+  static constexpr int kX = kF32Rows * D * 4;      // one resident tile
+  static constexpr int kHalf = kF32Step * D * 4;   // hi (or lo) of a walked tile
+  static constexpr int kSlot = 2 * kHalf;
+  static constexpr int kSlots = 2 * kX;                     // + slot * kSlot
+  static constexpr int kStats = kSlots + kF32Slots * kSlot;  // + (step % 3) * 2 * kF32Step floats
+  static constexpr int kBars = kStats + kF32Slots * 2 * kF32Step * 4;  // x_full, full[], empty[]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kF32Slots);
+  static constexpr int kAlloc = kBytes + 1024;
+};
+static_assert(F32Smem<128>::kAlloc <= 232448, "shared memory above the 227 KB a block may use");
+
+// X[row][col] of a resident swizzled fp32 tile at shared address x: a
+// 32-bit shared-memory load (a generic pointer would hold each address in
+// two registers, which kernel C at D = 128 does not have).
+__device__ __forceinline__ float x_at(uint32_t x, int row, int col) {
+  const int chunk = ((col % kF32AtomCols) >> 2) ^ (row & 7);
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(x + (col / kF32AtomCols) * (kF32Rows * 128) + row * 128 + chunk * 16 + (col & 3) * 4));
+  return v;
+}
+
+// The descriptor of the K-major operand at `off` bytes past the one that
+// `d` describes: the start address is the low 14 bits, in 16-byte units, and
+// no offset into a CTA's shared memory (< 256 KB) carries out of them.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t off) { return d + (off >> 4); }
+
+// Split A fragments of k-steps ks0 .. ks0 + kKs - 1 (8 columns each) of a
+// resident tile's rows r0 and r0 + 8.
+template <int kKs>
+__device__ __forceinline__ void split_x_frags(uint32_t (&ah)[kKs][4], uint32_t (&al)[kKs][4],
+                                              uint32_t x, int r0, int t, int ks0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + 2 * rg + i;
-    if (row < limit) {
-#pragma unroll
-      for (int jd = 0; jd < D / 8; ++jd) base[(long long)row * ss + cg + 8 * jd] = acc[i][jd];
-    }
+  for (int kk = 0; kk < kKs; ++kk) {
+    const int col = (ks0 + kk) * 8 + t;
+    tf32_split_finite(x_at(x, r0, col), ah[kk][0], al[kk][0]);
+    tf32_split_finite(x_at(x, r0 + 8, col), ah[kk][1], al[kk][1]);
+    tf32_split_finite(x_at(x, r0, col + 4), ah[kk][2], al[kk][2]);
+    tf32_split_finite(x_at(x, r0 + 8, col + 4), ah[kk][3], al[kk][3]);
   }
 }
 
-// Kernel C, fp32: dK and dV for one (b, h, 32-key tile).
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                       // [32][D+1]
-  float* Vs = Ks + kF32Rows * (D + 1);    // [32][D+1]
-  float* Qs = Vs + kF32Rows * (D + 1);    // [32][D+1]
-  float* dOs = Qs + kF32Rows * (D + 1);   // [32][D+1]
-  float* Ps = dOs + kF32Rows * (D + 1);   // P^T  [key][query], [32][33]
-  float* dSs = Ps + kF32Rows * (kF32Rows + 1);  // dS^T [key][query]
-  float* lse_s = dSs + kF32Rows * (kF32Rows + 1);
-  float* delta_s = lse_s + kF32Rows;
+// acc (the consumer's 64 rows x 32 walked rows) = X Y^T over D: X's A
+// fragments are read from the resident tile (rows r0, r0 + 8) and split in
+// registers kKs k-steps (8 columns each) at a time, into kBufs buffers:
+// with two, the next k-steps are split while the tensor core runs the
+// current ones. Y is a natural split tile of the ring at y (hi atoms, then
+// lo). The small products of each kKs k-steps go first, all into acc: a
+// chain of 3 D / 8 products (48 at D = 128) that ends with the step (a
+// fresh accumulator every 32 columns, as kernel A's, would cost kernel C 16
+// registers it does not have); the sums that run over the walked axis are
+// product_over_step's.
+template <int D, int kKs, int kBufs>
+__device__ __forceinline__ void product_over_d(float (&acc)[kF32Step / 2], uint32_t x, int r0,
+                                               int t, uint32_t y) {
+  using L = F32Smem<D>;
+  constexpr int kChunks = D / (8 * kKs);
+  const uint64_t dy = wgmma_desc(y, 16, 1024);
+#pragma unroll
+  for (int i = 0; i < kF32Step / 2; ++i) acc[i] = 0.f;
+  uint32_t ah[kBufs][kKs][4], al[kBufs][kKs][4];
+  split_x_frags<kKs>(ah[0], al[0], x, r0, t, 0);
+#pragma unroll
+  for (int ch = 0; ch < kChunks; ++ch) {
+    const int cur = ch % kBufs, next = (ch + 1) % kBufs;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk) {
+      const int ks = ch * kKs + kk;
+      const uint32_t off = (ks / 4) * L::kNatAtom + (ks % 4) * 32;
+      wgmma_tf32_rs<kF32Step>(acc, al[cur][kk], desc_at(dy, off));
+      wgmma_tf32_rs<kF32Step>(acc, ah[cur][kk], desc_at(dy, L::kHalf + off));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk) {
+      const int ks = ch * kKs + kk;
+      wgmma_tf32_rs<kF32Step>(acc, ah[cur][kk], desc_at(dy, (ks / 4) * L::kNatAtom + (ks % 4) * 32));
+    }
+    wgmma_commit();
+    if (ch + 1 < kChunks) {
+      // the next buffer's products (chunk ch + 1 - kBufs) are done once at
+      // most kBufs - 1 groups are pending
+      wgmma_wait<kBufs - 1>();
+      fence_frags(ah[next]);
+      fence_frags(al[next]);
+      split_x_frags<kKs>(ah[next], al[next], x, r0, t, (ch + 1) * kKs);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int bf = 0; bf < kBufs; ++bf) {
+    fence_frags(ah[bf]);
+    fence_frags(al[bf]);
+  }
+}
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
-  const int k0 = blockIdx.x * kF32Rows;
-  const float* qbase = head_ptr<float>(p.q, p.q_sb, p.q_sh, b, h);
-  const float* kbase = head_ptr<float>(p.k, p.k_sb, p.k_sh, b, h);
-  const float* vbase = head_ptr<float>(p.v, p.v_sb, p.v_sh, b, h);
-  const float* dobase = head_ptr<float>(p.dout, p.do_sb, p.do_sh, b, h);
+// out (the consumer's 64 rows x D) += F W: F the step's P or dS as split A
+// fragments (fh, fl: 4 k-steps of 8 walked rows, in vt_key order), W a
+// transposed split tile of the ring at w (D rows x 32 walked positions, hi
+// then lo). Each kN columns of D go into a fresh accumulator, the small
+// products first, and are added to out in fp32 (12 products in a chain).
+// The caller keeps fh and fl alive to here (fence_frags).
+template <int D, int kN>
+__device__ __forceinline__ void product_over_step(float (&out)[D / 2], const uint32_t (&fh)[4][4],
+                                                  const uint32_t (&fl)[4][4], uint32_t w) {
+  using L = F32Smem<D>;
+  const uint64_t dw = wgmma_desc(w, 16, 1024);
+#pragma unroll
+  for (int cn = 0; cn < D / kN; ++cn) {
+    float part[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) part[i] = 0.f;
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t off = cn * kN * 128 + kk * 32;
+      wgmma_tf32_rs<kN>(part, fl[kk], desc_at(dw, off));
+      wgmma_tf32_rs<kN>(part, fh[kk], desc_at(dw, L::kHalf + off));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tf32_rs<kN>(part, fh[kk], desc_at(dw, cn * kN * 128 + kk * 32));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) out[cn * kN / 2 + i] += part[i];
+  }
+}
+
+// The accumulator of a 64 x 32 product (v[4j + e]: column 8j + 2t + (e & 1)
+// of row g (e < 2) or g + 8) as split A fragments of the next product over
+// those 32 columns, in a transposed tile's order (vt_key): position t holds
+// column 2t, position t + 4 column 2t + 1: fragment register r holds
+// accumulator element frag_elem(r).
+__device__ __forceinline__ constexpr int frag_elem(int r) { return r == 1 ? 2 : r == 2 ? 1 : r; }
+
+__device__ __forceinline__ void split_frags(const float (&v)[kF32Step / 2], uint32_t (&fh)[4][4],
+                                            uint32_t (&fl)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) tf32_split(v[4 * kk + frag_elem(r)], fh[kk][r], fl[kk][r]);
+}
+
+// Rows ra and ra + 8 of a 64 x D fp32 accumulator to global, rows at or past
+// `limit` skipped.
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* base, long long ss, int ra, int limit,
+                                              const float (&acc)[D / 2], int t) {
+  const int rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (ra < limit)
+      *reinterpret_cast<float2*>(base + ra * ss + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (rb < limit)
+      *reinterpret_cast<float2*>(base + rb * ss + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Kernel C (kDkv: dK and dV of 128 keys, walking the queries) or kernel D
+// (dQ of 128 queries, walking the keys), fp32, for one (row tile, head,
+// batch). A step reads kTiles tiles of the ring, in the order of its
+// products: C q (S^T), dO^T (dV), dO (dP^T), q^T (dK); D k (S), v (dP),
+// k^T (dQ). C takes dV before dP^T, so that P's fragments and dP^T are
+// never live beside a fresh accumulator.
+template <int D, bool kDkv>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_tf32x3_kernel(const __grid_constant__ F32Maps maps, const Params p) {
+  using L = F32Smem<D>;
+  constexpr int kTiles = kDkv ? 4 : 3;
+  // registers (240 a consumer thread): kernel C holds dK and dV, so it
+  // splits its A fragments 2 k-steps at a time into one buffer and takes dV
+  // and dK 64 columns at a time; kernel D, holding dQ alone, 4 k-steps into
+  // two buffers (split while the products run) and all of D at once. Each
+  // choice is the fastest of those that spill nothing, as compiled and timed
+  // on an H100 (PERF.md).
+  constexpr int kFragKs = kDkv ? 2 : 4, kFragBufs = kDkv ? 1 : 2, kOutN = kDkv ? 64 : D;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  uint64_t* x_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = x_full + 1;
+  uint64_t* empty = full + kF32Slots;
+  float* stats = reinterpret_cast<float*>(smem + L::kStats);  // step n: L at (n % 3) * 64, delta + 32
+
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kF32Rows;
+  const int n_steps = ((kDkv ? p.Sq : p.Sk) + kF32Step - 1) / kF32Step;
+  const int warpgroup = threadIdx.x / 128;
   const long long stat0 = ((long long)b * p.H + h) * p.Sq;
 
-  load_tile_f32<D>(Ks, kbase, p.k_ss, k0, p.Sk);
-  load_tile_f32<D>(Vs, vbase, p.v_ss, k0, p.Sk);
-
-  float dk[2][D / 8], dv[2][D / 8];
+  if (threadIdx.x == 0) {
+    mbar_init(x_full, 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < p.Sq; q0 += kF32Rows) {
-    __syncthreads();
-    load_tile_f32<D>(Qs, qbase, p.q_ss, q0, p.Sq);
-    load_tile_f32<D>(dOs, dobase, p.do_ss, q0, p.Sq);
-    if (tid < kF32Rows) {
-      const bool in = q0 + tid < p.Sq;
-      lse_s[tid] = in ? p.lse[stat0 + q0 + tid] : kRowPad;
-      delta_s[tid] = in ? p.delta[stat0 + q0 + tid] : 0.f;
+    for (int s = 0; s < kF32Slots; ++s) {
+      mbar_init(&full[s], 32);  // the 32 lanes of the producer's warp 0
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[2][4], dp[2][4];
-    dot_2x4<D>(s, Ks, Qs, rg, cg);   // K Q^T
-    dot_2x4<D>(dp, Vs, dOs, rg, cg);  // V dO^T
+  if (warpgroup == 0) {
+    // ---- producer: warp 0 keeps the ring filled (kernel C: with L, delta) ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const bool key_in = k0 + 2 * rg + i < p.Sk;
+        for (int j = 0; j < 2; ++j) {
+          tma_prefetch_desc(&maps.x[j]);
+          tma_prefetch_desc(&maps.nat_hi[j]);
+          tma_prefetch_desc(&maps.nat_lo[j]);
+        }
+        mbar_arrive_expect_tx(x_full, 2 * L::kX);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = cg + 8 * j;
-        const float pv = key_in ? expf(s[i][j] * p.scale - lse_s[qc]) : 0.f;
-        Ps[(2 * rg + i) * (kF32Rows + 1) + qc] = pv;
-        dSs[(2 * rg + i) * (kF32Rows + 1) + qc] = pv * (dp[i][j] - delta_s[qc]) * p.scale;
+        for (int a = 0; a < D / kF32AtomCols; ++a) {
+          tma_load_4d(smem + a * L::kAtom, &maps.x[0], x_full, a * kF32AtomCols, row0, h, b);
+          tma_load_4d(smem + L::kX + a * L::kAtom, &maps.x[1], x_full, a * kF32AtomCols, row0, h, b);
+        }
+      }
+      for (int i = 0; i < n_steps * kTiles; ++i) {
+        const int n = i / kTiles, u = i % kTiles, s = i % kF32Slots;
+        mbar_wait(&empty[s], ((i / kF32Slots) & 1) ^ 1);  // the first round passes at once
+        if (kDkv && u == 0) {
+          // rows past Sq: L = 1e30, so their P is exactly 0
+          float* st = stats + (n % kF32Slots) * 2 * kF32Step;
+          const int q = n * kF32Step + lane;
+          st[lane] = q < p.Sq ? p.lse[stat0 + q] : kRowPad;
+          st[kF32Step + lane] = q < p.Sq ? p.delta[stat0 + q] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], L::kSlot);
+          uint8_t* slot = smem + L::kSlots + s * L::kSlot;
+          // the walked input (job) of a natural tile, the read order of a transposed one
+          const bool natural = kDkv ? u % 2 == 0 : u < 2;
+          const int which = kDkv ? u / 2 : u % 2;
+          if (natural) {
+#pragma unroll
+            for (int a = 0; a < D / kF32AtomCols; ++a) {
+              tma_load_4d(slot + a * L::kNatAtom, &maps.nat_hi[which], &full[s], a * kF32AtomCols,
+                          n * kF32Step, h, b);
+              tma_load_4d(slot + L::kHalf + a * L::kNatAtom, &maps.nat_lo[which], &full[s],
+                          a * kF32AtomCols, n * kF32Step, h, b);
+            }
+          } else {
+            tma_load_4d(slot, &maps.t_hi[which], &full[s], n * kF32Step, 0, h, b);
+            tma_load_4d(slot + L::kHalf, &maps.t_lo[which], &full[s], n * kF32Step, 0, h, b);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
       }
     }
-    __syncthreads();
-    accum_rows<D>(dv, Ps, dOs, rg, cg);  // dV += P^T dO
-    accum_rows<D>(dk, dSs, Qs, rg, cg);  // dK += dS^T Q
-  }
-
-  store_rows_f32<D>(head_ptr_out<float>(p.dk, p.dk_sb, p.dk_sh, b, h), p.dk_ss, k0, p.Sk, dk,
-                    rg, cg);
-  store_rows_f32<D>(head_ptr_out<float>(p.dv, p.dv_sb, p.dv_sh, b, h), p.dv_ss, k0, p.Sk, dv,
-                    rg, cg);
-}
-
-// Kernel D, fp32: dQ for one (b, h, 32-query tile).
-template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                       // [32][D+1]
-  float* dOs = Qs + kF32Rows * (D + 1);   // [32][D+1]
-  float* Ks = dOs + kF32Rows * (D + 1);   // [32][D+1]
-  float* Vs = Ks + kF32Rows * (D + 1);    // [32][D+1]
-  float* dSs = Vs + kF32Rows * (D + 1);   // dS [query][key], [32][33]
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
-  const int q0 = blockIdx.x * kF32Rows;
-  const float* qbase = head_ptr<float>(p.q, p.q_sb, p.q_sh, b, h);
-  const float* kbase = head_ptr<float>(p.k, p.k_sb, p.k_sh, b, h);
-  const float* vbase = head_ptr<float>(p.v, p.v_sb, p.v_sh, b, h);
-  const float* dobase = head_ptr<float>(p.dout, p.do_sb, p.do_sh, b, h);
-  const long long stat0 = ((long long)b * p.H + h) * p.Sq;
-  float lse_r[2], delta_r[2];
+  } else {
+    // ---- consumers: 64 rows of the CTA's tile per warpgroup ----
+    setmaxnreg_inc<240>();
+    const int c = warpgroup - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int r0 = 64 * c + 16 * warp + lane / 4;  // this thread's rows in the tile: r0, r0 + 8
+    const int ra = row0 + r0;
+    // kernel D: L and delta of this thread's two query rows
+    float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+    if constexpr (!kDkv) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + 2 * rg + i;
-    lse_r[i] = row < p.Sq ? p.lse[stat0 + row] : kRowPad;
-    delta_r[i] = row < p.Sq ? p.delta[stat0 + row] : 0.f;
-  }
-
-  load_tile_f32<D>(Qs, qbase, p.q_ss, q0, p.Sq);
-  load_tile_f32<D>(dOs, dobase, p.do_ss, q0, p.Sq);
-
-  float dq[2][D / 8];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) dq[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.Sk; k0 += kF32Rows) {
-    __syncthreads();
-    load_tile_f32<D>(Ks, kbase, p.k_ss, k0, p.Sk);
-    load_tile_f32<D>(Vs, vbase, p.v_ss, k0, p.Sk);
-    __syncthreads();
-
-    float s[2][4], dp[2][4];
-    dot_2x4<D>(s, Qs, Ks, rg, cg);   // Q K^T
-    dot_2x4<D>(dp, dOs, Vs, rg, cg);  // dO V^T
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = cg + 8 * j;
-        const float pv = k0 + kc < p.Sk ? expf(s[i][j] * p.scale - lse_r[i]) : 0.f;
-        dSs[(2 * rg + i) * (kF32Rows + 1) + kc] = pv * (dp[i][j] - delta_r[i]) * p.scale;
+      for (int e = 0; e < 2; ++e) {
+        const int q = ra + 8 * e;
+        lse_r[e] = q < p.Sq ? p.lse[stat0 + q] : kRowPad;
+        delta_r[e] = q < p.Sq ? p.delta[stat0 + q] : 0.f;
       }
-    __syncthreads();
-    accum_rows<D>(dq, dSs, Ks, rg, cg);  // dQ += dS K
-  }
+    }
+    const uint32_t x1 = smem_addr(smem), x2 = x1 + L::kX;
+    const uint32_t ring = x1 + L::kSlots;
 
-  store_rows_f32<D>(head_ptr_out<float>(p.dq, p.dq_sb, p.dq_sh, b, h), p.dq_ss, q0, p.Sq, dq,
-                    rg, cg);
+    float out0[D / 2], out1[kDkv ? D / 2 : 1];  // C: dK, dV; D: dQ
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) out0[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kDkv ? D / 2 : 1); ++i) out1[i] = 0.f;
+
+    mbar_wait(x_full, 0);
+    int i = 0;  // tiles of the ring read so far
+    for (int n = 0; n < n_steps; ++n) {
+      // S^T = K Q^T (C) or S = Q K^T (D)
+      float sc[kF32Step / 2], dp[kF32Step / 2];
+      mbar_wait(&full[i % kF32Slots], (i / kF32Slots) & 1);
+      product_over_d<D, kFragKs, kFragBufs>(sc, x1, r0, t, ring + (i % kF32Slots) * L::kSlot);
+      if (lane == 0) mbar_arrive(&empty[i % kF32Slots]);  // this warp is done with the tile
+      ++i;
+
+      // P = exp(scale S - L): sc[4j + e] is walked row 8j + 2t + (e & 1) of
+      // the thread's row r0 (e < 2) or r0 + 8
+      const float* lse_s = stats + (n % kF32Slots) * 2 * kF32Step;
+      const int col0 = n * kF32Step;
+#pragma unroll
+      for (int j = 0; j < kF32Step / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          if constexpr (kDkv) {
+            sc[4 * j + e] = __expf(sc[4 * j + e] * p.scale - lse_s[col]);
+          } else {  // keys >= Sk are exactly 0
+            sc[4 * j + e] = col0 + col < p.Sk ? __expf(sc[4 * j + e] * p.scale - lse_r[e >> 1]) : 0.f;
+          }
+        }
+      }
+      uint32_t fh[4][4], fl[4][4];
+      split_frags(sc, fh, fl);
+      if constexpr (kDkv) {
+        // dV += P^T dO
+        mbar_wait(&full[i % kF32Slots], (i / kF32Slots) & 1);
+        product_over_step<D, kOutN>(out1, fh, fl, ring + (i % kF32Slots) * L::kSlot);
+        fence_frags(fh);
+        fence_frags(fl);
+        if (lane == 0) mbar_arrive(&empty[i % kF32Slots]);
+        ++i;
+      }
+      // dP^T = V dO^T (C) or dP = dO V^T (D)
+      mbar_wait(&full[i % kF32Slots], (i / kF32Slots) & 1);
+      product_over_d<D, kFragKs, kFragBufs>(dp, x2, r0, t, ring + (i % kF32Slots) * L::kSlot);
+      if (lane == 0) mbar_arrive(&empty[i % kF32Slots]);
+      ++i;
+      // dS = P (dP - delta) scale, P = hi + lo exactly, split in place
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = frag_elem(r);
+          const float pv = __uint_as_float(fh[kk][r]) + __uint_as_float(fl[kk][r]);
+          const float dl = kDkv ? lse_s[kF32Step + 8 * kk + 2 * t + (e & 1)] : delta_r[e >> 1];
+          tf32_split(pv * (dp[4 * kk + e] - dl) * p.scale, fh[kk][r], fl[kk][r]);
+        }
+      }
+      // dK += dS^T Q (C) or dQ += dS K (D)
+      mbar_wait(&full[i % kF32Slots], (i / kF32Slots) & 1);
+      product_over_step<D, kOutN>(out0, fh, fl, ring + (i % kF32Slots) * L::kSlot);
+      fence_frags(fh);
+      fence_frags(fl);
+      if (lane == 0) mbar_arrive(&empty[i % kF32Slots]);
+      ++i;
+    }
+
+    if constexpr (kDkv) {
+      store_acc_f32<D>(head_ptr_out<float>(p.dk, p.dk_sb, p.dk_sh, b, h), p.dk_ss, ra, p.Sk, out0, t);
+      store_acc_f32<D>(head_ptr_out<float>(p.dv, p.dv_sb, p.dv_sh, b, h), p.dv_ss, ra, p.Sk, out1, t);
+    } else {
+      store_acc_f32<D>(head_ptr_out<float>(p.dq, p.dq_sb, p.dq_sh, b, h), p.dq_ss, ra, p.Sq, out0, t);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -751,14 +1079,46 @@ int launch_bf16(Kernel kernel, int D, int smem, bool dkv, const Params& p, cudaS
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t launch_f32(Kernel kernel, int smem, int rows_total, const Params& p,
-                       cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((rows_total + kF32Rows - 1) / kF32Rows, p.H, p.B);
-  kernel<<<grid, kF32Threads, smem, stream>>>(p);
+// The split pre-pass, then kernel C (kDkv) or D on the caller's workspace
+// `ws` (split_args' layout).
+template <int D, bool kDkv>
+int launch_f32(const Params& p, float* ws, cudaStream_t stream) {
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long sq[3] = {p.q_sb, p.q_sh, p.q_ss}, sdo[3] = {p.do_sb, p.do_sh, p.do_ss};
+  const long long sk[3] = {p.k_sb, p.k_sh, p.k_ss}, sv[3] = {p.v_sb, p.v_sh, p.v_ss};
+  const int S = kDkv ? p.Sq : p.Sk, rows = kDkv ? p.Sk : p.Sq;
+  const SplitArgs a = kDkv ? split_args(p.q, sq, p.dout, sdo, ws, p.B, p.H, S, D, 2)
+                           : split_args(p.k, sk, p.v, sv, ws, p.B, p.H, S, D, 1);
+  int err = launch_split<D>(a, stream);
+  if (err != 0) return err;
+  F32Maps m = {};
+  const long long* sx0 = kDkv ? sk : sq;
+  const long long* sx1 = kDkv ? sv : sdo;
+  err = make_tensor_map_f32(&m.x[0], kDkv ? p.k : p.q, D, rows, p.H, p.B, sx0[2], sx0[1], sx0[0],
+                            kF32Rows);
+  if (err == 0)
+    err = make_tensor_map_f32(&m.x[1], kDkv ? p.v : p.dout, D, rows, p.H, p.B, sx1[2], sx1[1],
+                              sx1[0], kF32Rows);
+  const long long ns = D, nh = (long long)S * D, nb = p.H * nh;
+  const long long ts = a.Sp, th = (long long)D * a.Sp, tb = p.H * th;
+  for (int j = 0; j < 2 && err == 0; ++j) {
+    err = make_tensor_map_f32(&m.nat_hi[j], a.job[j].hi, D, S, p.H, p.B, ns, nh, nb, kF32Step);
+    if (err == 0)
+      err = make_tensor_map_f32(&m.nat_lo[j], a.job[j].lo, D, S, p.H, p.B, ns, nh, nb, kF32Step);
+  }
+  // the transposed tiles in the order a step reads them: C dO^T, q^T; D k^T
+  for (int u = 0; u < (kDkv ? 2 : 1) && err == 0; ++u) {
+    const SplitJob& j = a.job[kDkv ? 1 - u : 0];
+    err = make_tensor_map_f32(&m.t_hi[u], j.th, a.Sp, D, p.H, p.B, ts, th, tb, D);
+    if (err == 0) err = make_tensor_map_f32(&m.t_lo[u], j.tl, a.Sp, D, p.H, p.B, ts, th, tb, D);
+  }
+  if (err != 0) return err;
+  constexpr int smem = F32Smem<D>::kAlloc;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_tf32x3_kernel<D, kDkv>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((rows + kF32Rows - 1) / kF32Rows, p.H, p.B);
+  flash_bwd_tf32x3_kernel<D, kDkv><<<grid, kThreads, smem, stream>>>(m, p);
   return cudaGetLastError();
 }
 
@@ -784,14 +1144,17 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 // C entry points, loaded with ctypes. `strides` holds 21 element strides:
 // (batch, head, seq) for q, k, v, dO, dq, dk, dv in that order. dtype:
-// 0 = bf16, 1 = fp32. Each returns 0 on success, else the cudaError_t of its
-// launch, or (bf16) 10000 when no tensor-map encoder was found, or 20000 +
-// the CUresult of a refused tensor map.
+// 0 = bf16, 1 = fp32. `ws`: fp32 only (null for bf16), the caller's
+// workspace for the split pre-pass (split_args' layout): kernel C 4*B*H*Sq*D
+// + 4*B*H*D*Sqp floats, kernel D 4*B*H*Sk*D + 2*B*H*D*Skp, Sqp and Skp
+// rounded up to a multiple of 8. Each returns 0 on success, else the
+// cudaError_t of its launch, or 10000 when no tensor-map encoder was found,
+// or 20000 + the CUresult of a refused tensor map.
 
 // Kernel C: writes dk and dv (dq is not touched and may be null).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, void* dk, void* dv,
-                             const long long* strides, int B, int H, int Sq, int Sk, int D,
+                             float* ws, const long long* strides, int B, int H, int Sq, int Sk, int D,
                              int dtype, float scale, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, strides, B, H, Sq,
                                Sk, scale);
@@ -801,15 +1164,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   if (dtype == 0 && D == 64)
     return launch_bf16(flash_bwd_dkv_bf16_kernel<64>, 64, DkvSmem<64>::kAlloc, true, p, s);
   if (dtype == 1 && D == 128)
-    return launch_f32(flash_bwd_dkv_f32_kernel<128>, f32_smem_bytes<128>(), Sk, p, s);
+    return launch_f32<128, true>(p, ws, s);
   if (dtype == 1 && D == 64)
-    return launch_f32(flash_bwd_dkv_f32_kernel<64>, f32_smem_bytes<64>(), Sk, p, s);
+    return launch_f32<64, true>(p, ws, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Kernel D: writes dq (dk and dv are not touched and may be null).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const float* lse, const float* delta, void* dq,
+                            const float* lse, const float* delta, void* dq, float* ws,
                             const long long* strides, int B, int H, int Sq, int Sk, int D,
                             int dtype, float scale, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, strides, B, H,
@@ -820,8 +1183,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   if (dtype == 0 && D == 64)
     return launch_bf16(flash_bwd_dq_bf16_kernel<64>, 64, DqSmem<64>::kAlloc, false, p, s);
   if (dtype == 1 && D == 128)
-    return launch_f32(flash_bwd_dq_f32_kernel<128>, f32_smem_bytes<128>(), Sq, p, s);
+    return launch_f32<128, false>(p, ws, s);
   if (dtype == 1 && D == 64)
-    return launch_f32(flash_bwd_dq_f32_kernel<64>, f32_smem_bytes<64>(), Sq, p, s);
+    return launch_f32<64, false>(p, ws, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

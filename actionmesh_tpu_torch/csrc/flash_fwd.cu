@@ -59,7 +59,7 @@
 // zero, so every product is three TF32 products:
 //   a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the small terms first),
 // dropping a_lo*b_lo (~2^-22 of the product).
-//   * The split (tf32_split below; ops/flash_attention.py:tf32_split is
+//   * The split (tf32_split in sm90.cuh; ops/flash_attention.py:tf32_split is
 //     the same to the bit): hi = x rounded to nearest TF32 (ties away from
 //     zero) on the bit pattern, lo = x - hi exactly. lo is handed to the
 //     tensor core as it is, which reads its top 19 bits (truncation).
@@ -414,33 +414,6 @@ constexpr int kF32AtomCols = 32;  // fp32 columns of one 128-byte swizzle row
 constexpr int kF32QAtom = kBlockM * 128;  // one Q atom: 128 rows x 32 fp32
 constexpr int kSplitKeys = 32;   // keys per block of the split pre-pass
 constexpr int kSplitThreads = 256;
-
-// The split, defined on the bit pattern (ops/flash_attention.py:tf32_split
-// is the same to the bit): hi = x rounded to TF32 (10 mantissa bits) to
-// nearest, ties away from zero, or truncated where rounding would overflow
-// to inf; lo = x - hi, exact in fp32. inf and NaN give hi = x, lo = 0.
-__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
-  const uint32_t b = __float_as_uint(x);
-  const bool special = (b & 0x7F800000u) == 0x7F800000u;
-  uint32_t h = (b + 0x1000u) & 0xFFFFE000u;
-  if ((h & 0x7F800000u) == 0x7F800000u) h = b & 0xFFFFE000u;
-  hi = special ? x : __uint_as_float(h);
-  lo = special ? 0.f : x - hi;
-}
-
-__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
-  float h, l;
-  tf32_split(x, h, l);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(l);
-}
-
-// Storage position p of a key inside its group of 8 in the V^T workspaces:
-// key (p % 4) * 2 + p / 4, so that the S accumulator's columns (2t, 2t+1)
-// of each 8 are the TF32 A-fragment's columns (t, t+4) of the P V product.
-__device__ __forceinline__ int vt_key(int pos) {
-  return (pos & ~7) | ((pos & 3) << 1) | ((pos >> 2) & 1);
-}
 
 // Workspaces of one call, fp32, contiguous: k_hi and k_lo (B,H,Sk,D), then
 // v^T's hi and lo (B,H,D,Skp) with Skp = Sk rounded up to a multiple of 8.

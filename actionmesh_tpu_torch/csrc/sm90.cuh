@@ -1,7 +1,7 @@
 // sm_90a (Hopper) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor loads and the host-side tensor-map encoder, wgmma shared-memory
-// descriptors and products (bf16, fp16, TF32), setmaxnreg, and bf16/fp16
-// packing. Inline PTX only
+// descriptors and products (bf16, fp16, TF32), setmaxnreg, bf16/fp16
+// packing and the TF32 split of split-precision (3xTF32) products. Inline PTX only
 // (no CUTLASS/CuTe), so a source that includes this header builds in
 // seconds. Compile with -gencode arch=compute_90a,code=sm_90a: wgmma and
 // setmaxnreg exist only for that target.
@@ -351,11 +351,68 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+// ---------------------------------------------------------------------------
+// Split precision (3xTF32): fp32 operands as hi + lo TF32 parts
+// ---------------------------------------------------------------------------
+
+// The split, defined on the bit pattern (ops/flash_attention.py:tf32_split
+// is the same to the bit): hi = x rounded to TF32 (10 mantissa bits) to
+// nearest, ties away from zero, or truncated where rounding would overflow
+// to inf; lo = x - hi, exact in fp32. inf and NaN give hi = x, lo = 0.
+// Kernel A's fp32 path and kernels C and D's fp32 path share it.
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  const uint32_t b = __float_as_uint(x);
+  const bool special = (b & 0x7F800000u) == 0x7F800000u;
+  uint32_t h = (b + 0x1000u) & 0xFFFFE000u;
+  if ((h & 0x7F800000u) == 0x7F800000u) h = b & 0xFFFFE000u;
+  hi = special ? x : __uint_as_float(h);
+  lo = special ? 0.f : x - hi;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  float h, l;
+  tf32_split(x, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
+}
+
+// The split of a finite x whose rounding cannot overflow (|x| below 2^128
+// (1 - 2^-12)), in three operations: the same bits as tf32_split there. An
+// inf or NaN x gives a NaN part (tf32_split's gives hi = x, lo = 0); both
+// make the product's sum inf or NaN. For operands split in registers on
+// every use, where tf32_split's special cases cost most of the time.
+__device__ __forceinline__ void tf32_split_finite(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Storage position p of a row inside its group of 8 in a transposed split
+// workspace (kernel A's v^T, kernel C's q^T and dO^T, kernel D's k^T): row
+// (p % 4) * 2 + p / 4, so that an fp32 accumulator's columns (2t, 2t+1) of
+// each 8 are the TF32 A-fragment's columns (t, t+4) of the next product.
+__device__ __forceinline__ int vt_key(int pos) {
+  return (pos & ~7) | ((pos & 3) << 1) | ((pos >> 2) & 1);
+}
+
 // TF32 products (fp32 bit patterns in, of which the tensor core reads the
 // top 19 bits: sign, exponent, 10 mantissa bits). TF32 operands are K-major
 // only, 8 deep (32 bytes, as 16 bf16). The register A-fragment of m64nNk8
 // is a0 = A[16w + g][t], a1 = A[16w + g + 8][t], a2 = A[16w + g][t + 4],
 // a3 = A[16w + g + 8][t + 4].
+
+// D (64 x 32, fp32) += A (64 x 8, registers) * B (32 x 8, shared, K-major).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 // D (64 x 64, fp32) += A (64 x 8, registers) * B (64 x 8, shared, K-major).
 __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -398,15 +455,17 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// The TF32 products above by output width N (64 or 128), accumulating.
+// The TF32 products above by output width N (32, 64 or 128), accumulating.
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                               uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "wgmma_tf32_rs: N is 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_tf32_rs: N is 32, 64 or 128");
   if constexpr (N == 128) {
     wgmma_m64n128k8_tf32_rs(d, a, desc_b);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_m64n64k8_tf32_rs(d, a, desc_b);
+  } else {
+    wgmma_m64n32k8_tf32_rs(d, a, desc_b);
   }
 }
 

@@ -16,7 +16,11 @@ dV) and D (dQ) replace the two kernels of ``actionmesh_tpu/ops/
 flash_attention_bwd.py:flash_attention_bwd``; their bf16 paths are built the
 same way (C: a CTA owns 128 keys and walks 64-query steps; D: a CTA owns 128
 queries and walks 128-key tiles), deterministic, without atomics; their fp32
-paths are SIMT FMA; they take no fp16. ``flash_attention_trainable`` joins A
+paths are 3xTF32 on TF32 ``wgmma`` as A's (a pre-pass per kernel writes the
+walked inputs, and their transposes, split into a workspace allocated here;
+each CTA owns 128 rows and walks 32-row steps;
+``split_precision_attention_bwd_reference`` is the plain model of that
+arithmetic); they take no fp16. ``flash_attention_trainable`` joins A
 with C and D as that module's ``custom_vjp`` does. Kernel F replaces
 ``actionmesh_tpu/ops/flash_attention.py:flash_attention_fused``; no path of
 either package calls it. See the notes at the top of the CUDA sources for
@@ -27,7 +31,8 @@ kernel or raises. ``flash_attention.launches``,
 ``flash_attention_bwd.dkv_launches``, ``flash_attention_bwd.dq_launches`` and
 ``flash_attention_fused.launches`` count calls that launch their kernels (one
 fp32 call of A launches two device kernels, the split pre-pass and the
-mainloop; one call of F launches its qk-norm pre-pass, then A's).
+mainloop, and one fp32 call of C or D its split pre-pass and its kernel; one
+call of F launches its qk-norm pre-pass, then A's).
 """
 
 from __future__ import annotations
@@ -80,10 +85,11 @@ def _bwd_library():
         from actionmesh_tpu_torch.utils.cuda_build import load_library
 
         lib = load_library("flash_bwd")
-        # q, k, v, dO, lse, delta, then 2 (dk, dv) or 1 (dq) outputs, strides
+        # q, k, v, dO, lse, delta, then 2 (dk, dv) or 1 (dq) outputs, the fp32
+        # split workspace, strides (host int64[21])
         tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + tail
-        lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 10 + tail
+        lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 9 + tail
         lib.flash_bwd_dkv.restype = lib.flash_bwd_dq.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
@@ -312,17 +318,21 @@ def vt_key_order(skp: int) -> torch.Tensor:
     return (pos & ~7) | ((pos & 3) << 1) | ((pos >> 2) & 1)
 
 
+def _split_transposed(x: torch.Tensor):
+    """(hi, lo) of x (B, H, S, D) transposed to (B, H, D, Sp), Sp = S rounded
+    up to a multiple of 8, its rows in ``vt_key_order`` and zero past S: a
+    transposed split workspace tensor as the pre-passes write it."""
+    S = x.shape[2]
+    sp = -(-S // 8) * 8
+    xp = torch.nn.functional.pad(x, (0, 0, 0, sp - S))
+    return tf32_split(xp[:, :, vt_key_order(sp).to(x.device)].transpose(-1, -2).contiguous())
+
+
 def split_kv_reference(k: torch.Tensor, v: torch.Tensor):
     """Plain version of the fp32 path's pre-pass: (k_hi, k_lo, vt_hi, vt_lo)
     as ``split_workspace``'s views hold them after it (keys Sk..Skp-1 of v^T
     zero)."""
-    B, H, Sk, D = k.shape
-    skp = -(-Sk // 8) * 8
-    kh, kl = tf32_split(k.contiguous())
-    vp = torch.nn.functional.pad(v, (0, 0, 0, skp - Sk))
-    vt = vp[:, :, vt_key_order(skp).to(v.device)].transpose(-1, -2).contiguous()
-    vh, vl = tf32_split(vt)
-    return kh, kl, vh, vl
+    return (*tf32_split(k.contiguous()), *_split_transposed(v))
 
 
 def tf32_split_kv(k: torch.Tensor, v: torch.Tensor):
@@ -341,6 +351,68 @@ def tf32_split_kv(k: torch.Tensor, v: torch.Tensor):
     )
     _check_launch("flash_split_kv", err)
     return views
+
+
+# ---------------------------------------------------------------------------
+# Kernels C and D's fp32 path: split precision (3xTF32), as kernel A's. The
+# workspace of their pre-pass, and plain versions of the pre-pass and of the
+# arithmetic for the tests (the main path calls neither).
+# ---------------------------------------------------------------------------
+
+BWD_STEP = 32  # rows of the walked axis a step of kernel C or D reads
+
+
+def bwd_split_workspace(B: int, H: int, S: int, D: int, n_transposed: int, device) -> torch.Tensor:
+    """The fp32 workspace of one launch of kernel C or D, one flat fp32
+    tensor (no views: a launch of a small shape is host-bound, and views
+    cost microseconds each): hi, lo of the two walked inputs (B, H, S, D)
+    each, then hi, lo of the first ``n_transposed`` of them transposed,
+    (B, H, D, Sp) with Sp = S rounded up to a multiple of 8. Kernel C: q and
+    dO, both transposed, S = Sq; kernel D: k (transposed) and v, S = Sk."""
+    sp = -(-S // 8) * 8
+    n = B * H * D * (4 * S + 2 * n_transposed * sp)
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def bwd_split_reference(x0: torch.Tensor, x1: torch.Tensor, n_transposed: int):
+    """Plain version of kernels C and D's pre-pass: the tensors of
+    ``bwd_split_workspace`` in its order, as it leaves them. The transposed
+    tensors hold the rows of each group of 8 in ``vt_key_order`` (the order
+    of an accumulator's columns as A fragments) and zeros for rows S..Sp-1."""
+    out = [*tf32_split(x0.contiguous()), *tf32_split(x1.contiguous())]
+    for x in (x0, x1)[:n_transposed]:
+        out += _split_transposed(x)
+    return tuple(out)
+
+
+def split_precision_attention_bwd_reference(q, k, v, o, m, l, do, scale: Optional[float] = None):
+    """Plain model of kernels C and D's fp32 path, fp32 inputs as
+    ``attention_bwd_reference`` takes them; returns (dq, dk, dv). C walks the
+    queries and D the keys in steps of ``BWD_STEP`` rows; every product is
+    formed from split operands as the kernels form it (``_split_matmul``;
+    the kernels split their resident inputs with tf32_split's finite form,
+    the same bits for finite inputs), and each step's share of dK and dV (C)
+    or dQ (D) is a product of its own (a fresh accumulator on the card)
+    added to the sum in fp32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not all(x.dtype == torch.float32 for x in (q, k, v, o, do)):
+        raise ValueError("split_precision_attention_bwd_reference takes fp32 inputs")
+    lse, delta = bwd_row_stats(o, m, l, do)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, q.shape[2], BWD_STEP):  # kernel C: S^T, dP^T against one step of queries
+        qs = slice(q0, q0 + BWD_STEP)
+        qt, dot = q[:, :, qs], do[:, :, qs]
+        pt = torch.exp(_split_matmul(k, qt.transpose(-1, -2)) * scale - lse[:, :, None, qs])
+        dpt = _split_matmul(v, dot.transpose(-1, -2))
+        dv += _split_matmul(pt, dot)
+        dk += _split_matmul(pt * (dpt - delta[:, :, None, qs]) * scale, qt)
+    for k0 in range(0, k.shape[2], BWD_STEP):  # kernel D: S, dP against one step of keys
+        kt, vt = k[:, :, k0 : k0 + BWD_STEP], v[:, :, k0 : k0 + BWD_STEP]
+        p = torch.exp(_split_matmul(q, kt.transpose(-1, -2)) * scale - lse[..., None])
+        dp = _split_matmul(do, vt.transpose(-1, -2))
+        dq += _split_matmul(p * (dp - delta[..., None]) * scale, kt)
+    return dq, dk, dv
 
 
 def flash_attention_bwd(
@@ -410,12 +482,21 @@ def launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, which=("dkv",
         lse.data_ptr(), delta.data_ptr(),
     )
     lib = _bwd_library()
+    f32 = q.dtype == torch.float32
+    # fp32: each kernel's split workspace, allocated for its launch and
+    # released before the next (kernel C's 4.3 GB, D's 3.2 GB at Stage-I self)
     if "dkv" in which:
-        err = lib.flash_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *common)
+        ws = bwd_split_workspace(B, H, Sq, D, 2, q.device) if f32 else None
+        err = lib.flash_bwd_dkv(
+            *inputs, dk.data_ptr(), dv.data_ptr(), ws.data_ptr() if f32 else None, *common
+        )
         _check_launch("flash_bwd_dkv", err)
         flash_attention_bwd.dkv_launches += 1
+        del ws
     if "dq" in which:
-        _check_launch("flash_bwd_dq", lib.flash_bwd_dq(*inputs, dq.data_ptr(), *common))
+        ws = bwd_split_workspace(B, H, k.shape[2], D, 1, q.device) if f32 else None
+        err = lib.flash_bwd_dq(*inputs, dq.data_ptr(), ws.data_ptr() if f32 else None, *common)
+        _check_launch("flash_bwd_dq", err)
         flash_attention_bwd.dq_launches += 1
 
 

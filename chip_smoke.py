@@ -15,8 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      with nvcc, one process per source, and the native geometry library
      (native/actionmesh_native.cpp) with g++, all in parallel, from this
      checkout, and prints each CUDA kernel's registers and spills as ptxas
-     reports them (kernel A's fp32 kernel and its split pre-pass, kernel E,
-     its yardstick and kernel B's kernels must spill nothing);
+     reports them (kernel A's and kernels C and D's fp32 kernels and their
+     split pre-passes, kernel E, its yardstick and kernel B's kernels must
+     spill nothing);
   3. the inference slice: ActionMeshPipeline at the full widths of the
      default preset (random weights from seed 0) on 16 synthetic RGBA
      frames, Stage 0 the real TripoSG path (DevTripoSG: DINOv2, 100 DiT
@@ -80,11 +81,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      scaled_dot_product_attention on q and k normalised and rotated
      beforehand, and at the Stage-I shape beside the unfused composition
      (kernel B twice, then kernel A);
-  7. the backward kernels C and D at the Stage-I training shapes (on
-     kernel A's stats), timed beside SDPA's forward + backward and SDPA's
-     backward alone (over one retained forward), at a small fp32, a D = 64
-     and two ragged bf16 shapes (a one-row last query tile, a one-key last
-     key tile), two calls bit-equal at the Stage-I cross and a small shape;
+  7. the backward kernels C and D at the Stage-I training shapes in bf16
+     and in fp32 (on kernel A's stats), timed beside SDPA's forward +
+     backward and SDPA's backward alone (over one retained forward), with
+     each kernel's share of its bound, at small D = 128 and D = 64 shapes
+     and ragged edge shapes (a one-row last query tile, a one-key last key
+     tile) in both dtypes, two calls bit-equal at the Stage-I cross and a
+     small shape in both;
      and kernel B's backward kernel at the Stage-I training shapes and
      small edge cases, against ``rms_rope_backward_reference`` and autograd
      of the plain composition, dscale bit-equal across two calls, timed
@@ -108,10 +111,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      backward runs 4 L times a step and the plain backward never on the
      card;
  11. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
-     at the production DenoiserConfig (window 16, batch 2, bf16 compute,
-     EMA, remat, 3 steps on synthetic clips of production size); checks a
-     finite loss, moved params, a checkpoint that restores, and launch
-     counts equal to what the path implies;
+     at the production DenoiserConfig (window 16, batch 2, EMA, remat, on
+     synthetic clips of production size), 3 steps with bf16 compute and 2
+     with the entry point's default fp32 (kernels A, C and D on their fp32
+     paths); checks finite losses, moved params, launch counts equal to
+     what the path implies, and (bf16) a checkpoint that restores; prints
+     each step's forward, backward and update seconds and the peak memory;
  12. small ICP reference: gradient ICP (2 problems x 24 inits, 384 points
      0.3 apart, 50 steps) on the card (kernel E) and on the CPU (plain
      version) agree within 1e-3, the winning inits' correspondences checked
@@ -128,7 +133,7 @@ work of its main-path call: the larger of its bytes (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the peak rate of
 their type, counted from this run's shapes: 989 TFLOP/s for bf16 and fp16 products;
 495 / 3 TFLOP/s for fp32 products (kernel A's and F's fp32 rows, C and D's
-fp32 row), since an fp32-accurate product on the tensor cores is three
+fp32 rows), since an fp32-accurate product on the tensor cores is three
 TF32 products at the data sheet's 495 TFLOP/s; 67 TFLOP/s, the non-tensor
 fp32 rate, for kernel B, which is no matrix product. Kernel E's bound is
 that of the function's work at fp32 accuracy on the tensor cores: the
@@ -140,8 +145,9 @@ the earlier design's 2C fp32 FMA flop a pair at 67 TFLOP/s
 kernels A and F also give ``tflops`` (the products' 4*B*H*Sq*Sk*D
 operations per second), ``bound_share`` (bound_ms / ms) and
 ``vs_library`` (ms / library_ms).
-The line before the last is a JSON object with the per-kernel results; the
-last line is the device JSON.
+The line before the last is a short JSON object, one entry per kernel path
+(``kernel_summary``); the line before it the JSON object with every result;
+the last line is the device JSON.
 """
 
 from __future__ import annotations
@@ -208,6 +214,7 @@ from actionmesh_tpu_torch.ops.flash_attention import (
     split_precision_attention_reference,
     tf32_split_kv,
 )
+from actionmesh_tpu_torch.ops import flash_attention as flash_ops
 from actionmesh_tpu_torch.ops import rope_norm
 from actionmesh_tpu_torch.ops.nn_argmin import (
     kernel_channels,
@@ -251,7 +258,8 @@ N_FRAMES = 16
 # Kernel E's yardstick, the CUDA-core design (csrc/nn_argmin_cuda_core.cu):
 # built and timed here only, beside kernel E; the port never calls it.
 NN_YARDSTICK = "nn_argmin_cuda_core"
-TRAIN_STEPS = 3
+TRAIN_STEPS = 3      # the bf16 train phase's steps
+TRAIN_STEPS_F32 = 2  # the fp32 (the entry point's default dtype) train phase's steps
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"  # git-ignored; removed at the end
 
 
@@ -318,10 +326,12 @@ def phase_build() -> dict:
         log(f"ptxas {name}.cu: " + "; ".join(
             f"{r['kernel']} {r['registers']} registers, spills {r['spill_store_bytes']} B stored / "
             f"{r['spill_load_bytes']} B loaded" for r in rows))
-    # kernel A's fp32 path and its pre-pass, kernel E (and its yardstick) and
-    # kernel B's forward, backward and sums must not spill (a library built
-    # by an earlier run in this checkout leaves no report to read)
+    # kernel A's fp32 path and its pre-pass, kernels C and D's fp32 path and
+    # its pre-pass, kernel E (and its yardstick) and kernel B's forward,
+    # backward and sums must not spill (a library built by an earlier run in
+    # this checkout leaves no report to read)
     no_spill = {"flash_fwd": (("flash_fwd_tf32x3_kernel", "split_kv_kernel"), 4),
+                "flash_bwd": (("flash_bwd_tf32x3_kernel", "split_bwd_kernel"), 6),
                 "nn_argmin": (("nn_argmin_tf32x3_kernel", "pack_y_kernel"), 4),
                 NN_YARDSTICK: (("nn_argmin_cuda_core_kernel",), 2),
                 "rms_rope": (("rms_rope_fwd_kernel", "rms_rope_bwd_kernel", "sum_rows_kernel",
@@ -428,6 +438,8 @@ def flash_cases(n_vertices: int):
         # name, (B, H, Sq, Sk, D), dtype, replaces
         ("stage1_self", (2, 16, 32784, 32784, 128), bf, pipelined),
         ("stage1_cross", (16, 16, 2049, 257, 128), bf, one_block),
+        # the fp32 train step's self-attention (training's default dtype)
+        ("stage1_self_f32", (2, 16, 32784, 32784, 128), f32, pipelined),
         ("dinov2_self", (16, 16, 257, 257, 64), bf, one_block),
         ("stage2_self", (5, 8, 32784, 32784, 128), bf, pipelined),
         ("stage2_vertex_cross", (5, 8, n_vertices, 32784, 128), f32, pipelined),
@@ -621,13 +633,15 @@ def rope_tables(gen, B, S, D, tables):
 
 # Kernel B's forward rows: the main paths' shapes (the first, the kernels
 # line's head, is the shape of most of B's launches on the inference path:
-# Stage 0's DiT self-attention q and k), then an fp32 row with a ragged S,
-# D = 64 and per-batch tables.
+# Stage 0's DiT self-attention q and k; the Stage-I self q/k also in fp32,
+# the fp32 train step's), then an fp32 row with a ragged S, D = 64 and
+# per-batch tables.
 ROPE_CASES = [
     # name, (B, H, S, D), norm, tables (None, 0: (S, D), n: (n, S, D)), dtype
     ("stage0_dit_self_qk", (2, 16, 2049, 128), True, None, torch.bfloat16),
     ("stage0_dit_cross_k", (1, 16, 257, 128), True, None, torch.bfloat16),
     ("stage1_self_qk", (2, 16, 32784, 128), True, 2, torch.bfloat16),
+    ("stage1_self_qk_f32", (2, 16, 32784, 128), True, 2, torch.float32),
     ("stage1_cross_q", (16, 16, 2049, 128), True, None, torch.bfloat16),
     ("stage1_cross_k", (16, 16, 257, 128), True, None, torch.bfloat16),
     ("stage2_self_qk", (5, 8, 32784, 128), False, 0, torch.bfloat16),
@@ -828,26 +842,35 @@ def phase_fused() -> tuple[list, int]:
 
 # Stage-I training shapes of kernels C and D: the inflated self-attention
 # (2 samples x 16 frames x 2049 tokens) and the per-frame cross-attention
-# (32 frames onto 257 DINOv2 tokens), both head dim 128; plus small ragged
-# fp32 and D=64 shapes, so every instantiation runs, and the bf16 tiles'
-# edges: 129 queries leave one row in the last query tile (64 rows in C,
-# 128 in D), 385 keys one key in the last 128-key tile.
+# (32 frames onto 257 DINOv2 tokens), both head dim 128, in bf16 and in
+# fp32 (the default training dtype); plus small ragged D=128 and D=64
+# shapes, so every instantiation runs, and the tiles' edges: 129 queries
+# leave one row in the last query tile (bf16: 64 rows in C, 128 in D; fp32:
+# 32-row steps in C, 128 rows in D), 385 keys one key in the last 128-key
+# tile (bf16 D's step, fp32 C's tile) and in the last 32-key step of fp32 D.
 BWD_CASES = [
     ("stage1_self", (2, 16, 32784, 32784, 128), torch.bfloat16),
     ("stage1_cross", (32, 16, 2049, 257, 128), torch.bfloat16),
+    ("stage1_self_f32", (2, 16, 32784, 32784, 128), torch.float32),
+    ("stage1_cross_f32", (32, 16, 2049, 257, 128), torch.float32),
     ("small_f32", (2, 4, 1000, 1100, 128), torch.float32),
     ("small_d64", (2, 4, 777, 1029, 64), torch.bfloat16),
+    ("small_d64_f32", (2, 4, 777, 1029, 64), torch.float32),
     ("edge_d128", (1, 2, 129, 385, 128), torch.bfloat16),
     ("edge_d64", (1, 2, 129, 385, 64), torch.bfloat16),
+    ("edge_d128_f32", (1, 2, 129, 385, 128), torch.float32),
+    ("edge_d64_f32", (1, 2, 129, 385, 64), torch.float32),
 ]
-BWD_DETERMINISM = ("stage1_cross", "small_d64")
+BWD_DETERMINISM = ("stage1_cross", "small_d64", "stage1_cross_f32", "small_d64_f32")
 
 
-def check_flash_bwd(gen, name, shape, dtype, reps=2) -> dict:
+def check_flash_bwd(gen, name, shape, dtype) -> dict:
     """Kernels C and D against the plain backward (chunked_attention_
     trainable's), from the same q, k, v, o, m, l and dO; for the
     BWD_DETERMINISM shapes a second call must give bit-equal gradients."""
     B, H, Sq, Sk, D = shape
+    f32 = dtype == torch.float32
+    reps = 1 if f32 and B * H * Sq * Sk * D > 1e12 else 2  # a Stage-I self fp32 call is seconds of plain work
     q, do = heads_view(gen, B, Sq, H, D, dtype), heads_view(gen, B, Sq, H, D, dtype)
     k, v = heads_view(gen, B, Sk, H, D, dtype), heads_view(gen, B, Sk, H, D, dtype)
     o, (m, l) = flash_attention(q, k, v, return_stats=True)
@@ -900,12 +923,15 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2) -> dict:
     qb, kb = B * H * Sq * D * size, B * H * Sk * D * size
     bnd_c = bound(6 * work, rate, 2 * qb + 4 * kb)
     bnd_d = bound(4 * work, rate, 3 * qb + 2 * kb)
+    share_c, share_d = bnd_c["bound_ms"] / ms_c, bnd_d["bound_ms"] / ms_d
+    vs_bwd = (ms_c + ms_d) / library_bwd_ms if library_bwd_ms else None
     log(f"flash_bwd {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}: max_abs_err "
         + ", ".join(f"{n} {errs[n]:.3e} (tol {tols[n]:.3e})" for n in errs)
-        + f" | kernel C {ms_c:.3f} ms ({tf_c:.1f} TFLOP/s, bound {bnd_c['bound_ms']:.3f}), "
-        f"kernel D {ms_d:.3f} ms ({tf_d:.1f} TFLOP/s, bound {bnd_d['bound_ms']:.3f}) | plain "
+        + f" | kernel C {ms_c:.3f} ms ({tf_c:.1f} TFLOP/s, bound {bnd_c['bound_ms']:.3f}, "
+        f"{100 * share_c:.1f}%), kernel D {ms_d:.3f} ms ({tf_d:.1f} TFLOP/s, bound "
+        f"{bnd_d['bound_ms']:.3f}, {100 * share_d:.1f}%) | plain "
         f"(dq, dk, dv together) {plain_ms:.3f} ms | sdpa forward + backward {library_ms} ms, "
-        f"backward alone {library_bwd_ms} ms"
+        f"backward alone {library_bwd_ms} ms (C + D {vs_bwd if vs_bwd is None else round(vs_bwd, 3)}x)"
         + ("" if deterministic is None else f" | two calls bit-equal: {deterministic}")
         + ("" if stats_err is None else f" | kernel A's stats {stats_err} (tol {stats_tol})"))
     bad = [n for n in errs if not errs[n] <= tols[n]]
@@ -919,16 +945,19 @@ def check_flash_bwd(gen, name, shape, dtype, reps=2) -> dict:
             "max_abs_err": errs, "tol": tols, "ms_dkv": ms_c, "ms_dq": ms_d,
             "plain_ms": plain_ms, "library_ms": library_ms, "library_bwd_ms": library_bwd_ms,
             "deterministic": deterministic, "forward_stats_err": stats_err, "tflops_dkv": tf_c,
-            "tflops_dq": tf_d, "bound_dkv": bnd_c, "bound_dq": bnd_d}
+            "tflops_dq": tf_d, "bound_dkv": bnd_c, "bound_dq": bnd_d, "bound_share_dkv": share_c,
+            "bound_share_dq": share_d, "vs_library_bwd": vs_bwd}
 
 
 # Kernel B's backward: the Stage-I training shapes (self q/k with per-batch
-# tables, cross q with the norm only), then small edge cases: D = 64 with a
-# ragged S in fp32, the rotation alone, one (S, D) table, fp16 with (cb, S,
-# D) tables; the edge cases also ask for the tables' gradients.
+# tables, in bf16 and fp32; cross q with the norm only), then small edge
+# cases: D = 64 with a ragged S in fp32, the rotation alone, one (S, D)
+# table, fp16 with (cb, S, D) tables; the edge cases also ask for the
+# tables' gradients.
 ROPE_BWD_CASES = [
     # name, (B, H, S, D), norm, tables, dtype, table grads
     ("stage1_self_qk", (2, 16, 32784, 128), True, 2, torch.bfloat16, False),
+    ("stage1_self_qk_f32", (2, 16, 32784, 128), True, 2, torch.float32, False),
     ("stage1_cross_q", (32, 16, 2049, 128), True, None, torch.bfloat16, False),
     ("d64_ragged_f32", (2, 3, 333, 64), True, 2, torch.float32, True),
     ("rope_only", (2, 4, 300, 128), False, 0, torch.bfloat16, True),
@@ -1028,7 +1057,10 @@ def check_rms_rope_bwd(gen, name, shape, norm, tables, dtype, table_grads, reps=
 
 def phase_backward() -> tuple[list, list]:
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    bwd = [check_flash_bwd(gen, n, s, d) for n, s, d in BWD_CASES]
+    bwd = []
+    for n, s, d in BWD_CASES:
+        bwd.append(check_flash_bwd(gen, n, s, d))
+        torch.cuda.empty_cache()
     rope = [check_rms_rope_bwd(gen, *case) for case in ROPE_BWD_CASES]
     torch.cuda.empty_cache()
     return bwd, rope
@@ -1462,20 +1494,27 @@ def read_counters() -> dict:
 
 @contextlib.contextmanager
 def no_plain_backward_on_card():
-    """Fails the run if kernel B's plain backward is handed a CUDA tensor
-    (the autograd.Function must launch the backward kernel there)."""
-    plain = rope_norm.rms_rope_backward_reference
+    """Fails the run if kernel B's or kernels C and D's plain backward is
+    handed a CUDA tensor (the autograd.Functions must launch the backward
+    kernels there)."""
+    plains = ((rope_norm, "rms_rope_backward_reference", "kernel B's"),
+              (flash_ops, "attention_bwd_reference", "kernels C and D's"))
 
-    def guarded(x, *args, **kw):
-        if x.is_cuda:
-            raise AssertionError("kernel B's plain backward was called with a CUDA tensor")
-        return plain(x, *args, **kw)
+    def guard(plain, what):
+        def guarded(x, *args, **kw):
+            if x.is_cuda:
+                raise AssertionError(f"{what} plain backward was called with a CUDA tensor")
+            return plain(x, *args, **kw)
+        return guarded
 
-    rope_norm.rms_rope_backward_reference = guarded
+    saved = [getattr(module, attr) for module, attr, _ in plains]
+    for (module, attr, what), plain in zip(plains, saved):
+        setattr(module, attr, guard(plain, what))
     try:
         yield
     finally:
-        rope_norm.rms_rope_backward_reference = plain
+        for (module, attr, _), plain in zip(plains, saved):
+            setattr(module, attr, plain)
 
 
 def expected_train_launches(cfg: DenoiserConfig, steps: int) -> dict:
@@ -1809,12 +1848,19 @@ def phase_sdf_chunk(fine_query: dict) -> dict:
     return report
 
 
-def phase_train() -> dict:
-    """Full-width Stage-I training through the entry point's code path."""
+def phase_train(compute_dtype: str | None = "bfloat16") -> dict:
+    """Full-width Stage-I training through the entry point's code path:
+    ``--compute-dtype bfloat16`` for TRAIN_STEPS steps, then the written
+    checkpoint is restored and compared; or, with ``compute_dtype`` None,
+    the entry point's default fp32 for TRAIN_STEPS_F32 steps (kernels A, C
+    and D on their fp32 paths, B on fp32 q and k)."""
+    steps = TRAIN_STEPS if compute_dtype else TRAIN_STEPS_F32
+    label = f"train {compute_dtype or 'float32'}"
     shutil.rmtree(OUT_DIR, ignore_errors=True)
     args = train_entry.build_args().parse_args([
         "--synthetic", "--size", "production", "--window", "16", "--batch", "2",
-        "--compute-dtype", "bfloat16", "--steps", str(TRAIN_STEPS), "--warmup", "1",
+        *(["--compute-dtype", compute_dtype] if compute_dtype else []),
+        "--steps", str(steps), "--warmup", "1",
         "--ema-decay", "0.999", "--log-every", "1", "--ckpt-every", "0",
         "--out", str(OUT_DIR), "--no-resume", "--time-phases", "--device", "cuda",
     ])
@@ -1834,16 +1880,16 @@ def phase_train() -> dict:
     recs = [h for h in history if "loss" in h]
     losses = [h["loss"] for h in recs]
     step_s = [h["forward_s"] + h["backward_s"] + h["update_s"] for h in recs]
-    log(f"train: {n_params / 1e9:.3f} B params | {len(recs)} steps, losses {losses} | "
+    log(f"{label}: {n_params / 1e9:.3f} B params | {len(recs)} steps, losses {losses} | "
         + " | ".join(f"step {h['step']}: {t:.2f} s (forward {h['forward_s']:.2f}, backward "
                      f"{h['backward_s']:.2f}, update {h['update_s']:.2f})" for h, t in zip(recs, step_s))
         + f" | peak memory {peak_gib:.2f} GiB | run incl. data, init, checkpoint {run_s:.1f} s")
-    want = expected_train_launches(cfg, TRAIN_STEPS)
-    log(f"train: launches {launches} (expected {want})")
+    want = expected_train_launches(cfg, steps)
+    log(f"{label}: launches {launches} (expected {want})")
     if launches != want:
-        raise AssertionError(f"train launch counts {launches} != {want}")
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train losses {losses}")
+        raise AssertionError(f"{label} launch counts {launches} != {want}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label} losses {losses}")
 
     # every leaf moved from its initial value (lr > 0 from the second step)
     init = init_denoiser(torch.Generator("cuda").manual_seed(loop_cfg.seed), cfg, device=torch.device("cuda"))
@@ -1853,31 +1899,34 @@ def phase_train() -> dict:
     ]
     del init
     still = [n for n, d in moved if not d > 0]
-    log(f"train: {len(moved) - len(still)}/{len(moved)} param leaves moved, "
+    log(f"{label}: {len(moved) - len(still)}/{len(moved)} param leaves moved, "
         f"max change {max(d for _, d in moved):.3e}")
     if still:
-        raise AssertionError(f"params did not move: {still[:5]}")
-
-    ckpt = OUT_DIR / "ckpt_latest.npz"
-    t0 = time.perf_counter()
-    template = tree_map(lambda t: torch.empty_like(t) if isinstance(t, torch.Tensor) else -1, state)
-    restored = restore_train_state(ckpt, template)
-    same = all(
-        torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-        for (_, a), (_, b) in zip(named_leaves(restored), named_leaves(state))
-    )
-    restore_s = time.perf_counter() - t0
-    ckpt_gb = ckpt.stat().st_size / 1e9
-    log(f"train: checkpoint {ckpt_gb:.2f} GB restored in {restore_s:.1f} s, equal to the state: {same}")
-    if not same:
-        raise AssertionError("the restored checkpoint differs from the train state")
-    del template, restored, state
+        raise AssertionError(f"{label}: params did not move: {still[:5]}")
+    out = {"dtype": compute_dtype or "float32", "launches": launches, "losses": losses,
+           "step_seconds": step_s,
+           "phase_seconds": [{k: h[k] for k in ("forward_s", "backward_s", "update_s")} for h in recs],
+           "peak_gib": peak_gib, "params": n_params, "run_seconds": run_s}
+    if compute_dtype is not None:  # the checkpoint round trip, checked once
+        ckpt = OUT_DIR / "ckpt_latest.npz"
+        t0 = time.perf_counter()
+        template = tree_map(lambda t: torch.empty_like(t) if isinstance(t, torch.Tensor) else -1, state)
+        restored = restore_train_state(ckpt, template)
+        same = all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for (_, a), (_, b) in zip(named_leaves(restored), named_leaves(state))
+        )
+        out["restore_seconds"] = time.perf_counter() - t0
+        out["checkpoint_gb"] = ckpt.stat().st_size / 1e9
+        log(f"{label}: checkpoint {out['checkpoint_gb']:.2f} GB restored in "
+            f"{out['restore_seconds']:.1f} s, equal to the state: {same}")
+        if not same:
+            raise AssertionError("the restored checkpoint differs from the train state")
+        del template, restored
+    del state
     shutil.rmtree(OUT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    return {"launches": launches, "losses": losses, "step_seconds": step_s,
-            "phase_seconds": [{k: h[k] for k in ("forward_s", "backward_s", "update_s")} for h in recs],
-            "peak_gib": peak_gib, "params": n_params, "run_seconds": run_s,
-            "checkpoint_gb": ckpt_gb, "restore_seconds": restore_s}
+    return out
 
 
 def phase_actionbench() -> dict:
@@ -2373,6 +2422,58 @@ def phase_video_3d() -> dict:
             "wall_seconds": wall_s, "clip": clip, "uv_kept": uv_kept}
 
 
+SHARE_MAX = 1.05  # bound_ms / ms; above 1 only by the timer's noise
+
+
+def kernel_summary(flash, rope, rope_bwd, bwd, nn, fused) -> dict:
+    """The short kernels line (under 4 KB), printed just before the last
+    line so that the tail of the output always holds it: one entry per
+    kernel path with its head row's shape, ``ms``, ``share`` (bound_ms /
+    ms), ``x_lib`` (ms / the library call's ms; for C and D SDPA's backward
+    alone, which computes both, so the pair's factor is the sum of theirs),
+    and its largest error ``err`` beside its tolerance ``tol``. Kernel B's
+    forward is timed on the device (torch.profiler) at the Stage-I self q/k
+    row, whose 180 MB do not fit in L2 (the DiT rows' back-to-back calls
+    read from L2, under the DRAM-byte bound); its tolerance is per element.
+    Raises when a share is above ``SHARE_MAX``: no kernel beats its bound,
+    so such a share is a mis-timed row or a wrong bound. The long line
+    before it holds every row."""
+
+    def row(rows, name):
+        return next(r for r in rows if r["name"] == name)
+
+    def entry(path, r, ms, bound_ms, library_ms, err, tol):
+        return {"path": path, "shape": r["shape"], "ms": float(f"{ms:.4g}"),
+                "share": float(f"{bound_ms / ms:.3g}"),
+                "x_lib": float(f"{ms / library_ms:.3g}") if library_ms else None,
+                "err": float(f"{err:.3g}"), "tol": tol if isinstance(tol, str) else float(f"{tol:.3g}")}
+
+    out = []
+    for path, name in (("A bf16", "stage1_self"), ("A fp32", "stage1_self_f32"),
+                       ("A fp16", "stage1_self_fp16")):
+        r = row(flash, name)
+        out.append(entry(path, r, r["ms"], r["bound_ms"], r["library_ms"], r["max_abs_err"], r["tol"]))
+    r = row(rope, "stage1_self_qk")
+    out.append(entry("B fwd", r, r["device_ms"], r["bound_ms"], r["library_ms"], r["max_abs_err"],
+                     "1 ulp + 2^-20 max|ref|, per element"))
+    r = row(rope_bwd, "stage1_self_qk")
+    out.append(entry("B bwd", r, r["ms"], r["bound_ms"], r["library_ms"], r["errors"]["dx"], r["tol"]["dx"]))
+    for dtype, name in (("bf16", "stage1_self"), ("fp32", "stage1_self_f32")):
+        r = row(bwd, name)
+        for kernel, key, grads in (("C", "dkv", ("dk", "dv")), ("D", "dq", ("dq",))):
+            out.append(entry(f"{kernel} {dtype}", r, r[f"ms_{key}"], r[f"bound_{key}"]["bound_ms"],
+                             r["library_bwd_ms"], max(r["max_abs_err"][g] for g in grads),
+                             min(r["tol"][g] for g in grads)))
+    r = nn[0]
+    out.append(entry("E", r, r["ms"], r["bound_ms"], r["library_ms"], r["max_abs_err"], r["tol"]))
+    r = fused[0]
+    out.append(entry("F", r, r["ms"], r["bound_ms"], r["library_ms"], r["max_abs_err"], r["tol"]))
+    above = [(e["path"], e["share"]) for e in out if e["share"] > SHARE_MAX]
+    if above:
+        raise AssertionError(f"kernel summary: shares above {SHARE_MAX} of the bound: {above}")
+    return {"kernel_summary": out}
+
+
 def main() -> None:
     logging.basicConfig(level=logging.WARNING)
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
@@ -2394,6 +2495,7 @@ def main() -> None:
     small_ckpt = phase_small_checkpoint()
     small_train = phase_small_train()
     tr = phase_train()
+    tr32 = phase_train(None)
     small_icp = phase_small_icp()
     ab = phase_actionbench()
 
@@ -2406,8 +2508,12 @@ def main() -> None:
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
                 "shape": head["shape"], "shapes": rows}
 
+    def trained(name):  # both train phases, bf16 and fp32
+        return tr["launches"][name] + tr32["launches"][name]
+
     def by_path(name, inference_name):
         return {"inference": sl["launches"][inference_name], "training": tr["launches"][name],
+                "training_fp32": tr32["launches"][name],
                 **{f"cli_{preset}": run["launches"][name] for preset, run in cli_runs.items()
                    if preset in CLI_PRESETS},
                 "cli_checkpoints": ckpt["launches"][name], "video_3d": v3d["launches"][name]}
@@ -2423,10 +2529,9 @@ def main() -> None:
                  "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                  "library_bwd_ms": r["library_bwd_ms"], "deterministic": r["deterministic"],
                  **r[f"bound_{key[0]}"], "tflops": r[f"tflops_{key[0]}"]} for r in bwd]
-        out = summary(name, "actionmesh_tpu_torch/csrc/flash_bwd.cu", replaces, rows,
-                      tr["launches"][name])
+        out = summary(name, "actionmesh_tpu_torch/csrc/flash_bwd.cu", replaces, rows, trained(name))
         out["library_bwd_ms"] = rows[0]["library_bwd_ms"]
-        out["launches_by_path"] = {"training": tr["launches"][name]}
+        out["launches_by_path"] = {"training": tr["launches"][name], "training_fp32": tr32["launches"][name]}
         out["plain_ms_note"] = "the plain backward computes dq, dk and dv together"
         out["library_ms_note"] = ("scaled_dot_product_attention forward plus backward: one call "
                                   "pair for kernels A, C and D together; library_bwd_ms is its "
@@ -2436,10 +2541,10 @@ def main() -> None:
     kernels = [
         summary("flash_fwd", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
                 "actionmesh_tpu/ops/flash_attention.py:302", flash,
-                sl["launches"]["flash_fwd"] + tr["launches"]["flash_fwd"] + cli_launches("flash_fwd")),
+                sl["launches"]["flash_fwd"] + trained("flash_fwd") + cli_launches("flash_fwd")),
         summary("fused_rms_rope", "actionmesh_tpu_torch/csrc/rms_rope.cu",
                 "actionmesh_tpu/ops/rope_norm.py:94", rope,
-                sl["launches"]["rms_rope"] + tr["launches"]["fused_rms_rope"]
+                sl["launches"]["rms_rope"] + trained("fused_rms_rope")
                 + cli_launches("fused_rms_rope")),
         bwd_summary("flash_bwd_dkv", "actionmesh_tpu/ops/flash_attention_bwd.py:261", ("dkv", ("dk", "dv"))),
         bwd_summary("flash_bwd_dq", "actionmesh_tpu/ops/flash_attention_bwd.py:287", ("dq", ("dq",))),
@@ -2447,7 +2552,7 @@ def main() -> None:
                 "actionmesh_tpu/ops/nn_argmin.py:148", nn, ab["launches"]),
         summary("flash_attention_fused", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
                 "actionmesh_tpu/ops/flash_attention.py:492", fused,
-                sl["launches"]["flash_fused"] + tr["launches"]["flash_fused"]),
+                sl["launches"]["flash_fused"] + trained("flash_fused")),
     ]
     kernels[0]["also_replaces"] = "actionmesh_tpu/ops/flash_attention.py:612"
     kernels[0]["launches_by_path"] = by_path("flash_fwd", "flash_fwd")
@@ -2462,9 +2567,10 @@ def main() -> None:
     timed = [r for r in rope_bwd if "ms" in r]
     bwd_b = summary("fused_rms_rope_bwd", "actionmesh_tpu_torch/csrc/rms_rope.cu",
                     "actionmesh_tpu/ops/rope_norm.py:132", timed + [r for r in rope_bwd if "ms" not in r],
-                    tr["launches"]["fused_rms_rope_bwd"])
+                    trained("fused_rms_rope_bwd"))
     bwd_b["library_ms"] = next((r["library_ms"] for r in timed if r["library_ms"] is not None), None)
-    bwd_b["launches_by_path"] = {"training": tr["launches"]["fused_rms_rope_bwd"]}
+    bwd_b["launches_by_path"] = {"training": tr["launches"]["fused_rms_rope_bwd"],
+                                 "training_fp32": tr32["launches"]["fused_rms_rope_bwd"]}
     bwd_b["replaces_note"] = ("the JAX custom VJP's backward (_fused_bwd, the vjp of the plain "
                               "composition); the TPU kernel has no backward of its own")
     bwd_b["library_ms_note"] = ("torch.nn.functional.rms_norm forward + backward at the Stage-I "
@@ -2477,7 +2583,7 @@ def main() -> None:
     kernels[5].update({k: nn[0][k] for k in ("bound_tensor_core_ms", "bound_min_op_ms",
                                              "bound_fp32_fma_ms", "gpairs_per_s")})
     kernels[6]["launches_by_path"] = {"inference": sl["launches"]["flash_fused"],
-                                      "training": tr["launches"]["flash_fused"],
+                                      "training": trained("flash_fused"),
                                       "smoke": fused_launches}
     kernels[6]["unfused_b_b_a_ms"] = fused[0]["unfused_b_b_a_ms"]
     kernels[6]["library_ms_note"] = ("scaled_dot_product_attention on q, k normalised and rotated "
@@ -2490,9 +2596,13 @@ def main() -> None:
                       "small_train_reference": small_train, "small_icp_reference": small_icp,
                       "small_checkpoint": small_ckpt, "checkpoints": ckpt, "video_3d": v3d,
                       "slice": sl, "sdf_chunk": sdf_chunk, "cli": cli_runs, "train": tr,
+                      "train_fp32": tr32,
                       "actionbench": ab,
                       "card": info["nvidia_smi"]}),
           flush=True)
+    # a short line the tool's tail always keeps: the long line above can
+    # fall outside it
+    print(json.dumps(kernel_summary(flash, rope, rope_bwd, bwd, nn, fused)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

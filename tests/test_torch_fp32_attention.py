@@ -1,5 +1,6 @@
-"""Kernel A's fp32 path: the split into TF32 parts and the plain model of its
-split-precision (3xTF32) arithmetic, on the CPU.
+"""Kernel A's and kernels C and D's fp32 paths: the split into TF32 parts, the
+pre-passes' layouts and the plain models of their split-precision (3xTF32)
+arithmetic, on the CPU.
 
 ``tf32_split`` defines the split to the bit (the CUDA pre-pass and the
 kernel's register splits use the same bit operations);
@@ -26,7 +27,10 @@ from actionmesh_tpu_torch.models.triposg.dit import triposg_dit_config
 from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
 from actionmesh_tpu_torch.models.triposg.vae import TripoSGVAEConfig, decode_kv, query_sdf_at_ids
 from actionmesh_tpu_torch.ops.flash_attention import (
+    bwd_split_reference,
+    bwd_split_workspace,
     split_kv_reference,
+    split_precision_attention_bwd_reference,
     split_precision_attention_reference,
     split_workspace,
     tf32_split,
@@ -143,6 +147,68 @@ def test_split_precision_reference_matches_pallas(case):
     ref = np.asarray(ref)
     assert out.dtype == torch.float32 and out.shape == (B, H, Sq, D)
     assert np.abs(out.numpy() - ref).max() <= 2e-5 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# Kernels C and D's fp32 path: the pre-pass and the plain model of the backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_transposed", [1, 2])
+def test_bwd_split_reference_layout(n_transposed):
+    """The plain pre-pass of kernel C (q and dO, both transposed) or D (k
+    transposed, v): both inputs split in place; the transposed ones with the
+    rows of each group of 8 in the order 0,2,4,6,1,3,5,7 (an accumulator's
+    columns as A fragments) and zero rows up to Sp; strided inputs (heads
+    split off a (B, S, H*D) tensor) give the same; the workspace holds
+    exactly those tensors."""
+    rng = np.random.default_rng(2)
+    B, H, S, D = 2, 3, 21, 64
+    x0, x1 = (torch.from_numpy(rng.standard_normal((B, S, H * D)).astype(np.float32))
+              .view(B, S, H, D).transpose(1, 2) for _ in range(2))
+    views = bwd_split_reference(x0, x1, n_transposed)
+    assert len(views) == 4 + 2 * n_transposed
+    assert torch.equal(views[0] + views[1], x0) and torch.equal(views[2] + views[3], x1)
+    dense = bwd_split_reference(x0.contiguous(), x1.contiguous(), n_transposed)
+    assert all(torch.equal(a, b) for a, b in zip(views, dense))
+    sp = 24
+    order = vt_key_order(sp)
+    for j, x in enumerate((x0, x1)[:n_transposed]):
+        hi, lo = views[4 + 2 * j], views[5 + 2 * j]
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+        xt = (hi + lo).transpose(-1, -2)  # (B, H, Sp, D), rows permuted
+        assert torch.equal(xt[:, :, order < S], x[:, :, order[order < S]])
+        assert not xt[:, :, order >= S].any()
+    assert [tuple(t.shape) for t in views] == [(B, H, S, D)] * 4 + [(B, H, D, sp)] * 2 * n_transposed
+    ws = bwd_split_workspace(B, H, S, D, n_transposed, "cpu")
+    assert ws.dtype == torch.float32 and ws.numel() == sum(t.numel() for t in views)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Sk", [(200, 400), (129, 385)])
+def test_split_precision_bwd_reference_matches_jax(Sq, Sk, D):
+    """The plain model of kernels C and D's fp32 arithmetic (32-row steps,
+    split products, each step's share added in fp32) against JAX's flash
+    backward in fp32 from JAX's own o, m, l, within 2e-4 as the card
+    kernels' CPU path is held in tests/test_torch_ops.py: each split
+    product loses ~2^-21 of itself, and the sums run in another order. 129
+    queries and 385 keys leave one row in the last 32-row step and in the
+    last 128-row tile of either kernel."""
+    from actionmesh_tpu.ops.flash_attention_bwd import flash_attention_bwd as jbwd
+
+    rng = np.random.default_rng(11)
+    B, H = 2, 2
+    q, do = rng.standard_normal((2, B, H, Sq, D)).astype(np.float32)
+    k, v = rng.standard_normal((2, B, H, Sk, D)).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    o, (m, l) = jflash_pipelined(jq, jk, jv, return_stats=True, **PIPELINED)
+    ref = jbwd(jq, jk, jv, o, m, l, jdo, block_q=128, block_k=128)
+    out = split_precision_attention_bwd_reference(
+        *(torch.from_numpy(np.array(x)) for x in (jq, jk, jv, o, m, l, jdo))
+    )
+    for a, b, name in zip(out, ref, "qkv"):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=2e-4, err_msg=f"d{name}")
 
 
 # ---------------------------------------------------------------------------
