@@ -7,14 +7,16 @@ preset is the preset it builds on (the YAML file's ``defaults``) plus its own
 values, applied in the same order. Knobs that exist only for the TPU runtime
 (``steps_per_launch``, ``attn_impl``, ``compute_dtype``, ``clear_autocast``)
 are left out; ``tests/test_torch_presets.py`` pins every preset against the
-JAX ``load_config(name)``. A directory of YAML presets (JAX's
-``config_dir``) is not read.
+JAX ``load_config(name)``. ``load_config(config_dir=...)`` reads a directory
+of YAML presets as JAX's does (``defaults`` composed first), with ``yaml``
+imported only there; the TPU runtime knobs in such a file are skipped.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+from pathlib import Path
 from typing import Any, Optional
 
 # preset -> (the preset it builds on, its own values as dotted-path updates)
@@ -158,18 +160,64 @@ def _apply_updates(obj: Any, updates: dict) -> None:
         setattr(target, parts[-1], value)
 
 
+# Keys of the JAX YAML presets that set the TPU runtime only; the port has
+# no such knob, so a preset file's values for them are skipped.
+TPU_RUNTIME_KEYS = {
+    "temporal_3D_denoiser.clear_autocast", "scheduler.steps_per_launch",
+    "compute_dtype", "attn_impl",
+}
+
+
+def _merge_dict_into(obj: Any, data: dict, prefix: str = "") -> None:
+    """Set a YAML mapping's values onto nested dataclasses; an unknown key
+    raises unless it is a TPU runtime knob."""
+    for k, v in data.items():
+        path = f"{prefix}{k}"
+        if path in TPU_RUNTIME_KEYS:
+            continue
+        if not hasattr(obj, k):
+            raise KeyError(f"Unknown config key: {path}")
+        current = getattr(obj, k)
+        if dataclasses.is_dataclass(current) and isinstance(v, dict):
+            _merge_dict_into(current, v, prefix=f"{path}.")
+        else:
+            setattr(obj, k, v)
+
+
+def _load_yaml_preset(config_dir: Path, name: str) -> "PipelineConfig":
+    """``config_dir/<name>.yaml`` over the dataclass defaults, each file's
+    ``defaults`` applied before its own values (JAX ``load_config``)."""
+    import yaml
+
+    cfg = PipelineConfig()
+    # JAX's field default, which its base preset file sets to 6 (the port's
+    # dataclass default is the base preset's value)
+    cfg.stage_0.prefilter_octree_depth = None
+
+    def apply_file(preset: str) -> None:
+        data = yaml.safe_load((config_dir / f"{preset}.yaml").read_text()) or {}
+        for base in data.pop("defaults", []):
+            apply_file(base)
+        _merge_dict_into(cfg, data)
+
+    apply_file(name)
+    return cfg
+
+
 def load_config(
     config_name: str = "actionmesh",
     config_dir: Optional[str] = None,
     updates: Optional[dict] = None,
 ) -> PipelineConfig:
-    """The named preset (with or without ``.yaml``) plus dotted-path overrides."""
-    if config_dir is not None:
-        raise NotImplementedError(
-            "config_dir (a directory of YAML presets) is not ported; the port's "
-            f"presets are {PRESETS}"
-        )
+    """The named preset (with or without ``.yaml``) plus dotted-path
+    overrides: one of ``PRESETS``, or ``config_dir/<name>.yaml`` when
+    ``config_dir`` is given."""
     name = config_name.removesuffix(".yaml")
+    if config_dir is not None:
+        cfg = _load_yaml_preset(Path(config_dir), name)
+        if updates:
+            _apply_updates(cfg, updates)
+        return cfg
     if name not in _PRESET_LAYERS:
         raise ValueError(f"Unknown preset {config_name!r}; the port has {PRESETS}")
     chain = []

@@ -5,8 +5,10 @@ numpy frames instead of PIL images: ``ActionMeshInput``, ``natsorted``,
 ``load_from_image_mask_pairs``, ``load_from_image_dir`` and ``load_frames``'
 dispatch. PNG is decoded by ``io/png.py`` (as PIL's ``convert("RGBA")``
 gives it); a mask of another size than its image is resized as PIL's LANCZOS
-does (``pil_resize``, which also has PIL's BILINEAR, for the RMBG matte). The card's host has no JPEG, WebP or video
-decoder, so those files raise ``NotImplementedError``.
+does (``pil_resize``, which also has PIL's BILINEAR, for the RMBG matte).
+JPEG and WebP frames are decoded by PIL and videos (.mp4, .avi, .mov) by
+OpenCV, as in the JAX package; each is imported only inside the function
+that decodes such a file, so PNG inputs need neither.
 """
 
 from __future__ import annotations
@@ -171,13 +173,14 @@ def _to_luma(rgba: np.ndarray) -> np.ndarray:
 
 
 def _read_rgba(path: Path) -> np.ndarray:
-    """An image file as (H, W, 4) uint8 RGBA; only PNG can be decoded."""
-    if path.suffix.lower() != ".png":
-        raise NotImplementedError(
-            f"{path.name}: decoding {path.suffix} needs a JPEG/WebP decoder (PIL), which the "
-            "port does not use; convert the frames to PNG"
-        )
-    return read_png(path)
+    """An image file as (H, W, 4) uint8 RGBA: PNG by ``io/png.py``, other
+    formats (JPEG, WebP) by PIL's ``convert("RGBA")``, as JAX reads them."""
+    if path.suffix.lower() == ".png":
+        return read_png(path)
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.array(img.convert("RGBA"))
 
 
 def load_from_image_mask_pairs(
@@ -228,11 +231,33 @@ def load_from_image_dir(
 def load_from_video(
     video_path: str | Path, max_frames: Optional[int] = None, stride: int = 1
 ) -> ActionMeshInput:
-    """Not ported: the card's host has no video decoder (cv2, imageio, av)."""
-    raise NotImplementedError(
-        f"{Path(video_path).name}: decoding video needs a video decoder (cv2), which the "
-        "port does not use; extract the frames to PNG files first"
-    )
+    """Every ``stride``-th frame of a video (up to ``max_frames``) as RGBA,
+    decoded by OpenCV (``cv2``) as the JAX ``load_from_video`` does; the
+    alpha is 255 (no mask, so preprocessing mattes the frames)."""
+    import cv2
+
+    video_path = Path(video_path)
+    if not video_path.exists():
+        raise FileNotFoundError(f"Video file not found: {video_path}")
+    cap = cv2.VideoCapture(str(video_path))
+    if not cap.isOpened():
+        raise RuntimeError(f"Failed to open video: {video_path}")
+    frames: list[np.ndarray] = []
+    try:
+        frame_idx = 0
+        while max_frames is None or len(frames) < max_frames:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            if frame_idx % stride == 0:
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGBA))
+            frame_idx += 1
+    finally:
+        cap.release()
+    if not frames:
+        raise ValueError(f"No frames could be read from video: {video_path}")
+    logger.info("Loaded %d frames from video: %s", len(frames), video_path)
+    return ActionMeshInput(frames=frames, timesteps=np.arange(len(frames), dtype=np.float32))
 
 
 def load_frames(

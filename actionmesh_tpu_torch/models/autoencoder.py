@@ -6,6 +6,9 @@ and one final cross-attention block whose queries are frequency-embedded
 mesh vertices (+ normals). The T_out target timesteps are folded into the
 batch axis, so one forward decodes all of them. The query embedder, the
 final cross-attention block and the output head stay fp32, as in JAX.
+For training, ``trainable`` takes every attention with the O(S)-memory
+flash backward and ``remat`` recomputes each self-attention block in the
+backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint`` in JAX).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from actionmesh_tpu_torch.models.layers import (
     Params,
@@ -127,12 +131,20 @@ def autoencoder_forward(
     target_alphas: torch.Tensor,
     query: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    trainable: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Decode latents to per-vertex displacements for every target timestep.
 
     latent (B, T, N, D); framestep (B, T); source_alpha (B,); target_alphas
     (B, T_out) in normalised [0, 1] time; query (B, V, 3|6).
     Returns displacement (B, T_out, V, out_dim) in (-1, 1).
+
+    Training: ``trainable`` routes every attention, the fp32 vertex
+    cross-attention included, through the O(S)-memory flash backward
+    (kernels C and D on the card); ``remat`` recomputes each self-attention
+    block in the backward pass, which runs its kernels a second time.
+    Neither changes the forward's output.
     """
     if target_alphas.ndim != 2 or source_alpha.ndim != 1:
         raise ValueError("target_alphas must be (B, T_out), source_alpha (B,)")
@@ -171,11 +183,18 @@ def autoencoder_forward(
         cos_b = cos.repeat_interleave(T_out, dim=0)
         sin_b = sin.repeat_interleave(T_out, dim=0)
 
-    for block_params in params["blocks"][:-1]:
-        x = flow_matching_block(
-            block_params, x, num_attention_heads=cfg.num_attention_heads,
-            freqs_rot=(cos_b, sin_b), gelu_approx=cfg.gelu_approx,
+    def block(x, cos_b, sin_b, _params):
+        return flow_matching_block(
+            _params, x, num_attention_heads=cfg.num_attention_heads,
+            freqs_rot=(cos_b, sin_b), gelu_approx=cfg.gelu_approx, trainable=trainable,
         )
+
+    for block_params in params["blocks"][:-1]:
+        if remat:
+            x = checkpoint(block, x, cos_b, sin_b, block_params,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(x, cos_b, sin_b, block_params)
 
     # Final cross-attention with vertex queries (fp32 island)
     kv_cache = x.float()
@@ -185,7 +204,7 @@ def autoencoder_forward(
     )
     logits = flow_matching_block(
         params["blocks"][-1], queries_b, num_attention_heads=cfg.num_attention_heads,
-        encoder_hidden_states=kv_cache,
+        encoder_hidden_states=kv_cache, trainable=trainable,
     )
     logits = linear(params["proj_out"], layer_norm(params["norm_out"], logits))
     logits = logits * -1.0  # sign flip (reference temporal_autoencoder.py:160)

@@ -9,7 +9,8 @@ temporary file that is then renamed over the target, so a crash never
 leaves a half-written checkpoint. Restore fills a template state built the
 same way (``init_train_state``) in place, checking names and shapes.
 
-``export_for_inference`` writes ``denoiser.npz`` in the JAX
+``export_for_inference`` writes ``denoiser.npz``, ``autoencoder.npz``,
+``dit.npz`` or ``vae.npz`` (JAX's four stage names) in the JAX
 ``save_params`` layout (``utils/weights.save_npz``), so the JAX package's
 ``load_params`` and the port's ``load_npz`` both read it.
 """
@@ -85,22 +86,35 @@ def _set_path(tree, dotted: str, value) -> None:
     tree[last] = value
 
 
+# stage -> the file the inference loaders read (JAX's names)
+EXPORT_NAMES = {
+    "flow": "denoiser.npz",
+    "decoder": "autoencoder.npz",
+    "stage0_dit": "dit.npz",
+    "stage0_vae": "vae.npz",
+}
+
+
 def export_for_inference(
     state: dict,
     path: str | Path,
     *,
+    stage: str = "flow",
     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
 ) -> Path:
-    """Write the (EMA) params as ``path/denoiser.npz`` for inference:
-    matmul weights cast to ``compute_dtype``, norm leaves left fp32."""
+    """Write the params of ``stage`` as ``path/<EXPORT_NAMES[stage]>`` for
+    inference: the EMA shadow where kept, matmul weights cast to
+    ``compute_dtype``, norm leaves left fp32."""
     from actionmesh_tpu_torch.training.flow_train import cast_params_for_compute
     from actionmesh_tpu_torch.utils.weights import save_npz
 
+    if stage not in EXPORT_NAMES:
+        raise ValueError(f"stage must be one of {sorted(EXPORT_NAMES)}, got {stage!r}")
     params = state.get("ema_params", state["params"])
     if compute_dtype is not None:
         params = cast_params_for_compute(params, compute_dtype)
     out_dir = Path(path)
     out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / "denoiser.npz"
+    out = out_dir / EXPORT_NAMES[stage]
     save_npz(params, out)
     return out

@@ -7,8 +7,11 @@ and ``framestep`` (T_clip,). Training examples are ``window``-frame slices;
 the first ``n_cond_frames`` of each are marked as ground-truth conditioning
 (mask 1).
 
-``split_windows`` gives each view an empty clip cache of its own (the JAX
-version sets the cache to None, which ``_load`` then fails on).
+``DecoderTrackDataset`` and ``decoder_batches`` pair clips with tracked
+vertex surfaces for Stage-II decoder training. ``split_windows`` works on
+both datasets and gives each view an empty cache of its own (the JAX
+version sets the flow dataset's cache to None, which ``_load`` then fails
+on).
 ``DevicePrefetcher`` takes the place of the JAX one: a thread copies each
 batch into pinned host memory and on to the device with ``non_blocking``
 copies on a side stream, overlapping the copy with the running step.
@@ -129,9 +132,10 @@ class ClipWindowDataset:
         return {k: clip[k][sl] for k in ("latents", "context", "framestep")}
 
 
-def split_windows(dataset: ClipWindowDataset, eval_fraction: float = 0.1, seed: int = 0):
-    """Random disjoint (train, eval) split of a window dataset: two views
-    sharing the files, each with an empty clip cache of its own."""
+def split_windows(dataset, eval_fraction: float = 0.1, seed: int = 0):
+    """Random disjoint (train, eval) split of a window dataset
+    (``ClipWindowDataset`` or ``DecoderTrackDataset``): two views sharing
+    the files, each with an empty cache of its own."""
     n = len(dataset)
     n_eval = max(1, int(round(n * eval_fraction)))
     if n_eval >= n:
@@ -190,6 +194,178 @@ def flow_batches(
                 "context": np.stack([it["context"] for it in items]),
                 "framestep": np.stack([it["framestep"] for it in items]).astype(np.float32),
                 "mask": make_mask(),
+            }
+        epoch += 1
+
+
+def synthesize_track_dir(
+    out_dir: str | Path,
+    *,
+    n_clips: int = 4,
+    frames: int = 8,
+    tokens: int = 8,
+    channels: int = 4,
+    vertices: int = 16,
+    seed: int = 0,
+) -> tuple[Path, Path]:
+    """A deterministic synthetic decoder dataset: ``out_dir/clips/{uid}.npz``
+    (smooth low-rank latents; a one-token zero context, which the decoder
+    does not read) and ``out_dir/tracks/{uid}/surfaces.npy``: points drifting
+    smoothly inside (-1, 1) with unit normals. Clip i tracks
+    ``vertices - i * vertices // 8`` points (at least 1), so batches pad to
+    the bucket. Returns (clips dir, tracks dir)."""
+    out = Path(out_dir)
+    clips, tracks = out / "clips", out / "tracks"
+    clips.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, frames, dtype=np.float32)
+    for i in range(n_clips):
+        uid = f"clip_{i:04d}"
+        base = rng.normal(size=(tokens, channels)).astype(np.float32)
+        drift = rng.normal(size=(tokens, channels)).astype(np.float32)
+        latents = base[None] * np.cos(2 * np.pi * t)[:, None, None] + drift[None] * t[:, None, None]
+        write_clip(clips / f"{uid}.npz", latents, np.zeros((frames, 1, 1), np.float32),
+                   np.arange(frames, dtype=np.float32))
+        V = max(1, vertices - i * vertices // 8)
+        points = rng.uniform(-0.7, 0.7, (V, 3)).astype(np.float32)
+        motion = rng.normal(size=(V, 3)).astype(np.float32) * 0.1
+        positions = np.tanh(points[None] + motion[None] * np.sin(np.pi * t)[:, None, None])
+        normals = rng.normal(size=(V, 3)).astype(np.float32)
+        normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+        (tracks / uid).mkdir(parents=True, exist_ok=True)
+        surfaces = np.concatenate([positions, np.broadcast_to(normals, positions.shape)], axis=-1)
+        np.save(tracks / uid / "surfaces.npy", surfaces.astype(np.float32))
+    return clips, tracks
+
+
+class DecoderTrackDataset:
+    """Stage-I clips paired with tracked ground-truth surfaces, for Stage-II
+    decoder training.
+
+    ``clips_dir/{uid}.npz`` (the clip format above; only ``latents`` and
+    ``framestep`` are read) and ``tracks_dir/{uid}/surfaces.npy``, (T, V, 6)
+    positions + normals per tracked vertex (the ActionBench ground-truth
+    layout), positions in the decoder's (-1, 1). Only uids present in both
+    directories index; their frame counts must match.
+    """
+
+    def __init__(self, clips_dir: str | Path, tracks_dir: str | Path, window: int, stride: int = 1):
+        if window < 2:
+            raise ValueError(f"window={window} must be >= 2 (anchor + targets)")
+        self.window = window
+        clips_dir, tracks_dir = Path(clips_dir), Path(tracks_dir)
+        clip_uids = {p.stem for p in clips_dir.glob("*.npz")}
+        track_uids = {p.parent.name for p in tracks_dir.glob("*/surfaces.npy")}
+        uids = sorted(clip_uids & track_uids)
+        if not uids:
+            raise FileNotFoundError(
+                f"no shared uids between {clips_dir} (*.npz: {len(clip_uids)}) "
+                f"and {tracks_dir} (*/surfaces.npy: {len(track_uids)})"
+            )
+        self._windows: list[tuple[Path, Path, int]] = []
+        self.skipped_clips = 0
+        for uid in uids:
+            clip_path = clips_dir / f"{uid}.npz"
+            track_path = tracks_dir / uid / "surfaces.npy"
+            with np.load(clip_path) as z:
+                frames = z["latents"].shape[0]
+            surf_frames = np.load(track_path, mmap_mode="r").shape[0]
+            if surf_frames != frames:
+                raise ValueError(
+                    f"{uid}: clip has {frames} frames but surfaces.npy has {surf_frames}"
+                )
+            if frames < window:
+                self.skipped_clips += 1
+                continue
+            for start in range(0, frames - window + 1, stride):
+                self._windows.append((clip_path, track_path, start))
+        if not self._windows:
+            raise ValueError(f"no paired clip has >= {window} frames")
+        # the last clip read (windows of one clip are contiguous)
+        self._cache: "OrderedDict[Path, tuple]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._windows)
+
+    def _load(self, clip_path: Path, track_path: Path) -> tuple:
+        hit = self._cache.get(clip_path)
+        if hit is None:
+            with np.load(clip_path) as z:
+                clip = {k: z[k] for k in ("latents", "framestep")}
+            hit = (clip, np.load(track_path))
+            self._cache.clear()
+            self._cache[clip_path] = hit
+        return hit
+
+    def __getitem__(self, idx: int) -> dict:
+        clip_path, track_path, start = self._windows[idx]
+        clip, surfaces = self._load(clip_path, track_path)
+        sl = slice(start, start + self.window)
+        return {
+            "latents": clip["latents"][sl],
+            "framestep": clip["framestep"][sl],
+            "surfaces": surfaces[sl],  # (window, V, 6)
+        }
+
+
+def decoder_batches(
+    dataset: DecoderTrackDataset,
+    batch_size: int,
+    *,
+    vertex_bucket: int = 4096,
+    seed: int = 0,
+    epochs: Optional[int] = None,
+) -> Iterator[dict]:
+    """Shuffled numpy batches in the ``training/decoder_train.decoder_loss``
+    layout, forever (or for ``epochs`` passes).
+
+    Each window trains "deform the first frame's surface to the later
+    frames": ``query`` is frame 0's (V, 6) points + normals, ``positions``
+    frames 1..T-1's tracked positions; alphas normalise the window's
+    framesteps to [0, 1] as Stage-II inference does. V pads to
+    ``vertex_bucket`` with mask-0 rows. A sample with more vertices than
+    the bucket, or positions outside [-1, 1], raises.
+    """
+    if len(dataset) < batch_size:
+        raise ValueError(f"dataset has {len(dataset)} windows < batch_size {batch_size}")
+    rng = np.random.default_rng(seed)
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(len(dataset))
+        for lo in range(0, len(order) - batch_size + 1, batch_size):
+            items = [dataset[int(i)] for i in order[lo : lo + batch_size]]
+            queries, positions, masks = [], [], []
+            for it in items:
+                surf = np.asarray(it["surfaces"], np.float32)
+                V = surf.shape[1]
+                if V > vertex_bucket:
+                    raise ValueError(f"sample has {V} vertices > vertex_bucket {vertex_bucket}")
+                pos = surf[1:, :, :3]
+                if np.abs(pos).max() > 1.0:
+                    raise ValueError(
+                        "tracked positions exceed the decoder's (-1, 1) output range "
+                        f"(max |x| = {np.abs(pos).max():.3f}): normalize the tracks first"
+                    )
+                pad = vertex_bucket - V
+                queries.append(np.concatenate([surf[0], np.zeros((pad, 6), np.float32)]))
+                positions.append(
+                    np.concatenate([pos, np.zeros((pos.shape[0], pad, 3), np.float32)], axis=1)
+                )
+                mask = np.zeros((vertex_bucket,), np.float32)
+                mask[:V] = 1.0
+                masks.append(mask)
+            framestep = np.stack([it["framestep"] for it in items]).astype(np.float32)
+            t_min = framestep.min(axis=1, keepdims=True)
+            t_range = framestep.max(axis=1, keepdims=True) - t_min
+            alphas = (framestep - t_min) / np.maximum(t_range, 1e-6)
+            yield {
+                "latents": np.stack([it["latents"] for it in items]),
+                "framestep": framestep,
+                "source_alpha": alphas[:, 0],
+                "target_alphas": alphas[:, 1:],
+                "query": np.stack(queries),
+                "positions": np.stack(positions),
+                "vertex_mask": np.stack(masks),
             }
         epoch += 1
 

@@ -38,10 +38,10 @@ def sample_flow_sigma(gen: torch.Generator, batch: int, shift: float = 3.0) -> t
     return shift * u / (1.0 + (shift - 1.0) * u)
 
 
-def draw_flow_noise(gen: torch.Generator, latent_shape, p_uncond: float) -> dict:
+def draw_flow_noise(gen: torch.Generator, latent_shape, p_uncond: float, shift: float = 3.0) -> dict:
     """sigma (B,), noise (B,T,N,C) and the context-drop flags (B,), on the CPU."""
     B = latent_shape[0]
-    sigma = sample_flow_sigma(gen, B)
+    sigma = sample_flow_sigma(gen, B, shift)
     noise = torch.randn(tuple(latent_shape), generator=gen, dtype=torch.float32)
     drop = torch.rand(B, generator=gen) < p_uncond
     return {"sigma": sigma, "noise": noise, "drop": drop}
@@ -120,12 +120,14 @@ def flow_matching_loss(
     gen: torch.Generator,
     *,
     p_uncond: float = 0.1,
+    shift: float = 3.0,
     **kwargs,
 ) -> torch.Tensor:
-    """``flow_matching_loss_from_draws`` with sigma, noise and the context
-    drop drawn from the CPU generator ``gen``."""
+    """``flow_matching_loss_from_draws`` with sigma (of the ``shift``
+    schedule), noise and the context drop drawn from the CPU generator
+    ``gen``."""
     device = batch["latents"].device
-    draws = draw_flow_noise(gen, batch["latents"].shape, p_uncond)
+    draws = draw_flow_noise(gen, batch["latents"].shape, p_uncond, shift)
     return flow_matching_loss_from_draws(
         params, cfg, batch,
         draws["sigma"].to(device), draws["noise"].to(device),
@@ -145,22 +147,24 @@ def init_train_state(params, optimizer, ema_decay: Optional[float] = None) -> di
     return state
 
 
-def make_train_step(
-    cfg: DenoiserConfig,
+def make_step(
+    loss_fn,
     optimizer,
     *,
-    p_uncond: float = 0.1,
-    compute_dtype: Optional[torch.dtype] = None,
+    prepare=None,
     ema_decay: Optional[float] = None,
     time_phases: bool = False,
 ):
-    """The train step: ``(state, batch, gen) -> (state, loss)``.
+    """The train step of every stage: ``(state, batch, gen) -> (state, loss)``.
 
-    Loss (with remat) and gradients of the fp32 masters, then the optimizer
-    and the EMA update the state in place (JAX donates the state; here the
-    buffers are reused). ``time_phases`` synchronises the device around the forward,
-    the backward and the update and leaves their host-clock seconds in
-    ``step.last_timing``.
+    ``loss_fn(params, batch, aux)`` is the loss of the fp32 masters, with
+    ``aux = prepare(batch, gen)`` computed without gradients where
+    ``prepare`` is given (a teacher's targets), else ``aux = gen``. Then
+    the gradients, the optimizer and the EMA update the state in place (JAX
+    donates the state; here the buffers are reused). ``time_phases``
+    synchronises the device around each phase and leaves their host-clock
+    seconds in ``step.last_timing`` (``teacher_s`` for ``prepare``,
+    ``forward_s``, ``backward_s``, ``update_s``).
     """
 
     def clock(device) -> float:
@@ -171,10 +175,15 @@ def make_train_step(
     def step(state: dict, batch: dict, gen: torch.Generator):
         params = leaves(state["params"])
         device = params[0].device
+        timing = {}
         t0 = clock(device)
-        loss = flow_matching_loss(
-            state["params"], cfg, batch, gen, p_uncond=p_uncond, compute_dtype=compute_dtype,
-        )
+        aux = gen
+        if prepare is not None:
+            with torch.no_grad():
+                aux = prepare(batch, gen)
+            t_prepared = clock(device)
+            timing["teacher_s"], t0 = t_prepared - t0, t_prepared
+        loss = loss_fn(state["params"], batch, aux)
         t1 = clock(device)
         grads = torch.autograd.grad(loss, params)
         t2 = clock(device)
@@ -186,8 +195,30 @@ def make_train_step(
         state["step"] += 1
         t3 = clock(device)
         if time_phases:
-            step.last_timing = {"forward_s": t1 - t0, "backward_s": t2 - t1, "update_s": t3 - t2}
+            step.last_timing = {**timing, "forward_s": t1 - t0, "backward_s": t2 - t1, "update_s": t3 - t2}
         return state, loss.detach()
 
     step.last_timing = None
     return step
+
+
+def make_train_step(
+    cfg: DenoiserConfig,
+    optimizer,
+    *,
+    p_uncond: float = 0.1,
+    shift: float = 3.0,
+    compute_dtype: Optional[torch.dtype] = None,
+    ema_decay: Optional[float] = None,
+    time_phases: bool = False,
+):
+    """The Stage-I train step (``make_step``): the rectified-flow loss with
+    remat of the fp32 masters, cast for compute to ``compute_dtype``, then
+    clip, AdamW and the EMA."""
+
+    def loss_fn(params, batch, gen):
+        return flow_matching_loss(
+            params, cfg, batch, gen, p_uncond=p_uncond, shift=shift, compute_dtype=compute_dtype,
+        )
+
+    return make_step(loss_fn, optimizer, ema_decay=ema_decay, time_phases=time_phases)

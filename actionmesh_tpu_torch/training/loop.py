@@ -1,14 +1,16 @@
 """Training loop: optimizer schedule, step loop, logging, checkpoints.
 
-Counterpart of ``actionmesh_tpu/training/loop.py`` for the Stage-I flow
-stage: ``TrainLoopConfig``, ``make_optimizer`` (``training/optim.py``), the
-shared ``_run_loop`` and ``run_flow_training``. Same contract: a JSONL log
-(``log.jsonl``) with ``stage_steps_per_s``, a checkpoint every
-``ckpt_every`` steps and at the end (``ckpt_latest.npz``), resume from it,
-held-out eval on the EMA weights with no context dropout, and a profiler
-trace over ``profile_steps`` (``torch.profiler`` in place of
-``jax.profiler``). Losses are fetched from the device only at log
-boundaries. Decoder, VAE and distillation training are not ported yet
+Counterpart of ``actionmesh_tpu/training/loop.py``: ``TrainLoopConfig``,
+``make_optimizer`` (``training/optim.py``), the shared ``_run_loop`` and the
+three stages ``run_flow_training`` (Stage I, or the Stage-0 DiT),
+``run_decoder_training`` (Stage II) and ``run_distillation``. Same
+contract: a JSONL log (``log.jsonl``) with ``stage_steps_per_s``, a
+checkpoint every ``ckpt_every`` steps and at the end (``ckpt_latest.npz``),
+resume from it, held-out eval (``keep_best_eval`` also keeps
+``ckpt_best.npz`` and ``ckpt_best_{metric}.npz`` with their record in
+``best_eval.json``), and a profiler trace over ``profile_steps``
+(``torch.profiler`` in place of ``jax.profiler``). Losses are fetched from
+the device only at log boundaries. VAE training is not ported yet
 (ROADMAP Queue 1).
 """
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -24,39 +27,49 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from actionmesh_tpu_torch.models.autoencoder import AutoencoderConfig, init_autoencoder
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
 from actionmesh_tpu_torch.training.checkpoint import restore_train_state, save_train_state
 from actionmesh_tpu_torch.training.data import DevicePrefetcher, to_device
 from actionmesh_tpu_torch.training.flow_train import (
+    cast_params_for_compute,
     flow_matching_loss,
     init_train_state,
     make_train_step,
 )
 from actionmesh_tpu_torch.training.optim import AdamW, warmup_cosine_decay_schedule
+from actionmesh_tpu_torch.utils.tree import tree_map
 
 logger = logging.getLogger(__name__)
-
-FINAL_LR_RATIO = 0.1  # the cosine decays peak_lr -> peak_lr * ratio
 
 
 @dataclass(frozen=True)
 class TrainLoopConfig:
-    """Hyperparameters of the outer loop (the architecture is the
-    DenoiserConfig passed alongside)."""
+    """Hyperparameters of the outer loop (the architecture is the model
+    config passed alongside)."""
 
     total_steps: int = 1000  # micro-steps (batches consumed), see grad_accum
     peak_lr: float = 1e-4
     warmup_steps: int = 100
+    final_lr_ratio: float = 0.1  # the cosine decays peak_lr -> peak_lr * ratio
     clip_norm: float = 1.0
     weight_decay: float = 0.01
     grad_accum: int = 1  # optimizer updates every grad_accum micro-steps
-    ema_decay: Optional[float] = 0.999  # per optimizer update
-    p_uncond: float = 0.1  # CFG context dropout
+    ema_decay: Optional[float] = 0.999  # per optimizer update (flow, distill)
+    p_uncond: float = 0.1  # CFG context dropout (flow stage only)
+    shift: float = 3.0  # sigma-schedule shift (flow and distill)
     compute_dtype: Optional[str] = None  # None = fp32; "bfloat16"
     seed: int = 0
     log_every: int = 10
     ckpt_every: int = 500
     eval_every: int = 0  # 0 = no held-out evaluation
+    # also keep ckpt_best.npz, the state at the lowest held-out best_metric
+    keep_best_eval: bool = False
+    # the eval record's key that selects ckpt_best.npz (the decoder's
+    # chamfer eval adds eval_cd, eval_motion and eval_score)
+    best_metric: str = "eval_loss"
+    # and ckpt_best_{key}.npz for each of these keys
+    track_best_metrics: tuple = ()
     out_dir: str = "train_out"
     resume: bool = True
     profile_steps: Optional[tuple[int, int]] = None  # [start, end) micro-steps, to out_dir/profile
@@ -82,7 +95,7 @@ def make_optimizer(cfg: TrainLoopConfig) -> AdamW:
         peak_value=cfg.peak_lr,
         warmup_steps=min(cfg.warmup_steps, max(0, updates - 1)),
         decay_steps=updates,
-        end_value=cfg.peak_lr * FINAL_LR_RATIO,
+        end_value=cfg.peak_lr * cfg.final_lr_ratio,
     )
     return AdamW(schedule, cfg.clip_norm, cfg.weight_decay, grad_accum=cfg.grad_accum)
 
@@ -114,9 +127,10 @@ def _run_loop(
     device: torch.device,
     *,
     on_log: Optional[Callable[[dict], None]] = None,
-    eval_fn: Optional[Callable[[dict], float]] = None,
+    eval_fn: Optional[Callable[[dict], "float | dict"]] = None,
 ) -> tuple[dict, list[dict]]:
-    """Prefetch, step, log JSONL, checkpoint; resumes from ``state['step']``."""
+    """Prefetch, step, log JSONL, checkpoint; resumes from ``state['step']``.
+    ``eval_fn(state)`` gives the eval loss or a dict of eval metrics."""
     out_dir = Path(cfg.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     log_path = out_dir / "log.jsonl"
@@ -146,6 +160,15 @@ def _run_loop(
         t0 = time.perf_counter()
 
     last_eval = -1
+    # the best eval values persist across a resume, so that a first
+    # post-resume eval does not overwrite a better ckpt_best.npz
+    best_path = out_dir / "best_eval.json"
+    best_eval: dict[str, float] = {}
+    if cfg.resume and best_path.exists():
+        try:
+            best_eval = {k: float(v) for k, v in json.loads(best_path.read_text()).items()}
+        except (ValueError, OSError):
+            logger.warning("could not parse %s; best-eval tracking resets", best_path)
 
     def run_eval(step: int) -> None:
         nonlocal last_eval
@@ -153,7 +176,22 @@ def _run_loop(
             return
         last_eval = step
         flush()
-        write({"step": step, "eval_loss": eval_fn(state)})
+        res = eval_fn(state)
+        rec = {"step": step, **(res if isinstance(res, dict) else {"eval_loss": res})}
+        if cfg.keep_best_eval:
+            selectors = [(cfg.best_metric, "ckpt_best.npz")] + [
+                (k, f"ckpt_best_{k}.npz") for k in cfg.track_best_metrics if k != cfg.best_metric
+            ]
+            for key, name in selectors:
+                if key in rec and rec[key] < best_eval.get(key, float("inf")):
+                    best_eval[key] = rec[key]
+                    save_train_state(state, out_dir / name)
+                    tmp = out_dir / ".best_eval.json"
+                    tmp.write_text(json.dumps(best_eval))
+                    os.replace(tmp, best_path)
+                    if key == cfg.best_metric:
+                        rec["best"] = True
+        write(rec)
 
     profiler = None
     try:
@@ -200,6 +238,26 @@ def _stop_profiler(profiler, out_dir: Path, device) -> None:
     profiler.export_chrome_trace(str(trace_dir / "trace.json"))
 
 
+def _train_device(device, who: str) -> torch.device:
+    """The given device, else the card; raises where there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: CUDA is not available (use --device cpu)")
+        device = torch.device("cuda")
+    return torch.device(device)
+
+
+def _initial_state(params, optimizer, cfg: TrainLoopConfig, ema_decay: Optional[float]) -> dict:
+    """A fresh train state of ``params``, or ``out_dir/ckpt_latest.npz``
+    restored into it when resuming."""
+    state = init_train_state(params, optimizer, ema_decay=ema_decay)
+    ckpt = Path(cfg.out_dir) / "ckpt_latest.npz"
+    if cfg.resume and ckpt.exists():
+        state = restore_train_state(ckpt, state)
+        logger.info("resumed from %s at step %d", ckpt, state["step"])
+    return state
+
+
 def run_flow_training(
     model_cfg: DenoiserConfig,
     batches: Iterator[dict],
@@ -221,24 +279,17 @@ def run_flow_training(
     ``device`` says otherwise, and raises where there is none. Returns
     (final state, log).
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("run_flow_training: CUDA is not available (use --device cpu)")
-        device = torch.device("cuda")
-    device = torch.device(device)
+    device = _train_device(device, "run_flow_training")
     if params is None:
         params = init_denoiser(torch.Generator(device).manual_seed(cfg.seed), model_cfg, device=device)
     optimizer = make_optimizer(cfg)
-    state = init_train_state(params, optimizer, ema_decay=cfg.ema_decay)
+    state = _initial_state(params, optimizer, cfg, cfg.ema_decay)
     del params
-    ckpt = Path(cfg.out_dir) / "ckpt_latest.npz"
-    if cfg.resume and ckpt.exists():
-        state = restore_train_state(ckpt, state)
-        logger.info("resumed from %s at step %d", ckpt, state["step"])
     step_fn = make_train_step(
         model_cfg,
         optimizer,
         p_uncond=cfg.p_uncond,
+        shift=cfg.shift,
         compute_dtype=compute_dtype(cfg),
         ema_decay=loop_ema_decay(cfg),
         time_phases=cfg.time_phases,
@@ -254,9 +305,131 @@ def run_flow_training(
             losses = [
                 flow_matching_loss(
                     eval_params, model_cfg, b, step_generator(cfg.seed + 1, i),
-                    p_uncond=0.0, remat=False,
+                    p_uncond=0.0, shift=cfg.shift, remat=False,
                     compute_dtype=compute_dtype(cfg),
                 )
+                for i, b in enumerate(held_out)
+            ]
+            return float(sum(float(l) for l in losses) / len(losses))
+
+    return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)
+
+
+def run_decoder_training(
+    model_cfg: AutoencoderConfig,
+    batches: Iterator[dict],
+    cfg: TrainLoopConfig,
+    *,
+    device: Optional[torch.device] = None,
+    params=None,
+    on_log: Optional[Callable[[dict], None]] = None,
+    eval_batches: Optional[list[dict]] = None,
+    eval_chamfer: bool = False,
+) -> tuple[dict, list[dict]]:
+    """Train the Stage-II decoder with the masked position MSE (the loop
+    contract of ``run_flow_training``; batches in the
+    ``training/decoder_train.decoder_loss`` layout; no EMA).
+
+    ``eval_chamfer`` adds the chamfer-proxy metrics to every held-out eval
+    record: ``eval_cd``, ``eval_motion`` and their sum ``eval_score`` (CD
+    and CD-M weigh equally on the reference's leaderboard); with
+    ``cfg.best_metric="eval_score"`` they select ``ckpt_best.npz``. Runs on
+    the card unless ``device`` says otherwise, and raises where there is
+    none.
+    """
+    from actionmesh_tpu_torch.training.decoder_train import (
+        decoder_eval_metrics,
+        make_decoder_train_step,
+    )
+
+    device = _train_device(device, "run_decoder_training")
+    if params is None:
+        params = init_autoencoder(torch.Generator(device).manual_seed(cfg.seed), model_cfg, device=device)
+    optimizer = make_optimizer(cfg)
+    state = _initial_state(params, optimizer, cfg, None)
+    del params
+    step_fn = make_decoder_train_step(
+        model_cfg, optimizer, compute_dtype=compute_dtype(cfg), time_phases=cfg.time_phases,
+    )
+
+    eval_fn = None
+    if eval_batches:
+        held_out = [to_device(b, device) for b in eval_batches]
+
+        def eval_fn(current: dict) -> dict:
+            per_batch = [
+                decoder_eval_metrics(current["params"], model_cfg, b,
+                                     compute_dtype=compute_dtype(cfg), with_chamfer=eval_chamfer)
+                for b in held_out
+            ]
+            out = {k: sum(m[k] for m in per_batch) / len(per_batch) for k in per_batch[0]}
+            if eval_chamfer:
+                out["eval_score"] = out["eval_cd"] + out["eval_motion"]
+            return out
+
+    return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)
+
+
+def run_distillation(
+    model_cfg: DenoiserConfig,
+    teacher_params,
+    batches: Iterator[dict],
+    cfg: TrainLoopConfig,
+    *,
+    mode: str = "guidance",
+    guidance_scale: float = 7.5,
+    num_teacher_steps: int = 30,
+    teacher_guidance_scale: Optional[float] = None,
+    device: Optional[torch.device] = None,
+    student_params=None,
+    on_log: Optional[Callable[[dict], None]] = None,
+    eval_batches: Optional[list[dict]] = None,
+) -> tuple[dict, list[dict]]:
+    """Distill a Stage-I (or Stage-0 DiT) teacher into a cheaper student
+    (``training/distill.py``).
+
+    ``mode`` "guidance" regresses the teacher's CFG-guided velocity into one
+    conditional forward; "progressive" halves an even ``num_teacher_steps``.
+    The student starts from the teacher (the warm start) unless
+    ``student_params`` is given, and keeps an EMA (``loop_ema_decay``).
+    ``eval_batches`` reports the same loss on held-out batches with fixed
+    draws. The loop contract is ``run_flow_training``'s; runs on the card
+    unless ``device`` says otherwise, and raises where there is none.
+    """
+    from actionmesh_tpu_torch.training.distill import (
+        distill_targets_fn,
+        make_distill_step,
+        student_loss,
+    )
+
+    device = _train_device(device, "run_distillation")
+    teacher_params = tree_map(lambda p: p.detach().to(device), teacher_params)
+    optimizer = make_optimizer(cfg)
+    state = _initial_state(
+        teacher_params if student_params is None else student_params, optimizer, cfg, cfg.ema_decay,
+    )
+    del student_params
+    # the teacher cast for compute once; the step's own cast of it is then a no-op
+    if compute_dtype(cfg) is not None:
+        teacher_params = cast_params_for_compute(teacher_params, compute_dtype(cfg))
+    kw = dict(mode=mode, guidance_scale=guidance_scale, num_teacher_steps=num_teacher_steps,
+              teacher_guidance_scale=teacher_guidance_scale, shift=cfg.shift)
+    step_fn = make_distill_step(
+        model_cfg, optimizer, teacher_params, compute_dtype=compute_dtype(cfg),
+        ema_decay=loop_ema_decay(cfg), time_phases=cfg.time_phases, **kw,
+    )
+
+    eval_fn = None
+    if eval_batches:
+        held_out = [to_device(b, device) for b in eval_batches]
+        targets = distill_targets_fn(model_cfg, teacher_params, **kw)
+
+        @torch.no_grad()
+        def eval_fn(current: dict) -> float:
+            eval_params = current.get("ema_params", current["params"])
+            losses = [
+                student_loss(eval_params, model_cfg, b, targets(b, step_generator(cfg.seed + 1, i)),
+                             remat=False, compute_dtype=compute_dtype(cfg))
                 for i, b in enumerate(held_out)
             ]
             return float(sum(float(l) for l in losses) / len(losses))

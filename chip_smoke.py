@@ -48,7 +48,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      video-to-4D CLI with ``--weights_dir`` on it at full width and --turbo
      on the 16 frames as RGB PNGs without alpha, so RMBG mattes them at
      1024^2: launch counts as the path implies, alpha on the object, each
-     phase's seconds (preprocess with RMBG included);
+     phase's seconds (preprocess with RMBG included); then the same clip
+     from the 16 frames as a video that OpenCV writes (mp4v .mp4, or MJPG
+     .avi where this OpenCV has no mp4 encoder), decoded by the CLI's
+     loader, checked the same way;
  4c. the {video + 3D} CLI (``video_and_3d_to_animated_mesh``) at full width
      on the 16 frame pairs and a textured .glb (TEXCOORD_0, a PNG texture),
      Stage I at the turbo preset's 4 steps: output faces equal the input's,
@@ -63,6 +66,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      forward rows also its device time from torch.profiler),
      the plain version and, where one PyTorch call computes the same
      function, that call (``library_ms``; the port never calls it); kernel
+     A and B's forward also at the fp32 Stage-II decoder training shapes
+     (self over 16,392 tokens and the vertex cross, 14 folded targets; B's
+     rotation alone with 14 tables) and B at the DiT's fp32 q/k; kernel
      A also with a kv_mask (ragged Sk, one batch entry with every key
      masked), with its stats (m, l) held against the plain version's, and
      at D = 64 with ragged Sq and Sk; every bf16 row again in fp16 (the
@@ -82,14 +88,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      beforehand, and at the Stage-I shape beside the unfused composition
      (kernel B twice, then kernel A);
   7. the backward kernels C and D at the Stage-I training shapes in bf16
-     and in fp32 (on kernel A's stats), timed beside SDPA's forward +
+     and in fp32 (on kernel A's stats), at the Stage-II decoder's training
+     shapes in fp32 and the Stage-0 DiT's in fp32 and bf16, timed beside SDPA's forward +
      backward and SDPA's backward alone (over one retained forward), with
      each kernel's share of its bound, at small D = 128 and D = 64 shapes
      and ragged edge shapes (a one-row last query tile, a one-key last key
      tile) in both dtypes, two calls bit-equal at the Stage-I cross and a
      small shape in both;
-     and kernel B's backward kernel at the Stage-I training shapes and
-     small edge cases, against ``rms_rope_backward_reference`` and autograd
+     and kernel B's backward kernel at the Stage-I training shapes, the
+     decoder's rotation alone (14 tables, fp32), the DiT's norm alone (fp32,
+     bf16) and small edge cases, against ``rms_rope_backward_reference`` and autograd
      of the plain composition, dscale bit-equal across two calls, timed
      alone and with the forward, beside rms_norm's forward + backward;
   8. kernel E at the evaluator's shape and small shapes (C = 1 to 8, ragged
@@ -117,6 +125,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      paths); checks finite losses, moved params, launch counts equal to
      what the path implies, and (bf16) a checkpoint that restores; prints
      each step's forward, backward and update seconds and the peak memory;
+     then the other trainers at full width, each checked for finite
+     losses, moved params and launch counts as its path implies: Stage-II
+     decoder training (``run_decoder_training``, production
+     AutoencoderConfig, fp32, window 8, batch 2, bucket 4096, synthetic
+     clips + tracks through DecoderTrackDataset and decoder_batches, 2
+     steps and one held-out eval with the chamfer metrics, an
+     autoencoder.npz export that reloads); distillation (``train.py
+     --stage distill``, production DenoiserConfig, window 16, batch 2,
+     bf16, a random teacher) in guidance and progressive mode (30 teacher
+     steps), 2 steps each, timed as teacher and student, the teacher's
+     inference launches of A and B counted; and ``--model stage0`` (the
+     production TripoSG DiT, fp32, 2 steps, a dit.npz export that reloads);
  12. small ICP reference: gradient ICP (2 problems x 24 inits, 384 points
      0.3 apart, 50 steps) on the card (kernel E) and on the CPU (plain
      version) agree within 1e-3, the winning inits' correspondences checked
@@ -182,7 +202,7 @@ from actionmesh_tpu_torch.inference import video_and_3d_to_animated_mesh as cli3
 from actionmesh_tpu_torch.inference import video_to_animated_mesh as cli
 from actionmesh_tpu_torch.io.mesh import Mesh, load_glb, save_textured_glb
 from actionmesh_tpu_torch.io.png import read_png, write_png
-from actionmesh_tpu_torch.io.video_input import ActionMeshInput, pil_resize
+from actionmesh_tpu_torch.io.video_input import ActionMeshInput, load_frames, pil_resize
 from actionmesh_tpu_torch.render import visualizer
 from actionmesh_tpu_torch.render.utils import write_gif
 from actionmesh_tpu_torch.models.dinov2 import DinoV2Config, init_dinov2
@@ -451,6 +471,11 @@ def flash_cases(n_vertices: int):
         # 16,384 surface points, then its self-attention blocks
         ("vae_encoder_cross", (1, 8, 2048, 16384, 64), bf, one_block),
         ("vae_encoder_self", (1, 8, 2048, 2048, 64), bf, one_block),
+        # Stage-II decoder training at its defaults (window 8, batch 2, the
+        # bucket of 4096 vertices; 14 folded targets): the self-attention
+        # over 8 x 2048 + 8 = 16,392 tokens and the vertex cross, fp32
+        ("stage2_train_self_f32", (14, 8, 16392, 16392, 128), f32, pipelined),
+        ("stage2_train_cross_f32", (14, 8, 4096, 16392, 128), f32, pipelined),
     ]
 
 
@@ -647,6 +672,10 @@ ROPE_CASES = [
     ("stage2_self_qk", (5, 8, 32784, 128), False, 0, torch.bfloat16),
     ("ragged_f32_d64", (2, 4, 1001, 64), True, 2, torch.float32),
     ("stage0_dit_self_qk_fp16", (2, 16, 2049, 128), True, None, torch.float16),
+    # the fp32 trainers' new forms: the decoder's rotation alone with one
+    # table per folded target (14), the Stage-0 DiT's norm alone
+    ("stage2_train_qk_f32", (14, 8, 16392, 128), False, 14, torch.float32),
+    ("stage0_dit_self_qk_f32", (2, 16, 2049, 128), True, None, torch.float32),
 ]
 ROPE_PROFILE_CALLS = 20  # back-to-back calls a row in the profiler session
 
@@ -860,6 +889,16 @@ BWD_CASES = [
     ("edge_d64", (1, 2, 129, 385, 64), torch.bfloat16),
     ("edge_d128_f32", (1, 2, 129, 385, 128), torch.float32),
     ("edge_d64_f32", (1, 2, 129, 385, 64), torch.float32),
+    # Stage-II decoder training (fp32, its default): self over 16,392 tokens
+    # (the last 128-key tile holds 8 keys) and the vertex cross; the Stage-0
+    # DiT's training shapes, self and cross onto 257 DINOv2 tokens, in fp32
+    # (--model stage0's default) and bf16
+    ("stage2_train_self_f32", (14, 8, 16392, 16392, 128), torch.float32),
+    ("stage2_train_cross_f32", (14, 8, 4096, 16392, 128), torch.float32),
+    ("dit_self_f32", (2, 16, 2049, 2049, 128), torch.float32),
+    ("dit_cross_f32", (2, 16, 2049, 257, 128), torch.float32),
+    ("dit_self", (2, 16, 2049, 2049, 128), torch.bfloat16),
+    ("dit_cross", (2, 16, 2049, 257, 128), torch.bfloat16),
 ]
 BWD_DETERMINISM = ("stage1_cross", "small_d64", "stage1_cross_f32", "small_d64_f32")
 
@@ -963,7 +1002,15 @@ ROPE_BWD_CASES = [
     ("rope_only", (2, 4, 300, 128), False, 0, torch.bfloat16, True),
     ("shared_table", (3, 4, 257, 128), True, 0, torch.bfloat16, True),
     ("tables_fp16_d64", (2, 2, 129, 64), True, 2, torch.float16, True),
+    # the decoder's rotation alone (no scale, no dscale) with 14 per-target
+    # tables, and the Stage-0 DiT's norm alone, in fp32 and bf16
+    ("stage2_train_qk_rot_f32", (14, 8, 16392, 128), False, 14, torch.float32, False),
+    ("dit_qk_norm_f32", (2, 16, 2049, 128), True, None, torch.float32, False),
+    ("dit_qk_norm", (2, 16, 2049, 128), True, None, torch.bfloat16, False),
 ]
+# the rows timed (the training paths' shapes); the edge cases are checks only
+ROPE_BWD_TIMED = ("stage1_self_qk", "stage1_self_qk_f32", "stage1_cross_q", "stage2_train_qk_rot_f32",
+                  "dit_qk_norm_f32", "dit_qk_norm")
 
 
 def check_rms_rope_bwd(gen, name, shape, norm, tables, dtype, table_grads, reps=3) -> dict:
@@ -1014,12 +1061,13 @@ def check_rms_rope_bwd(gen, name, shape, norm, tables, dtype, table_grads, reps=
     line = (f"rms_rope backward {name} {shape} {row['dtype']} norm={norm} tables={tables}: max_abs_err "
             + ", ".join(f"{n} {errs[n]:.3e} (tol {tols[n]:.3e})" for n in errs)
             + f" | two calls bit-equal {deterministic}")
-    if name.startswith("stage1"):
+    if name in ROPE_BWD_TIMED:
         xs = x.detach().requires_grad_()
-        ss = scale.detach().requires_grad_()
+        ss = None if scale is None else scale.detach().requires_grad_()
+        wrt_fb = (xs,) if ss is None else (xs, ss)
 
         def fwd_bwd(fn):
-            return torch.autograd.grad(fn(xs, ss, cos, sin), (xs, ss), g)
+            return torch.autograd.grad(fn(xs, ss, cos, sin), wrt_fb, g)
 
         # runs of ~5 ms: a forward + backward through autograd is ~0.1 ms of
         # host work a call, which a run of one call would time
@@ -1028,15 +1076,18 @@ def check_rms_rope_bwd(gen, name, shape, norm, tables, dtype, table_grads, reps=
         plain_ms = cuda_ms(lambda: rms_rope_backward_reference(x, scale, cos, sin, g, eps, False), reps, 5.0)
         plain_fb_ms = cuda_ms(lambda: fwd_bwd(rms_rope_reference), reps, 5.0)
         library_ms = None
-        if tables is None:  # rms_norm's forward + backward computes the same
+        if norm and tables is None:  # rms_norm's forward + backward computes the same
             with warnings.catch_warnings():
                 warnings.filterwarnings("ignore", "Mismatch dtype between input and weight")
                 library_ms = cuda_ms(
                     lambda: fwd_bwd(lambda a, w, c, s_: torch.nn.functional.rms_norm(a, (D,), w, eps=eps)),
                     reps, 5.0)
         # backward: x and g read, dx written, the scale and tables read and
-        # dscale written; forward + backward adds x read and y written
+        # dscale written (the rotation alone is linear: its dx needs g and
+        # the tables, not x); forward + backward adds x read and y written
         nbytes = rope_bytes(x, scale, cos, sin, scale) + g.numel() * g.element_size()
+        if not norm:
+            nbytes -= x.numel() * x.element_size()
         bnd = bound(30 * x.numel(), FP32_FLOPS, nbytes)
         bnd_fb = bound(40 * x.numel(), FP32_FLOPS, nbytes + rope_bytes(x, scale, cos, sin))
         row.update(ms=ms, plain_ms=plain_ms, fwd_bwd_ms=ms_fb, plain_fwd_bwd_ms=plain_fb_ms,
@@ -1929,6 +1980,240 @@ def phase_train(compute_dtype: str | None = "bfloat16") -> dict:
     return out
 
 
+# Stage-II decoder training at the JAX CLI's defaults: window 8 (7 targets),
+# batch 2, the bucket of 4096 vertices, fp32; 4 synthetic clips of 10 frames
+# with 4096, 3584, 3072 and 2560 tracked vertices, a quarter of the windows
+# held out for one eval with the chamfer metrics.
+DECODER_STEPS = 2
+DECODER_WINDOW, DECODER_BATCH, DECODER_BUCKET = 8, 2, 4096
+
+
+def expected_decoder_launches(cfg: AutoencoderConfig, steps: int, evals: int) -> dict:
+    """Kernel launches of ``steps`` decoder train steps and ``evals`` eval
+    forwards. A step: each self block runs A once and B twice (q and k,
+    rotation only) in the forward and again under remat, C, D and B's
+    backward (twice) once; the final vertex cross-attention A, C and D once
+    (no norm, no rotation, not rematerialised). An eval forward: A once a
+    block, B twice a self block."""
+    L = cfg.num_layers
+    return dict(zip(COUNTERS, (steps * (2 * L + 1) + evals * (L + 1), steps * 4 * L + evals * 2 * L,
+                               steps * (L + 1), steps * (L + 1), 0, steps * 2 * L)))
+
+
+def train_summary(label: str, history: list, peak_gib: float, run_s: float) -> tuple[list, list, list]:
+    """Log each step's phase seconds; returns (losses, per-step seconds,
+    per-step phase seconds)."""
+    recs = [h for h in history if "loss" in h]
+    losses = [h["loss"] for h in recs]
+    phases = [{k: h[k] for k in ("teacher_s", "forward_s", "backward_s", "update_s") if k in h} for h in recs]
+    step_s = [sum(ph.values()) for ph in phases]
+    log(f"{label}: {len(recs)} steps, losses {losses} | "
+        + " | ".join(f"step {h['step']}: {t:.2f} s (" + ", ".join(f"{k[:-2]} {v:.2f}" for k, v in ph.items())
+                     + ")" for h, t, ph in zip(recs, step_s, phases))
+        + f" | peak memory {peak_gib:.2f} GiB | run incl. data, init, checkpoint {run_s:.1f} s")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label} losses {losses}")
+    return losses, step_s, phases
+
+
+def check_moved(label: str, params, init) -> None:
+    moved = [(name, (p.detach() - p0).abs().max().item())
+             for (name, p), p0 in zip(named_leaves(params), leaves(init))]
+    still = [n for n, d in moved if not d > 0]
+    log(f"{label}: {len(moved) - len(still)}/{len(moved)} param leaves moved, "
+        f"max change {max(d for _, d in moved):.3e}")
+    if still:
+        raise AssertionError(f"{label}: params did not move: {still[:5]}")
+
+
+def phase_train_decoder() -> dict:
+    """Stage-II decoder training at the production AutoencoderConfig on the
+    default fp32 compute, DECODER_STEPS steps on synthetic clips + tracks
+    through DecoderTrackDataset, split_windows and decoder_batches, then one
+    held-out eval with the chamfer metrics (``run_decoder_training`` with
+    ``eval_chamfer``, keeping ckpt_best.npz by eval_score); checks finite
+    losses and metrics, moved params, the launch counts, and an
+    autoencoder.npz export that reloads."""
+    from actionmesh_tpu_torch.models.autoencoder import init_autoencoder
+    from actionmesh_tpu_torch.training import decoder_train
+    from actionmesh_tpu_torch.training.checkpoint import export_for_inference
+    from actionmesh_tpu_torch.training.data import (
+        DecoderTrackDataset,
+        decoder_batches,
+        split_windows,
+        synthesize_track_dir,
+    )
+    from actionmesh_tpu_torch.training.loop import run_decoder_training
+    from actionmesh_tpu_torch.utils.weights import load_npz
+
+    label = "train decoder float32"
+    work = OUT_DIR / "decoder"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = AutoencoderConfig()
+    t0 = time.perf_counter()
+    clips, tracks = synthesize_track_dir(work / "data", n_clips=4, frames=10, tokens=2048,
+                                         channels=cfg.latent_channels, vertices=DECODER_BUCKET)
+    dataset = DecoderTrackDataset(clips, tracks, window=DECODER_WINDOW)
+    train_ds, eval_ds = split_windows(dataset, 0.25, seed=0)
+    eval_set = list(decoder_batches(eval_ds, DECODER_BATCH, vertex_bucket=DECODER_BUCKET, seed=0, epochs=1))[:1]
+    data_s = time.perf_counter() - t0
+    loop_cfg = TrainLoopConfig(total_steps=DECODER_STEPS, warmup_steps=1, log_every=1, ckpt_every=0,
+                               eval_every=DECODER_STEPS, keep_best_eval=True, best_metric="eval_score",
+                               out_dir=str(work / "run"), resume=False, time_phases=True)
+    eval_s = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    with no_plain_backward_on_card(), recording(decoder_train, "decoder_eval_metrics", timed_on_card(eval_s)):
+        state, history = run_decoder_training(
+            cfg, decoder_batches(train_ds, DECODER_BATCH, vertex_bucket=DECODER_BUCKET, seed=0), loop_cfg,
+            device=torch.device("cuda"), eval_batches=eval_set, eval_chamfer=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counters()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses, step_s, phases = train_summary(label, history, peak_gib, run_s)
+    evals = [h for h in history if "eval_loss" in h]
+    want = expected_decoder_launches(cfg, DECODER_STEPS, len(evals))
+    log(f"{label}: {len(train_ds)} train / {len(eval_ds)} held-out windows of {DECODER_WINDOW} frames "
+        f"(data {data_s:.1f} s) | eval {evals} in {sum(eval_s):.2f} s | launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches} != {want}")
+    if len(losses) != DECODER_STEPS or len(evals) != 1 or not all(
+            math.isfinite(evals[0][k]) for k in ("eval_loss", "eval_cd", "eval_motion", "eval_score")):
+        raise AssertionError(f"{label}: losses {losses}, evals {evals}")
+    if not (work / "run" / "ckpt_best.npz").exists():
+        raise AssertionError(f"{label}: no ckpt_best.npz")
+    init = init_autoencoder(torch.Generator("cuda").manual_seed(loop_cfg.seed), cfg, device=torch.device("cuda"))
+    check_moved(label, state["params"], init)
+    del init
+    path = export_for_inference(state, work / "export", stage="decoder")
+    reloaded = load_npz(path, device=torch.device("cuda"))
+    exported = named_leaves(reloaded)
+    same = [(n, a.dtype, a.shape) for n, a in exported] == [
+        (n, a.dtype, a.shape) for n, a in named_leaves(decoder_train.cast_params_for_compute(
+            state["params"], torch.bfloat16))]
+    log(f"{label}: exported {path.name} ({path.stat().st_size / 1e9:.2f} GB), reloaded with the "
+        f"params' names, dtypes and shapes: {same}")
+    if not (path.name == "autoencoder.npz" and same):
+        raise AssertionError(f"{label}: the export does not reload as the params")
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    del state, reloaded
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", "params": n_params, "launches": launches, "expected_launches": want,
+            "losses": losses, "step_seconds": step_s, "phase_seconds": phases, "eval": evals[0],
+            "eval_seconds": eval_s, "peak_gib": peak_gib, "run_seconds": run_s, "data_seconds": data_s,
+            "shape": {"window": DECODER_WINDOW, "batch": DECODER_BATCH, "bucket": DECODER_BUCKET}}
+
+
+def expected_distill_launches(cfg: DenoiserConfig, mode: str, steps: int) -> dict:
+    """The student's train-step launches (``expected_train_launches``) plus
+    the teacher's inference forwards: a guided teacher call (the CFG pair,
+    the unconditional branch's cross-attention skipped) and an unguided one
+    each launch A twice and B 4 times a block; guidance takes one guided
+    call a step, progressive two unguided ones."""
+    L = cfg.num_layers
+    teacher_calls = 1 if mode == "guidance" else 2
+    out = expected_train_launches(cfg, steps)
+    out["flash_fwd"] += teacher_calls * 2 * L * steps
+    out["fused_rms_rope"] += teacher_calls * 4 * L * steps
+    return out
+
+
+def run_train_entry(flags: list[str], steps: int) -> tuple:
+    """``python -m actionmesh_tpu_torch.train`` at production size on the
+    card through its code path (the checkpoint under OUT_DIR), with the
+    plain backwards barred; returns (state, history, loop config, launches,
+    peak GiB, seconds)."""
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    args = train_entry.build_args().parse_args([
+        "--synthetic", "--size", "production", "--steps", str(steps), "--warmup", "1",
+        "--log-every", "1", "--ckpt-every", "0", "--out", str(OUT_DIR), "--no-resume",
+        "--time-phases", "--device", "cuda", *flags,
+    ])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    with no_plain_backward_on_card():
+        state, history, loop_cfg = train_entry.run(args)
+    torch.cuda.synchronize()
+    return state, history, loop_cfg, read_counters(), torch.cuda.max_memory_allocated() / 2**30, \
+        time.perf_counter() - t0
+
+
+DISTILL_STEPS = 2
+
+
+def phase_distill(mode: str) -> dict:
+    """Distillation (``--stage distill --distill-mode MODE``) at the
+    production DenoiserConfig, window 16, batch 2, bf16 compute, from a
+    random teacher (progressive: --teacher-steps 30): DISTILL_STEPS steps,
+    each timed as the teacher's targets and the student's forward, backward
+    and update; finite losses, a student moved off the teacher, launch
+    counts with the teacher's inference launches of A and B."""
+    label = f"distill {mode} bfloat16"
+    state, history, loop_cfg, launches, peak_gib, run_s = run_train_entry([
+        "--stage", "distill", "--distill-mode", mode, "--teacher-steps", "30",
+        "--window", "16", "--batch", "2", "--compute-dtype", "bfloat16", "--ema-decay", "0.999",
+    ], DISTILL_STEPS)
+    cfg = train_entry.flow_model_config("production")
+    losses, step_s, phases = train_summary(label, history, peak_gib, run_s)
+    want = expected_distill_launches(cfg, mode, DISTILL_STEPS)
+    log(f"{label}: launches {launches} (expected {want})")
+    if launches != want or len(losses) != DISTILL_STEPS:
+        raise AssertionError(f"{label}: launch counts {launches} != {want} or losses {losses}")
+    teacher = init_denoiser(torch.Generator("cuda").manual_seed(loop_cfg.seed + 7), cfg, device=torch.device("cuda"))
+    check_moved(label, state["params"], teacher)
+    del teacher, state
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"mode": mode, "dtype": "bfloat16", "launches": launches, "expected_launches": want,
+            "losses": losses, "step_seconds": step_s, "phase_seconds": phases, "peak_gib": peak_gib,
+            "run_seconds": run_s}
+
+
+STAGE0_STEPS = 2
+
+
+def phase_train_stage0() -> dict:
+    """``--model stage0 --stage flow``: the Stage-0 TripoSG DiT at the
+    production triposg_dit_config on single-frame windows (no conditioning
+    frame), fp32, STAGE0_STEPS steps (kernels A, C and D at (2, 16, 2049,
+    2049 | 257, 128) and B's norm alone); finite losses, moved params, the
+    launch counts, and a dit.npz export that reloads."""
+    from actionmesh_tpu_torch.utils.weights import load_npz
+
+    label = "train stage0 DiT float32"
+    export = OUT_DIR.parent / "chip_smoke_dit"
+    shutil.rmtree(export, ignore_errors=True)
+    state, history, loop_cfg, launches, peak_gib, run_s = run_train_entry(
+        ["--model", "stage0", "--batch", "2", "--export-inference", str(export)], STAGE0_STEPS)
+    cfg = train_entry.flow_model_config("production", "stage0")
+    losses, step_s, phases = train_summary(label, history, peak_gib, run_s)
+    want = expected_train_launches(cfg, STAGE0_STEPS)
+    log(f"{label}: launches {launches} (expected {want})")
+    if launches != want or len(losses) != STAGE0_STEPS:
+        raise AssertionError(f"{label}: launch counts {launches} != {want} or losses {losses}")
+    init = init_denoiser(torch.Generator("cuda").manual_seed(loop_cfg.seed), cfg, device=torch.device("cuda"))
+    check_moved(label, state["params"], init)
+    del init
+    files = sorted(p.name for p in export.iterdir())
+    reloaded = load_npz(export / "dit.npz", device=torch.device("cuda"))
+    shapes_equal = [a.shape for a in leaves(reloaded)] == [a.shape for a in leaves(state["params"])]
+    log(f"{label}: exported {files}, reloaded with the params' shapes: {shapes_equal}")
+    if files != ["dit.npz"] or not shapes_equal:
+        raise AssertionError(f"{label}: export {files}, shapes equal {shapes_equal}")
+    del state, reloaded
+    shutil.rmtree(export, ignore_errors=True)
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", "launches": launches, "expected_launches": want, "losses": losses,
+            "step_seconds": step_s, "phase_seconds": phases, "peak_gib": peak_gib, "run_seconds": run_s}
+
+
 def phase_actionbench() -> dict:
     """The synthetic ActionBench suite through the evaluator's entry point on
     the card, at the evaluator's defaults; then a resumed call."""
@@ -2140,24 +2425,28 @@ def check_clip(name: str, meshes: list, out_dir: Path, faces=None) -> dict:
             "max_displacement": float(np.abs(verts[1:] - verts[0]).max())}
 
 
-def phase_checkpoints() -> dict:
-    """The synthetic production tree written, read back (per family: s, GB,
-    GB/s, peak host RSS), then the video-to-4D CLI with ``--weights_dir`` on
-    it at full width and the turbo preset, on 16 RGB frames without alpha
-    (RMBG mattes them), launch counts checked."""
-    t0 = time.perf_counter()
-    written = write_synthetic_tree(CKPT_DIR)
-    write_s = time.perf_counter() - t0
-    log(f"checkpoints: synthetic tree written in {write_s:.1f} s: " + ", ".join(
-        f"{k} {v['gb']:.3f} GB ({len(v['files'])} files, {v['write_seconds']:.1f} s)" for k, v in written.items()))
-    read = read_tree(CKPT_DIR)
+def write_video(path: Path, frames: list[np.ndarray], fps: int = 8) -> str:
+    """The RGB of ``frames`` as a video OpenCV writes: MPEG-4 Part 2
+    (``mp4v``) in an .mp4 where this OpenCV can encode it, else Motion JPEG
+    in an .avi beside it. Returns the fourcc used."""
+    import cv2
 
-    work = OUT_DIR / "weights_cli"
-    shutil.rmtree(work, ignore_errors=True)
-    frames = make_frames()
-    (work / "frames").mkdir(parents=True)
-    for i, f in enumerate(frames):  # RGB only: no alpha, so RMBG runs
-        write_png(work / "frames" / f"{i:02d}.png", f[..., :3])
+    h, w = frames[0].shape[:2]
+    for fourcc, suffix in (("mp4v", ".mp4"), ("MJPG", ".avi")):
+        out = path.with_suffix(suffix)
+        writer = cv2.VideoWriter(str(out), cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+        if writer.isOpened():
+            for f in frames:
+                writer.write(cv2.cvtColor(np.ascontiguousarray(f[..., :3]), cv2.COLOR_RGB2BGR))
+            writer.release()
+            return fourcc
+    raise RuntimeError("this OpenCV can encode neither mp4v nor MJPG")
+
+
+def weights_cli(name: str, input_path: Path, out_dir: Path) -> dict:
+    """The video-to-4D CLI with ``--weights_dir`` on the synthetic tree at
+    full width and --turbo, on frames without alpha (RMBG mattes them):
+    launch counts, RMBG's alpha on the object, the clip's files."""
     rmbg_seen = []
 
     def record_rmbg(fn):
@@ -2173,14 +2462,14 @@ def phase_checkpoints() -> dict:
     reset_counters()
     t0 = time.perf_counter()
     with recording(background.BackgroundRemover, "process_images", record_rmbg):
-        result = cli.main(["--input", str(work / "frames"), "--output_dir", str(work / "out"), "--seed", "44",
+        result = cli.main(["--input", str(input_path), "--output_dir", str(out_dir), "--seed", "44",
                            "--weights_dir", str(CKPT_DIR), "--turbo", "--no_render"])
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_counters()
     pipe = result.pop("pipeline")
     if not (isinstance(pipe.image_to_3d, TripoSGPipeline) and pipe.background_removal._model is not None):
-        raise AssertionError("the CLI did not load TripoSG and RMBG from the tree")
+        raise AssertionError(f"{name}: the CLI did not load TripoSG and RMBG from the tree")
     want_flash, want_rope = expected_launches(pipe, N_FRAMES)
     phase_s, seconds = dict(pipe.phase_seconds), result["seconds"]
     stage0_s = dict(pipe.stage0_seconds)
@@ -2188,31 +2477,64 @@ def phase_checkpoints() -> dict:
     alphas = rmbg_seen[0]["alphas"]
     coverage = [float((a > 0).mean()) for a in alphas]
     in_object = [float((a[64:192, 32 + 4 * i : 160 + 4 * i] > 0).mean()) for i, a in enumerate(alphas)]
-    clip = check_clip("checkpoints cli", result["meshes"], work / "out")
-    log(f"checkpoints cli (turbo, --weights_dir): clip {sum(seconds.values()):.2f} s = "
+    clip = check_clip(name, result["meshes"], out_dir)
+    log(f"{name} (turbo, --weights_dir): clip {sum(seconds.values()):.2f} s = "
         + " + ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + " | pipeline phases "
         + " ".join(f"{k} {v:.2f}" for k, v in phase_s.items()) + " | stage0 "
         + " ".join(f"{k} {v:.2f}" for k, v in stage0_s.items())
         + f" | RMBG {rmbg_seen[0]['seconds']:.2f} s for {N_FRAMES} frames at 1024^2 | with the "
         f"pipeline's set-up (reading the tree) {wall_s:.2f} s")
-    log(f"checkpoints cli: alpha covers {min(coverage):.3f}-{max(coverage):.3f} of each frame, "
+    log(f"{name}: alpha covers {min(coverage):.3f}-{max(coverage):.3f} of each frame, "
         f"{min(in_object):.3f}-{max(in_object):.3f} of the object; mesh {clip}; launches flash_fwd "
         f"{launches['flash_fwd']} (expected {want_flash}), rms_rope {launches['fused_rms_rope']} "
         f"(expected {want_rope})")
     if (launches["flash_fwd"], launches["fused_rms_rope"]) != (want_flash, want_rope) or not want_flash:
-        raise AssertionError(f"checkpoints cli: launch counts {launches} != ({want_flash}, {want_rope})")
+        raise AssertionError(f"{name}: launch counts {launches} != ({want_flash}, {want_rope})")
     if any(launches[k] for k in COUNTERS[2:]):
-        raise AssertionError(f"checkpoints cli: a backward kernel or kernel F launched: {launches}")
+        raise AssertionError(f"{name}: a backward kernel or kernel F launched: {launches}")
     if not (min(in_object) > 0.95 and max(coverage) < 0.5):
-        raise AssertionError(f"checkpoints cli: RMBG's alpha does not follow the object: {coverage} {in_object}")
-    shutil.rmtree(work, ignore_errors=True)
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    torch.cuda.empty_cache()
-    return {"written": written, "write_seconds": write_s, "read": read, "launches": launches,
-            "expected_launches": {"flash_fwd": want_flash, "fused_rms_rope": want_rope},
+        raise AssertionError(f"{name}: RMBG's alpha does not follow the object: {coverage} {in_object}")
+    return {"launches": launches, "expected_launches": {"flash_fwd": want_flash, "fused_rms_rope": want_rope},
             "seconds": seconds, "phase_seconds": phase_s, "stage0_seconds": stage0_s,
             "rmbg_seconds": rmbg_seen[0]["seconds"], "alpha_coverage": coverage,
             "alpha_in_object": in_object, "wall_seconds": wall_s, "clip": clip}
+
+
+def phase_checkpoints() -> dict:
+    """The synthetic production tree written, read back (per family: s, GB,
+    GB/s, peak host RSS), then the video-to-4D CLI with ``--weights_dir`` on
+    it at full width and the turbo preset twice: on 16 RGB PNG frames
+    without alpha, and on the same frames as a video that OpenCV writes and
+    the loader decodes (RMBG mattes both)."""
+    t0 = time.perf_counter()
+    written = write_synthetic_tree(CKPT_DIR)
+    write_s = time.perf_counter() - t0
+    log(f"checkpoints: synthetic tree written in {write_s:.1f} s: " + ", ".join(
+        f"{k} {v['gb']:.3f} GB ({len(v['files'])} files, {v['write_seconds']:.1f} s)" for k, v in written.items()))
+    read = read_tree(CKPT_DIR)
+
+    work = OUT_DIR / "weights_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    frames = make_frames()
+    (work / "frames").mkdir(parents=True)
+    for i, f in enumerate(frames):  # RGB only: no alpha, so RMBG runs
+        write_png(work / "frames" / f"{i:02d}.png", f[..., :3])
+    out = weights_cli("checkpoints cli", work / "frames", work / "out")
+    fourcc = write_video(work / "clip", frames)
+    video = next(work.glob("clip.*"))
+    t0 = time.perf_counter()
+    decoded = load_frames(video)
+    load_s = time.perf_counter() - t0
+    log(f"video cli: {video.name} ({fourcc}, {video.stat().st_size} bytes) decodes to "
+        f"{decoded.n_frames} frames of {decoded.frames[0].shape} in {load_s:.3f} s")
+    if decoded.n_frames != N_FRAMES or decoded.frames[0].shape != frames[0].shape:
+        raise AssertionError(f"video cli: {decoded.n_frames} frames of {decoded.frames[0].shape}")
+    video_run = dict(weights_cli("video cli", video, work / "video_out"), video=video.name, fourcc=fourcc,
+                     decode_seconds=load_s)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"written": written, "write_seconds": write_s, "read": read, **out, "video": video_run}
 
 
 # -- the small tree: card vs CPU from one checkpoint -------------------------------
@@ -2496,6 +2818,9 @@ def main() -> None:
     small_train = phase_small_train()
     tr = phase_train()
     tr32 = phase_train(None)
+    dec = phase_train_decoder()
+    distill = {mode: phase_distill(mode) for mode in ("guidance", "progressive")}
+    dit = phase_train_stage0()
     small_icp = phase_small_icp()
     ab = phase_actionbench()
 
@@ -2508,19 +2833,26 @@ def main() -> None:
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
                 "shape": head["shape"], "shapes": rows}
 
-    def trained(name):  # both train phases, bf16 and fp32
-        return tr["launches"][name] + tr32["launches"][name]
+    train_runs = {"training": tr, "training_fp32": tr32, "decoder_fp32": dec,
+                  "distill_guidance": distill["guidance"], "distill_progressive": distill["progressive"],
+                  "stage0_dit_fp32": dit}
+
+    def trained(name):  # every train phase: Stage I bf16 and fp32, decoder, distillation, DiT
+        return sum(run["launches"][name] for run in train_runs.values())
+
+    def train_paths(name):
+        return {path: run["launches"][name] for path, run in train_runs.items()}
 
     def by_path(name, inference_name):
-        return {"inference": sl["launches"][inference_name], "training": tr["launches"][name],
-                "training_fp32": tr32["launches"][name],
+        return {"inference": sl["launches"][inference_name], **train_paths(name),
                 **{f"cli_{preset}": run["launches"][name] for preset, run in cli_runs.items()
                    if preset in CLI_PRESETS},
-                "cli_checkpoints": ckpt["launches"][name], "video_3d": v3d["launches"][name]}
+                "cli_checkpoints": ckpt["launches"][name], "cli_video": ckpt["video"]["launches"][name],
+                "video_3d": v3d["launches"][name]}
 
     def cli_launches(name):
         return (sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
-                + ckpt["launches"][name] + v3d["launches"][name])
+                + ckpt["launches"][name] + ckpt["video"]["launches"][name] + v3d["launches"][name])
 
     def bwd_summary(name, replaces, key):
         rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
@@ -2531,7 +2863,7 @@ def main() -> None:
                  **r[f"bound_{key[0]}"], "tflops": r[f"tflops_{key[0]}"]} for r in bwd]
         out = summary(name, "actionmesh_tpu_torch/csrc/flash_bwd.cu", replaces, rows, trained(name))
         out["library_bwd_ms"] = rows[0]["library_bwd_ms"]
-        out["launches_by_path"] = {"training": tr["launches"][name], "training_fp32": tr32["launches"][name]}
+        out["launches_by_path"] = train_paths(name)
         out["plain_ms_note"] = "the plain backward computes dq, dk and dv together"
         out["library_ms_note"] = ("scaled_dot_product_attention forward plus backward: one call "
                                   "pair for kernels A, C and D together; library_bwd_ms is its "
@@ -2569,8 +2901,7 @@ def main() -> None:
                     "actionmesh_tpu/ops/rope_norm.py:132", timed + [r for r in rope_bwd if "ms" not in r],
                     trained("fused_rms_rope_bwd"))
     bwd_b["library_ms"] = next((r["library_ms"] for r in timed if r["library_ms"] is not None), None)
-    bwd_b["launches_by_path"] = {"training": tr["launches"]["fused_rms_rope_bwd"],
-                                 "training_fp32": tr32["launches"]["fused_rms_rope_bwd"]}
+    bwd_b["launches_by_path"] = train_paths("fused_rms_rope_bwd")
     bwd_b["replaces_note"] = ("the JAX custom VJP's backward (_fused_bwd, the vjp of the plain "
                               "composition); the TPU kernel has no backward of its own")
     bwd_b["library_ms_note"] = ("torch.nn.functional.rms_norm forward + backward at the Stage-I "
@@ -2596,7 +2927,8 @@ def main() -> None:
                       "small_train_reference": small_train, "small_icp_reference": small_icp,
                       "small_checkpoint": small_ckpt, "checkpoints": ckpt, "video_3d": v3d,
                       "slice": sl, "sdf_chunk": sdf_chunk, "cli": cli_runs, "train": tr,
-                      "train_fp32": tr32,
+                      "train_fp32": tr32, "train_decoder": dec, "distill": distill,
+                      "train_stage0_dit": dit,
                       "actionbench": ab,
                       "card": info["nvidia_smi"]}),
           flush=True)

@@ -114,11 +114,12 @@ def test_rgb_frames_get_opaque_alpha(tmp_path):
 
 
 def test_missing_decoders_raise(tmp_path):
+    """JPEG frames decode (PIL, lazily imported) as JAX's do; a missing video
+    file, an empty glob and too few frames raise as in JAX."""
     for i in range(16):
         Image.fromarray(frame_rgba(i)[..., :3]).save(tmp_path / f"{i}.jpg")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tvideo.load_frames(tmp_path)
-    with pytest.raises(NotImplementedError, match="video"):
+    assert_same_input(tvideo.load_frames(tmp_path), jvideo.load_frames(tmp_path))
+    with pytest.raises(FileNotFoundError, match="Video file not found"):
         tvideo.load_frames(tmp_path / "clip.mp4")
     with pytest.raises(ValueError, match="No images"):
         tvideo.load_frames(tmp_path / "none_*.png")

@@ -7,6 +7,7 @@ exactly the TPU runtime knobs.
 """
 
 import dataclasses
+from pathlib import Path
 
 import pytest
 
@@ -70,10 +71,47 @@ def test_presets_do_not_share_state():
     assert tload_config("actionmesh_distilled").cf_guidance.guidance_at_inference == [[1, 1]]
 
 
-def test_unknown_preset_config_dir_and_keys_raise():
+def test_unknown_preset_config_dir_and_keys_raise(tmp_path):
+    """An unknown preset or key raises; in a config_dir, a key that is
+    neither a port field nor a TPU runtime knob raises, as in JAX."""
     with pytest.raises(ValueError, match="Unknown preset"):
         tload_config("actionmesh_nonexistent")
-    with pytest.raises(NotImplementedError, match="config_dir"):
-        tload_config("actionmesh", config_dir="actionmesh_tpu/configs")
+    (tmp_path / "bad.yaml").write_text("defaults:\n  - base\nscheduler:\n  no_such_knob: 1\n")
+    (tmp_path / "base.yaml").write_text("scheduler:\n  num_inference_steps: 7\n")
+    with pytest.raises(KeyError, match="scheduler.no_such_knob"):
+        tload_config("bad", config_dir=tmp_path)
+    with pytest.raises(KeyError, match="scheduler.no_such_knob"):
+        jload_config("bad", config_dir=tmp_path)
     with pytest.raises(KeyError):
         tload_config("actionmesh_fast", updates={"scheduler.steps_per_launch": 5})
+
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "actionmesh_tpu" / "configs"
+
+
+@pytest.mark.parametrize("name", JAX_PRESETS)
+def test_config_dir_matches_jax(name):
+    """``load_config(config_dir=...)`` reads the JAX package's YAML presets
+    (yaml imported lazily) into what JAX's ``load_config`` gives, less the
+    TPU runtime knobs, and into the port's own preset of that name."""
+    port = flat(dataclasses.asdict(tload_config(name, config_dir=CONFIG_DIR)))
+    ref = flat(dataclasses.asdict(jload_config(name, config_dir=CONFIG_DIR)))
+    assert set(ref) - set(port) == OMITTED
+    assert port == {k: v for k, v in ref.items() if k in port}
+    assert port == flat(dataclasses.asdict(tload_config(name)))
+
+
+def test_config_dir_composes_defaults_and_updates(tmp_path):
+    """A user preset built on another by ``defaults``, with dotted updates
+    on top, equals JAX's reading of it."""
+    (tmp_path / "base.yaml").write_text(
+        "scheduler:\n  num_inference_steps: 12\n  steps_per_launch: 3\nattn_impl: auto\n")
+    (tmp_path / "mine.yaml").write_text(
+        "defaults:\n  - base\nstage_0:\n  num_inference_steps: 40\n"
+        "cf_guidance:\n  guidance_scales: [3.0]\n")
+    upd = {"mesh_process.face_decimation": 1000}
+    port = flat(dataclasses.asdict(tload_config("mine.yaml", config_dir=tmp_path, updates=upd)))
+    ref = flat(dataclasses.asdict(jload_config("mine", config_dir=tmp_path, updates=upd)))
+    assert port == {k: v for k, v in ref.items() if k in port}
+    assert port["scheduler.num_inference_steps"] == 12 and port["stage_0.num_inference_steps"] == 40
+    assert port["cf_guidance.guidance_scales"] == [3.0] and port["mesh_process.face_decimation"] == 1000

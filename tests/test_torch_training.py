@@ -364,8 +364,8 @@ def test_entry_point_tiny_on_cpu(tmp_path, capsys):
     assert jparams["proj_in"]["kernel"].shape == (4, 32)
     assert jparams["proj_in"]["kernel"].dtype == jnp.bfloat16
     assert "done: step 3" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="Queue 1"):
-        ttrain.main(["--stage", "decoder", "--synthetic"])
+    with pytest.raises(SystemExit, match="tracks-dir"):
+        ttrain.main(["--stage", "decoder", "--data-dir", str(out), "--device", "cpu"])
 
 
 def test_entry_point_device_defaults_to_cuda(tmp_path, monkeypatch):
