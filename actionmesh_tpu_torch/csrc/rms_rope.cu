@@ -5,9 +5,10 @@
 //   actionmesh_tpu/ops/rope_norm.py:fused_rms_rope (pallas_call :94, body
 //   _norm_rope_kernel),
 // whose backward is the vjp of the plain composition (_fused_bwd); here the
-// backward is a kernel too. Contract: x (B, H, S, D), D in {64, 128}, bf16,
-// fp16 or fp32, element strides for batch, head and sequence with a
-// contiguous last axis and 16-byte aligned rows; scale (D,) fp32 or none;
+// backward is a kernel too. Contract: x (B, H, S, D), D in {12, 16, 32, 64,
+// 128}, bf16, fp16 or fp32, element strides for batch, head and sequence
+// with a contiguous last axis and, where a lane's run of a half is a
+// 16-byte vector (every D but 12), 16-byte aligned rows; scale (D,) fp32 or none;
 // cos and sin fp32 contiguous (cb, S, D), table b % cb serving batch entry b,
 // or none. With halves 1 = [0, D/2) and 2 = [D/2, D), in fp32:
 //   forward   r = rsqrt(mean(x^2) + eps), u = x r w  (no norm: u = x)
@@ -36,7 +37,11 @@
 // that the rotation pairs with them, so the rotation stays in registers;
 // D/2/V lanes share a head and the sums over D (x^2 and, backward, gu w x)
 // are xor shuffles among them; 32 / (D/2/V) heads go at once. Every access
-// of x, g, y and dx is a 16-byte load or store. The fp32 cos/sin values of
+// of x, g, y and dx is a 16-byte load or store. Where D/2 is not a multiple
+// of V (D = 12: halves of 6), LPH, the lanes of a head, is the largest power
+// of two dividing D/2 and a lane's V = D/2/LPH values are scalar accesses
+// (a head of 12 values is 24 bytes in bf16, so no 16-byte vector fits it).
+// The fp32 cos/sin values of
 // (b % cb, s) are read once a row, into registers, and serve every head. No
 // shared memory, except for the backward's last reduction.
 // The backward's reductions are deterministic, with no float atomics:
@@ -137,19 +142,31 @@ struct Vec<__half> {
   }
 };
 
+// V fp32 values: 16-byte accesses where V is a multiple of 4 (the offsets
+// are then multiples of 4 values), else scalar ones.
 template <int V>
 __device__ __forceinline__ void load_f32(const float* p, float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < V; i += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p + i);
-    v[i] = a.x; v[i + 1] = a.y; v[i + 2] = a.z; v[i + 3] = a.w;
+    for (int i = 0; i < V; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      v[i] = a.x; v[i + 1] = a.y; v[i + 2] = a.z; v[i + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
   }
 }
 
 template <int V>
 __device__ __forceinline__ void store_f32(float* p, const float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < V; i += 4) *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    for (int i = 0; i < V; i += 4) *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = v[i];
+  }
 }
 
 // Sum over the `lanes` lanes that share a head (every lane of the warp calls it).
@@ -168,15 +185,52 @@ __device__ __forceinline__ float across_heads(float v) {
   return v;
 }
 
-// The lane layout of a row: V values of each half a lane, LPH lanes a head,
-// HPW heads at once.
+// The lane layout of a row: V values of each half a lane, LPH lanes a head
+// (a power of two, so the sums over a head are xor shuffles), HPW heads at
+// once. VEC: a lane's V values are one 16-byte vector of T.
 template <typename T, int D>
 struct Layout {
-  static constexpr int V = Vec<T>::N;
   static constexpr int HALF = D / 2;
-  static constexpr int LPH = HALF / V;
+  static constexpr bool VEC = HALF % Vec<T>::N == 0;
+  static constexpr int LPH = VEC ? HALF / Vec<T>::N : (HALF & -HALF);
+  static constexpr int V = HALF / LPH;
   static constexpr int HPW = 32 / LPH;
+  static_assert(D % 2 == 0 && LPH >= 1 && LPH <= 32 && (LPH & (LPH - 1)) == 0, "head dim");
 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
+
+// A lane's V values of T as fp32: one 16-byte vector, or V scalar accesses.
+template <typename T, int V>
+__device__ __forceinline__ void load_vals(const T* p, float (&v)[V]) {
+  if constexpr (V == Vec<T>::N) {
+    Vec<T>::load(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32(p[i]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vals(T* p, const float (&v)[V]) {
+  if constexpr (V == Vec<T>::N) {
+    Vec<T>::store(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = from_f32<T>(v[i]);
+  }
+}
 
 template <int V>
 struct Tables {
@@ -214,8 +268,8 @@ __global__ void __launch_bounds__(kThreads) rms_rope_fwd_kernel(const Params p) 
     const bool on = h < p.H;
     float x1[V], x2[V];
     if (on) {
-      Vec<T>::load(xrow + h * p.x_sh, x1);
-      Vec<T>::load(xrow + h * p.x_sh + L::HALF, x2);
+      load_vals<T, V>(xrow + h * p.x_sh, x1);
+      load_vals<T, V>(xrow + h * p.x_sh + L::HALF, x2);
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) x1[i] = x2[i] = 0.f;
@@ -240,8 +294,8 @@ __global__ void __launch_bounds__(kThreads) rms_rope_fwd_kernel(const Params p) 
       }
     }
     if (on) {
-      Vec<T>::store(yrow + h * p.y_sh, x1);
-      Vec<T>::store(yrow + h * p.y_sh + L::HALF, x2);
+      store_vals<T, V>(yrow + h * p.y_sh, x1);
+      store_vals<T, V>(yrow + h * p.y_sh + L::HALF, x2);
     }
   }
 }
@@ -277,10 +331,10 @@ __global__ void __launch_bounds__(kThreads) rms_rope_bwd_kernel(const Params p) 
       const bool on = h < p.H;
       float x1[V], x2[V], g1[V], g2[V];
       if (on) {
-        Vec<T>::load(xrow + h * p.x_sh, x1);
-        Vec<T>::load(xrow + h * p.x_sh + L::HALF, x2);
-        Vec<T>::load(grow + h * p.g_sh, g1);
-        Vec<T>::load(grow + h * p.g_sh + L::HALF, g2);
+        load_vals<T, V>(xrow + h * p.x_sh, x1);
+        load_vals<T, V>(xrow + h * p.x_sh + L::HALF, x2);
+        load_vals<T, V>(grow + h * p.g_sh, g1);
+        load_vals<T, V>(grow + h * p.g_sh + L::HALF, g2);
       } else {
 #pragma unroll
         for (int i = 0; i < V; ++i) x1[i] = x2[i] = g1[i] = g2[i] = 0.f;
@@ -330,8 +384,8 @@ __global__ void __launch_bounds__(kThreads) rms_rope_bwd_kernel(const Params p) 
         }
       }
       if (on) {
-        Vec<T>::store(dxrow + h * p.y_sh, dx1);
-        Vec<T>::store(dxrow + h * p.y_sh + L::HALF, dx2);
+        store_vals<T, V>(dxrow + h * p.y_sh, dx1);
+        store_vals<T, V>(dxrow + h * p.y_sh + L::HALF, dx2);
       }
     }
     if (TABLES) {
@@ -471,6 +525,9 @@ template <typename T>
 int by_dim_fwd(const Params& p, int D, bool norm, bool rope, cudaStream_t s) {
   if (D == 128) return dispatch_fwd<T, 128>(p, norm, rope, s);
   if (D == 64) return dispatch_fwd<T, 64>(p, norm, rope, s);
+  if (D == 32) return dispatch_fwd<T, 32>(p, norm, rope, s);
+  if (D == 16) return dispatch_fwd<T, 16>(p, norm, rope, s);
+  if (D == 12) return dispatch_fwd<T, 12>(p, norm, rope, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -479,6 +536,9 @@ int by_dim_bwd(const Params& p, int D, bool norm, bool rope, bool tables, float*
                float* dcos, float* dsin, cudaStream_t s) {
   if (D == 128) return dispatch_bwd<T, 128>(p, norm, rope, tables, dscale, dcos, dsin, s);
   if (D == 64) return dispatch_bwd<T, 64>(p, norm, rope, tables, dscale, dcos, dsin, s);
+  if (D == 32) return dispatch_bwd<T, 32>(p, norm, rope, tables, dscale, dcos, dsin, s);
+  if (D == 16) return dispatch_bwd<T, 16>(p, norm, rope, tables, dscale, dcos, dsin, s);
+  if (D == 12) return dispatch_bwd<T, 12>(p, norm, rope, tables, dscale, dcos, dsin, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

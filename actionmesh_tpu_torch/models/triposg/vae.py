@@ -131,13 +131,16 @@ def encode_moments(
     surface: torch.Tensor,
     pre_idx: Optional[torch.Tensor] = None,
     start: Optional[torch.Tensor] = None,
+    trainable: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """surface (B, N, 3+3) -> posterior (mean, logvar), each (B, K, C).
 
     ``pre_idx`` (M,): the random presample the FPS picks from (all N points
     when None); ``start`` (B,): FPS's first pick within it (index 0 when
     None). The JAX package draws both from its key; ``TripoSGPipeline.
-    encode_to_latent`` draws them from a seeded generator.
+    encode_to_latent`` draws them from a seeded generator. ``trainable``
+    takes every attention with the flash backward (kernels C and D on the
+    card), for training (``training/vae_train.py``).
     """
     xyz = surface[..., :3]
     feats = torch.cat([_embed_points(cfg, xyz), surface[..., 3:].float()], dim=-1)
@@ -154,9 +157,10 @@ def encode_moments(
         layer_norm(params["enc_norm_cross"], queries),
         heads=cfg.encoder_heads,
         encoder_hidden_states=feats,
+        trainable=trainable,
     )
     for block in params["enc_blocks"]:
-        x = flow_matching_block(block, x, num_attention_heads=cfg.encoder_heads)
+        x = flow_matching_block(block, x, num_attention_heads=cfg.encoder_heads, trainable=trainable)
     moments = linear(params["enc_proj_out"], layer_norm(params["enc_norm_out"], x))
     mean, logvar = moments.chunk(2, dim=-1)
     return mean, logvar.clamp(-30.0, 20.0)
@@ -180,16 +184,23 @@ def encode_surface(
     return mean + std * noise.to(device=mean.device, dtype=mean.dtype)
 
 
-def decode_kv(params: Params, cfg: TripoSGVAEConfig, latents: torch.Tensor) -> torch.Tensor:
-    """Latent (B, K, C) -> decoded KV set (B, K, W). Query-independent."""
+def decode_kv(
+    params: Params, cfg: TripoSGVAEConfig, latents: torch.Tensor, trainable: bool = False
+) -> torch.Tensor:
+    """Latent (B, K, C) -> decoded KV set (B, K, W). Query-independent.
+    ``trainable``: as for ``encode_moments``."""
     x = linear(params["post_quant"], latents)
     for block in params["dec_blocks"]:
-        x = flow_matching_block(block, x, num_attention_heads=cfg.decoder_heads)
+        x = flow_matching_block(block, x, num_attention_heads=cfg.decoder_heads, trainable=trainable)
     return x
 
 
 def _query_core(
-    params: Params, cfg: TripoSGVAEConfig, kv: torch.Tensor, points: torch.Tensor
+    params: Params,
+    cfg: TripoSGVAEConfig,
+    kv: torch.Tensor,
+    points: torch.Tensor,
+    trainable: bool = False,
 ) -> torch.Tensor:
     """SDF field query body: points (B, Q, 3) -> (B, Q) values (fp32)."""
     q = linear(params["proj_query"], _embed_points(cfg, points))
@@ -198,16 +209,22 @@ def _query_core(
         layer_norm(params["dec_norm_cross_q"], q),
         heads=cfg.decoder_heads,
         encoder_hidden_states=kv.float(),
+        trainable=trainable,
     ).float()
     out = linear(params["dec_proj_out"], layer_norm(params["dec_norm_out"], h))
     return out[..., 0]
 
 
 def query_sdf(
-    params: Params, cfg: TripoSGVAEConfig, kv: torch.Tensor, points: torch.Tensor
+    params: Params,
+    cfg: TripoSGVAEConfig,
+    kv: torch.Tensor,
+    points: torch.Tensor,
+    trainable: bool = False,
 ) -> torch.Tensor:
-    """Query the SDF field: points (B, Q, 3) -> (B, Q) values (fp32)."""
-    return _query_core(params, cfg, kv, points)
+    """Query the SDF field: points (B, Q, 3) -> (B, Q) values (fp32).
+    ``trainable``: as for ``encode_moments``."""
+    return _query_core(params, cfg, kv, points, trainable=trainable)
 
 
 def _lattice_points(lo, step, ijk: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,13 @@ kernel or raises. ``flash_attention.launches``,
 fp32 call of A launches two device kernels, the split pre-pass and the
 mainloop, and one fp32 call of C or D its split pre-pass and its kernel; one
 call of F launches its qk-norm pre-pass, then A's).
+
+The kernels are instantiated at head dims 64 and 128. A, C and D take any
+head dim up to 128: a smaller one is zero-padded here to the next
+instantiated width (``pad_head_dim``) and the result sliced back, with the
+scale of the true head dim. That is exact: zero columns add nothing to
+q.k, give zero output columns in PV, and zero gradient columns (dO's padded
+columns are zero). The plain versions take the true head dim unpadded.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from actionmesh_tpu_torch.ops.attention import (
 from actionmesh_tpu_torch.ops.rotary import apply_rotary_embedding
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128)  # the kernels' instantiated widths
 _lib = None
 _bwd_lib = None
 
@@ -118,6 +125,25 @@ def kernel_takes_layout(x: torch.Tensor) -> bool:
     return x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
 
 
+def padded_head_dim(D: int) -> Optional[int]:
+    """The instantiated width a head dim ``D`` runs at: the smallest of
+    ``_HEAD_DIMS`` at or above it, None above the largest."""
+    return next((w for w in _HEAD_DIMS if D <= w), None) if D > 0 else None
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x (..., D) zero-padded to (..., width), a new contiguous tensor."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _needs_padding(q: torch.Tensor) -> Optional[int]:
+    """The padded width of q's head dim when the kernels do not take it as
+    it is, else None."""
+    D = q.shape[-1]
+    width = padded_head_dim(D)
+    return width if width is not None and width != D else None
+
+
 def _check(q, k, v, kv_mask):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention: q, k, v must all be CUDA tensors")
@@ -137,7 +163,10 @@ def _check(q, k, v, kv_mask):
             f"v {tuple(v.shape)} do not match"
         )
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {_HEAD_DIMS}")
+        raise ValueError(
+            f"flash_attention: head dim {D} not in {_HEAD_DIMS} (the wrappers of A, C "
+            f"and D pad head dims below {_HEAD_DIMS[-1]})"
+        )
     if k.shape[2] == 0:
         raise ValueError("flash_attention: empty key sequence")
     if B > 65535 or H > 65535:  # grid z and y
@@ -176,6 +205,14 @@ def flash_attention(
         return chunked_attention(
             q, k, v, scale=scale, kv_mask=kv_mask, return_stats=return_stats
         )
+    width = _needs_padding(q)
+    if width is not None and k.shape[-1] == v.shape[-1] == q.shape[-1]:
+        out = flash_attention(
+            pad_head_dim(q, width), pad_head_dim(k, width), pad_head_dim(v, width),
+            scale=scale, kv_mask=kv_mask, return_stats=return_stats,
+        )
+        D = q.shape[-1]
+        return (out[0][..., :D], out[1]) if return_stats else out[..., :D]
     _check(q, k, v, kv_mask)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -439,6 +476,13 @@ def flash_attention_bwd(
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, o, m, l, do, scale)
+    width = _needs_padding(q)
+    if width is not None and all(x.shape[-1] == q.shape[-1] for x in (k, v, o, do)):
+        D = q.shape[-1]
+        grads = flash_attention_bwd(
+            *(pad_head_dim(x, width) for x in (q, k, v, o)), m, l, pad_head_dim(do, width), scale,
+        )
+        return tuple(g[..., :D] for g in grads)
     _check(q, k, v, None)
     if q.dtype == torch.float16:
         raise ValueError("flash_attention_bwd: kernels C and D take bf16 or fp32, not fp16")

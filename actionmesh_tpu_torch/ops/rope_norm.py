@@ -3,8 +3,9 @@ the Hopper kernels in ``csrc/rms_rope.cu`` (forward and backward) and their
 plain PyTorch versions.
 
 Replaces ``actionmesh_tpu/ops/rope_norm.py:fused_rms_rope`` (the Pallas TPU
-kernel ``_norm_rope_kernel``). The op reads each (row, head) vector of D=64
-or 128 values once, normalises it in fp32, rotates it and writes it once:
+kernel ``_norm_rope_kernel``). The op reads each (row, head) vector of D
+values (D in ``HEAD_DIMS``) once, normalises it in fp32, rotates it and
+writes it once:
 no matrix product, so it is bound by device-memory bandwidth. See the note
 at the top of the CUDA source for the design.
 
@@ -30,6 +31,7 @@ import torch
 from actionmesh_tpu_torch.ops.rotary import apply_rotary_embedding
 
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+HEAD_DIMS = (12, 16, 32, 64, 128)  # the kernels' instantiations
 _lib = None
 _bwd_ws_rows = 0
 
@@ -131,8 +133,12 @@ def rms_rope_backward_reference(
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte aligned rows: the kernels' vector loads and stores."""
+    """16-byte aligned rows: the kernels' vector loads and stores. A head
+    dim whose halves do not split into 16-byte runs (12) is read with scalar
+    accesses, which need no alignment."""
     size = t.element_size()
+    if (t.shape[-1] // 2) % (16 // size):
+        return True
     sb, sh, ss, _ = t.stride()
     return not (t.data_ptr() | sb * size | sh * size | ss * size) & 15
 
@@ -143,8 +149,8 @@ def _check(x, scale, cos, sin) -> tuple[int, int, int, int]:
     if x.ndim != 4:
         raise ValueError(f"fused_rms_rope: x must be (B, H, S, D), got {tuple(x.shape)}")
     B, H, S, D = x.shape
-    if D != 128 and D != 64:
-        raise ValueError(f"fused_rms_rope: head dim {D} not in (64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"fused_rms_rope: head dim {D} not in {HEAD_DIMS}")
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused_rms_rope: unsupported dtype {x.dtype}")
     if x.stride(3) != 1:

@@ -76,12 +76,16 @@ class ActionMeshPipeline:
         init_seed: int = 0,
         config_updates: Optional[dict] = None,
         lazy_loading: bool = False,
+        image_encoder: Optional[ImageEncoder] = None,
+        image_to_3d=None,
     ):
         """``config_name``: one of ``config.PRESETS``; ``dtype``: bf16, fp16 or
         fp32 compute (the fp32 islands stay fp32). ``lazy_loading`` (the
         low-RAM presets' CPU/GPU weight residency in the reference) is
         accepted and does nothing, as in the JAX package: the weights stay
-        on the device."""
+        on the device. ``image_encoder`` and ``image_to_3d``: the DINOv2
+        encoder and the Stage-0 backend to use instead of those built from
+        ``weights_dir`` (the closed loop's frozen conditioning stack)."""
         del lazy_loading
         self.cfg: PipelineConfig = load_config(config_name, updates=config_updates)
         self.device = torch.device(device)
@@ -124,7 +128,7 @@ class ActionMeshPipeline:
 
         self._init_seed = init_seed
         self._load_actionmesh_weights()
-        self._load_backends()
+        self._load_backends(image_encoder, image_to_3d)
         self.phase_seconds: dict[str, float] = {}
         self.stage0_seconds: dict[str, float] = {}
 
@@ -167,15 +171,15 @@ class ActionMeshPipeline:
             gen, self.autoencoder_config, self._dtype, self.device
         )
 
-    def _load_backends(self) -> None:
-        """DINOv2, the Stage-0 backend and RMBG, each from its family's
-        directory when present."""
-        self.image_encoder = ImageEncoder(
+    def _load_backends(self, image_encoder=None, image_to_3d=None) -> None:
+        """DINOv2, the Stage-0 backend and RMBG, each the one given or else
+        from its family's directory when present."""
+        self.image_encoder = image_encoder or ImageEncoder(
             device=self.device, dtype=self._dtype, weights_dir=self._family_dir("dinov2")
         )
         # TripoSG conditions on this same encoder (the JAX package builds a
         # second one from the same weights)
-        self.image_to_3d = make_image_to_3d(
+        self.image_to_3d = image_to_3d or make_image_to_3d(
             self._family_dir("TripoSG"),
             latent_shape=self.cfg.denoiser_latent_shape,
             device=self.device,
@@ -183,6 +187,29 @@ class ActionMeshPipeline:
             image_encoder=self.image_encoder,
         )
         self.background_removal = BackgroundRemover(self._family_dir("RMBG"), self.device)
+
+    def save_pretrained(self, path: str | Path) -> None:
+        """Write the Stage I/II params as ``path/denoiser.npz`` and
+        ``path/autoencoder.npz`` in the layout JAX's ``load_params`` reads."""
+        from actionmesh_tpu_torch.utils.weights import save_npz
+
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        save_npz(self.denoiser_params, path / "denoiser.npz")
+        save_npz(self.autoencoder_params, path / "autoencoder.npz")
+        logger.info("Saved pipeline weights to %s", path)
+
+    def load_native(self, path: str | Path) -> "ActionMeshPipeline":
+        """Load the Stage I/II params from ``path/denoiser.npz`` and
+        ``path/autoencoder.npz`` (``save_pretrained``, ``export_for_inference``
+        or JAX's ``save_params``), in their stored dtypes, onto the device."""
+        from actionmesh_tpu_torch.utils.weights import load_npz
+
+        path = Path(path)
+        self.denoiser_params = load_npz(path / "denoiser.npz", self.device)
+        self.autoencoder_params = load_npz(path / "autoencoder.npz", self.device)
+        logger.info("Loaded pipeline weights from %s", path)
+        return self
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

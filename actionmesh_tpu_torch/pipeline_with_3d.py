@@ -31,11 +31,14 @@ logger = logging.getLogger(__name__)
 class ActionMeshPipelineWithMeshInput(ActionMeshPipeline):
     """Pipeline variant: the user's anchor mesh encoded by the VAE (topology kept)."""
 
-    def __init__(self, *args, surface_samples: int = 16384, **kwargs):
+    def __init__(self, *args, surface_samples: int = 16384, vae=None, **kwargs):
+        """``vae``: the encode path to use (anything with
+        ``encode_to_latent(surface, seed)``) instead of the default one."""
         super().__init__(*args, **kwargs)
         self.surface_samples = surface_samples
-        self.vae = None
-        self._load_vae()
+        self.vae = vae
+        if vae is None:
+            self._load_vae()
 
     def _load_vae(self) -> None:
         """The VAE encode path: the Stage-0 backend's own (TripoSG from its

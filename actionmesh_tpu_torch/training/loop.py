@@ -2,16 +2,16 @@
 
 Counterpart of ``actionmesh_tpu/training/loop.py``: ``TrainLoopConfig``,
 ``make_optimizer`` (``training/optim.py``), the shared ``_run_loop`` and the
-three stages ``run_flow_training`` (Stage I, or the Stage-0 DiT),
-``run_decoder_training`` (Stage II) and ``run_distillation``. Same
+four stages ``run_flow_training`` (Stage I, or the Stage-0 DiT),
+``run_decoder_training`` (Stage II), ``run_vae_training`` (the Stage-0
+TripoSG VAE on exact TSDF) and ``run_distillation``. Same
 contract: a JSONL log (``log.jsonl``) with ``stage_steps_per_s``, a
 checkpoint every ``ckpt_every`` steps and at the end (``ckpt_latest.npz``),
 resume from it, held-out eval (``keep_best_eval`` also keeps
 ``ckpt_best.npz`` and ``ckpt_best_{metric}.npz`` with their record in
 ``best_eval.json``), and a profiler trace over ``profile_steps``
 (``torch.profiler`` in place of ``jax.profiler``). Losses are fetched from
-the device only at log boundaries. VAE training is not ported yet
-(ROADMAP Queue 1).
+the device only at log boundaries.
 """
 
 from __future__ import annotations
@@ -366,6 +366,55 @@ def run_decoder_training(
             if eval_chamfer:
                 out["eval_score"] = out["eval_cd"] + out["eval_motion"]
             return out
+
+    return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)
+
+
+def run_vae_training(
+    model_cfg,
+    batches: Iterator[dict],
+    cfg: TrainLoopConfig,
+    *,
+    device: Optional[torch.device] = None,
+    params=None,
+    kl_weight: float = 1e-4,
+    on_log: Optional[Callable[[dict], None]] = None,
+    eval_batches: Optional[list[dict]] = None,
+) -> tuple[dict, list[dict]]:
+    """Train the TripoSG vecset VAE (a ``TripoSGVAEConfig``) with TSDF
+    supervision (``training/vae_train.py``; batches carry ``surface``,
+    ``points`` and ``tsdf``, as ``sdf_batches`` yields them). The loop
+    contract of ``run_flow_training``, with no EMA; the held-out eval
+    reports the TSDF MSE of the posterior mean (deterministic FPS) as
+    ``eval_loss``. Params are drawn from ``cfg.seed`` unless given. Runs on
+    the card unless ``device`` says otherwise, and raises where there is
+    none.
+    """
+    from actionmesh_tpu_torch.models.triposg.vae import init_triposg_vae
+    from actionmesh_tpu_torch.training.vae_train import make_vae_train_step, vae_loss
+
+    device = _train_device(device, "run_vae_training")
+    if params is None:
+        params = init_triposg_vae(torch.Generator(device).manual_seed(cfg.seed), model_cfg, device=device)
+    optimizer = make_optimizer(cfg)
+    state = _initial_state(params, optimizer, cfg, None)
+    del params
+    step_fn = make_vae_train_step(
+        model_cfg, optimizer, kl_weight=kl_weight, time_phases=cfg.time_phases
+    )
+
+    eval_fn = None
+    if eval_batches:
+        held_out = [to_device(b, device) for b in eval_batches]
+
+        @torch.no_grad()
+        def eval_fn(current: dict) -> float:
+            losses = [
+                vae_loss(current["params"], model_cfg, b, None, kl_weight=kl_weight,
+                         trainable=False)[1]["mse"]
+                for b in held_out
+            ]
+            return float(sum(float(l) for l in losses) / len(losses))
 
     return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)
 

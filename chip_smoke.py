@@ -147,7 +147,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      path at the evaluator's defaults (10,000 ICP points, 100,000 chamfer
      points, 200 Adam steps with per-step correspondences, 24 inits per
      frame); checks 4 successes, the metric-stack sanity checks, 400
-     kernel-E launches per sample, and a resumed call that launches none.
+     kernel-E launches per sample, and a resumed call that launches none;
+ 14. VAE training (after the DiT in 11): ``run_vae_training`` at the
+     production TripoSGVAEConfig (encoder 8 x 512, decoder 16 x 1024, 2048
+     tokens x 64 channels), fp32, batch 4, 16,384 surface points with
+     normals and 16,384 exact-TSDF queries (12,288 near-surface, 4,096
+     uniform; ``build_sdf_dataset`` on ``make_scene`` anchors) a shape: 2
+     steps and one held-out eval; finite losses, moved params, 26 launches
+     each of A, C and D a step (+ 26 of A for the eval), a vae.npz export
+     that reloads equal; forward, backward and update seconds, peak GiB;
+ 15. clip preparation: ``python -m actionmesh_tpu_torch.prepare_clips``'s
+     ``main`` on the 16 frame pairs at the turbo preset's production widths;
+     the clip it writes loads in ``ClipWindowDataset`` with (16, 2048, 64)
+     latents and (16, 257, 1024) context;
+ 16. the closed loop: ``python -m actionmesh_tpu_torch.closed_loop``'s
+     ``main`` at the micro spec (head dims 12, 16 and 32) on 2 + 1 scenes:
+     build, stage0 (VAE and DiT), train, distill, then eval of the random,
+     trained, oracle and video variants; every variant scores every scene
+     with finite CD-3D, CD-4D and CD-M, kernels A to E launch, and no plain
+     version is handed a CUDA tensor.
+Kernels A, C and D are also checked (5, 7) at the VAE step's four fp32
+shapes and at head dims 12, 16 and 32 (zero-padded to 64 by the wrapper),
+and kernel B in its three forms (norm and rotation, rotation, norm) at head
+dims 12, 16 and 32, forward and backward, bf16 and fp32.
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of its main-path call: the larger of its bytes (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the peak rate of
@@ -275,6 +297,20 @@ from synthetic_checkpoints import brightness_rmbg, reference_state_dict, shape_v
 
 STAGE1_STEPS = 2
 N_FRAMES = 16
+# The production VAE train step's attention shapes (B, H, Sq, Sk, D): batch
+# 4, 2,048 tokens, 16,384 surface points and 16,384 SDF queries a shape.
+VAE_TRAIN_SHAPES = {
+    "enc_cross": (4, 8, 2048, 16384, 64),
+    "enc_self": (4, 8, 2048, 2048, 64),
+    "dec_self": (4, 8, 2048, 2048, 128),
+    "query": (4, 8, 16384, 2048, 128),
+}
+# The closed loop's head dims below the kernels' instantiated 64: its tiny
+# DINOv2 (48 / 4), tiny VAE (64 / 4) and denoiser, decoder and DiT (128 / 4).
+SMALL_HEAD_DIMS = (12, 16, 32)
+# kernel B's three forms in the closed loop: (name, norm, tables: 16, one
+# table a batch entry of the rows below; 0, one (S, D) table; None, none)
+CLOSED_LOOP_ROPE_FORMS = (("norm_rope", True, 16), ("rope", False, 0), ("norm", True, None))
 # Kernel E's yardstick, the CUDA-core design (csrc/nn_argmin_cuda_core.cu):
 # built and timed here only, beside kernel E; the port never calls it.
 NN_YARDSTICK = "nn_argmin_cuda_core"
@@ -354,8 +390,9 @@ def phase_build() -> dict:
                 "flash_bwd": (("flash_bwd_tf32x3_kernel", "split_bwd_kernel"), 6),
                 "nn_argmin": (("nn_argmin_tf32x3_kernel", "pack_y_kernel"), 4),
                 NN_YARDSTICK: (("nn_argmin_cuda_core_kernel",), 2),
+                # 3 dtypes x the head dims x (3 forward + 5 backward forms), and the 2 sums
                 "rms_rope": (("rms_rope_fwd_kernel", "rms_rope_bwd_kernel", "sum_rows_kernel",
-                              "sum_tables_kernel"), 50)}
+                              "sum_tables_kernel"), 3 * len(rope_norm.HEAD_DIMS) * 8 + 2)}
     serialized = {}
     for name, (prefixes, count) in no_spill.items():
         if name not in cuda_build.ptxas_output:
@@ -476,6 +513,21 @@ def flash_cases(n_vertices: int):
         # over 8 x 2048 + 8 = 16,392 tokens and the vertex cross, fp32
         ("stage2_train_self_f32", (14, 8, 16392, 16392, 128), f32, pipelined),
         ("stage2_train_cross_f32", (14, 8, 4096, 16392, 128), f32, pipelined),
+        # the production VAE train step (batch 4, 16,384 surface points and
+        # 16,384 queries a shape), fp32: encoder cross and self, decoder
+        # self, the SDF query cross
+        *((f"vae_train_{n}_f32", s, f32, pipelined if n == "enc_cross" else one_block)
+          for n, s in VAE_TRAIN_SHAPES.items()),
+        # the closed loop's head dims, zero-padded to 64 by the wrapper: its
+        # tiny DINOv2 (12; 16 frames of 26 tokens), the VAE encoder's cross
+        # (16; 16 queries onto 1,024 surface points a frame) and the
+        # denoiser's inflated self-attention (32; 8 frames of 17 tokens, the
+        # CFG pair), fp32 as the loop runs; then ragged bf16 and fp32 rows
+        ("cl_dino_self_d12_f32", (16, 4, 26, 26, 12), f32, one_block),
+        ("cl_vae_enc_cross_d16_f32", (16, 4, 16, 1024, 16), f32, one_block),
+        ("cl_denoiser_self_d32_f32", (2, 4, 136, 136, 32), f32, one_block),
+        *((f"d{d}_ragged{sfx}", (2, 4, 777, 1029, d), dt, one_block)
+          for d in SMALL_HEAD_DIMS for dt, sfx in ((bf, ""), (f32, "_f32"))),
     ]
 
 
@@ -608,7 +660,12 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
         f32_extra["library_max_abs_diff"] = (lib - ref).abs().max().item()
         del lib
         f32_extra["library_kernels"] = library_kernel_names
-        got, want = tf32_split_kv(k, v), split_kv_reference(k, v)
+        # a head dim below 64 reaches the pre-pass zero-padded (the wrapper's
+        # padding), so the pre-pass is checked on the padded k and v
+        width = flash_ops.padded_head_dim(D)
+        kp, vp = (flash_ops.pad_head_dim(x, width) if width != D else x for x in (k, v))
+        got, want = tf32_split_kv(kp, vp), split_kv_reference(kp, vp)
+        del kp, vp
         f32_extra["prepass_bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
         del got, want
     del out, ref
@@ -638,6 +695,8 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
     row = {"name": name, "shape": [B, H, Sq, Sk, D], "dtype": str(dtype)[6:],
            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, **bnd, **rates, **f32_extra}
+    if flash_ops.padded_head_dim(D) != D:
+        row["padded_to"] = flash_ops.padded_head_dim(D)  # ms includes the wrapper's padding copies
     if with_stats:
         row.update(stats_err=stats_err, stats_tol=stats_tol)
     return row
@@ -676,6 +735,13 @@ ROPE_CASES = [
     # table per folded target (14), the Stage-0 DiT's norm alone
     ("stage2_train_qk_f32", (14, 8, 16392, 128), False, 14, torch.float32),
     ("stage0_dit_self_qk_f32", (2, 16, 2049, 128), True, None, torch.float32),
+    # the closed loop's three forms at its head dim 32 (denoiser: norm and
+    # rotation; decoder: rotation; DiT: norm) and at 12 and 16, in bf16 and
+    # fp32, at the denoiser's train q/k shape (batch 16, 8 frames of 17 tokens)
+    *((f"cl_{form}_d{d}{sfx}", (16, 4, 136, d), norm, tables, dt)
+      for d in (32,) + tuple(x for x in SMALL_HEAD_DIMS if x != 32)
+      for form, norm, tables in CLOSED_LOOP_ROPE_FORMS
+      for dt, sfx in ((torch.float32, "_f32"), (torch.bfloat16, ""))),
 ]
 ROPE_PROFILE_CALLS = 20  # back-to-back calls a row in the profiler session
 
@@ -899,6 +965,25 @@ BWD_CASES = [
     ("dit_cross_f32", (2, 16, 2049, 257, 128), torch.float32),
     ("dit_self", (2, 16, 2049, 2049, 128), torch.bfloat16),
     ("dit_cross", (2, 16, 2049, 257, 128), torch.bfloat16),
+    # the production VAE train step's four shapes (VAE_TRAIN_SHAPES), fp32
+    ("vae_train_enc_cross_f32", (4, 8, 2048, 16384, 64), torch.float32),
+    ("vae_train_enc_self_f32", (4, 8, 2048, 2048, 64), torch.float32),
+    ("vae_train_dec_self_f32", (4, 8, 2048, 2048, 128), torch.float32),
+    ("vae_train_query_f32", (4, 8, 16384, 2048, 128), torch.float32),
+]
+# The closed loop's head dims, zero-padded to 64 by the wrapper (kept apart
+# from BWD_CASES, whose shapes bwd_times.py hands the kernels unpadded): the
+# denoiser's train self-attention (batch 16, 8 frames of 17 tokens) in fp32,
+# the VAE encoder's cross in fp32, and the tiles' edges in bf16 and fp32.
+PADDED_BWD_CASES = [
+    ("cl_denoiser_train_self_d32_f32", (16, 4, 136, 136, 32), torch.float32),
+    ("cl_vae_enc_cross_d16_f32", (2, 4, 16, 1024, 16), torch.float32),
+    ("edge_d12", (1, 2, 129, 385, 12), torch.bfloat16),
+    ("edge_d12_f32", (1, 2, 129, 385, 12), torch.float32),
+    ("edge_d16", (1, 2, 129, 385, 16), torch.bfloat16),
+    ("edge_d16_f32", (1, 2, 129, 385, 16), torch.float32),
+    ("edge_d32", (1, 2, 129, 385, 32), torch.bfloat16),
+    ("edge_d32_f32", (1, 2, 129, 385, 32), torch.float32),
 ]
 BWD_DETERMINISM = ("stage1_cross", "small_d64", "stage1_cross_f32", "small_d64_f32")
 
@@ -936,9 +1021,14 @@ def check_flash_bwd(gen, name, shape, dtype) -> dict:
         tols[n] = rel * b.float().abs().max().item()
     scale = D ** -0.5
     lse, delta = (x.contiguous() for x in bwd_row_stats(o, m, l, do))
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    ms_c = cuda_ms(lambda: launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, ("dkv",)), reps)
-    ms_d = cuda_ms(lambda: launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale, ("dq",)), reps)
+    # C and D timed alone on what the wrapper hands them: a head dim below
+    # 64 zero-padded to 64 (the padding copies are the wrapper's, not timed)
+    width = flash_ops.padded_head_dim(D)
+    qt, kt, vt, dot = (flash_ops.pad_head_dim(x, width) if width != D else x for x in (q, k, v, do))
+    dq, dk, dv = (torch.empty_like(x) for x in (qt, kt, vt))
+    ms_c = cuda_ms(lambda: launch_bwd_kernels(qt, kt, vt, dot, lse, delta, dq, dk, dv, scale, ("dkv",)), reps)
+    ms_d = cuda_ms(lambda: launch_bwd_kernels(qt, kt, vt, dot, lse, delta, dq, dk, dv, scale, ("dq",)), reps)
+    del qt, kt, vt, dot, dq, dk, dv
     plain_ms = cuda_ms(lambda: attention_bwd_reference(q, k, v, o, m, l, do), reps)
 
     def sdpa_fwd_bwd():
@@ -985,7 +1075,8 @@ def check_flash_bwd(gen, name, shape, dtype) -> dict:
             "plain_ms": plain_ms, "library_ms": library_ms, "library_bwd_ms": library_bwd_ms,
             "deterministic": deterministic, "forward_stats_err": stats_err, "tflops_dkv": tf_c,
             "tflops_dq": tf_d, "bound_dkv": bnd_c, "bound_dq": bnd_d, "bound_share_dkv": share_c,
-            "bound_share_dq": share_d, "vs_library_bwd": vs_bwd}
+            "bound_share_dq": share_d, "vs_library_bwd": vs_bwd,
+            **({"padded_to": width} if width != D else {})}
 
 
 # Kernel B's backward: the Stage-I training shapes (self q/k with per-batch
@@ -1007,10 +1098,17 @@ ROPE_BWD_CASES = [
     ("stage2_train_qk_rot_f32", (14, 8, 16392, 128), False, 14, torch.float32, False),
     ("dit_qk_norm_f32", (2, 16, 2049, 128), True, None, torch.float32, False),
     ("dit_qk_norm", (2, 16, 2049, 128), True, None, torch.bfloat16, False),
+    # the closed loop's three forms at head dims 32, 12 and 16, bf16 and fp32
+    # (the rotation forms also with the tables' gradients at D = 12)
+    *((f"cl_{form}_d{d}{sfx}", (16, 4, 136, d), norm, tables, dt, d == 12 and tables is not None)
+      for d in (32,) + tuple(x for x in SMALL_HEAD_DIMS if x != 32)
+      for form, norm, tables in CLOSED_LOOP_ROPE_FORMS
+      for dt, sfx in ((torch.float32, "_f32"), (torch.bfloat16, ""))),
 ]
 # the rows timed (the training paths' shapes); the edge cases are checks only
 ROPE_BWD_TIMED = ("stage1_self_qk", "stage1_self_qk_f32", "stage1_cross_q", "stage2_train_qk_rot_f32",
-                  "dit_qk_norm_f32", "dit_qk_norm")
+                  "dit_qk_norm_f32", "dit_qk_norm", "cl_norm_rope_d32_f32", "cl_rope_d32_f32",
+                  "cl_norm_d32_f32")
 
 
 def check_rms_rope_bwd(gen, name, shape, norm, tables, dtype, table_grads, reps=3) -> dict:
@@ -1109,7 +1207,7 @@ def check_rms_rope_bwd(gen, name, shape, norm, tables, dtype, table_grads, reps=
 def phase_backward() -> tuple[list, list]:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     bwd = []
-    for n, s, d in BWD_CASES:
+    for n, s, d in BWD_CASES + PADDED_BWD_CASES:
         bwd.append(check_flash_bwd(gen, n, s, d))
         torch.cuda.empty_cache()
     rope = [check_rms_rope_bwd(gen, *case) for case in ROPE_BWD_CASES]
@@ -2744,6 +2842,227 @@ def phase_video_3d() -> dict:
             "wall_seconds": wall_s, "clip": clip, "uv_kept": uv_kept}
 
 
+VAE_STEPS = 2
+VAE_BATCH, VAE_NEAR, VAE_UNIFORM = 4, 12288, 4096  # 16,384 queries a shape, 3:1 near:uniform
+VAE_POINTS = VAE_NEAR + VAE_UNIFORM  # also the surface points a shape
+
+
+def expected_vae_launches(cfg: TripoSGVAEConfig, steps: int, evals: int) -> dict:
+    """Kernel launches of ``steps`` VAE train steps and ``evals`` held-out
+    eval forwards: the encoder cross, each encoder and decoder block's self
+    attention and the SDF query cross, kernel A once each a forward; C and
+    D once each a step (no remat); no qk-norm or rotation (no B)."""
+    n = 2 + cfg.encoder_layers + cfg.decoder_layers
+    return dict(zip(COUNTERS, (n * (steps + evals), 0, n * steps, n * steps, 0, 0)))
+
+
+def phase_train_vae() -> dict:
+    """VAE training (``run_vae_training``) at the production TripoSGVAEConfig
+    on fp32 (TF32 off): VAE_STEPS steps of batch 4 on exact-TSDF pools of
+    ``make_scene`` anchors (``build_sdf_dataset``: 16,384 surface points
+    with normals and 12,288 near-surface + 4,096 uniform queries a shape),
+    then one held-out eval (posterior-mean TSDF MSE) of 4 more scenes;
+    checks finite losses, moved params, the launch counts, and a vae.npz
+    export that reloads equal to the params."""
+    from actionmesh_tpu_torch.training.checkpoint import export_for_inference
+    from actionmesh_tpu_torch.training.closed_loop import CascadeSpec, build_sdf_dataset, load_sdf_dataset
+    from actionmesh_tpu_torch.training.loop import run_vae_training
+    from actionmesh_tpu_torch.training.vae_train import sdf_batches
+    from actionmesh_tpu_torch.utils.weights import load_npz
+
+    label = "train VAE float32"
+    work = OUT_DIR / "vae"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = TripoSGVAEConfig()
+    uids = [f"scene_{i:04d}" for i in range(2 * VAE_BATCH)]
+    t0 = time.perf_counter()
+    # one host thread a scene: the exact TSDF is numpy over (query x face)
+    # tiles, ~14 s a scene of 16,384 queries in one thread
+    spec = CascadeSpec(surface_samples=VAE_POINTS)
+    with ThreadPoolExecutor(len(uids)) as pool:
+        list(pool.map(lambda uid: build_sdf_dataset(work, spec, [uid], n_near=VAE_NEAR,
+                                                    n_uniform=VAE_UNIFORM), uids))
+    train_scenes = load_sdf_dataset(work, uids[:VAE_BATCH])
+    eval_set = list(sdf_batches(load_sdf_dataset(work, uids[VAE_BATCH:]), VAE_BATCH, VAE_POINTS,
+                                seed=123, epochs=1))
+    data_s = time.perf_counter() - t0
+    loop_cfg = TrainLoopConfig(total_steps=VAE_STEPS, warmup_steps=1, ema_decay=None, log_every=1,
+                               ckpt_every=0, eval_every=VAE_STEPS, keep_best_eval=True,
+                               out_dir=str(work / "run"), resume=False, time_phases=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    with no_plain_version_on_card():
+        state, history = run_vae_training(
+            cfg, sdf_batches(train_scenes, VAE_BATCH, VAE_POINTS, seed=0), loop_cfg,
+            device=torch.device("cuda"), eval_batches=eval_set)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counters()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses, step_s, phases = train_summary(label, history, peak_gib, run_s)
+    evals = [h for h in history if "eval_loss" in h]
+    want = expected_vae_launches(cfg, VAE_STEPS, len(evals))
+    log(f"{label}: batch {VAE_BATCH}, {VAE_POINTS} surface points and {VAE_POINTS} queries a shape "
+        f"(exact TSDF of {len(uids)} scenes, data {data_s:.1f} s) | eval {evals} | launches {launches} "
+        f"(expected {want})")
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches} != {want}")
+    if len(losses) != VAE_STEPS or len(evals) != 1 or not math.isfinite(evals[0]["eval_loss"]):
+        raise AssertionError(f"{label}: losses {losses}, evals {evals}")
+    init = init_triposg_vae(torch.Generator("cuda").manual_seed(loop_cfg.seed), cfg, device=torch.device("cuda"))
+    check_moved(label, state["params"], init)
+    del init
+    path = export_for_inference(state, work / "export", stage="stage0_vae", compute_dtype=None)
+    reloaded = load_npz(path, device=torch.device("cuda"))
+    same = all(n == m and torch.equal(a, b) for (n, a), (m, b) in
+               zip(named_leaves(reloaded), named_leaves(state["params"])))
+    same = same and len(leaves(reloaded)) == len(leaves(state["params"]))
+    log(f"{label}: exported {path.name} ({path.stat().st_size / 1e9:.2f} GB), reloaded equal to the "
+        f"params: {same}")
+    if not (path.name == "vae.npz" and same):
+        raise AssertionError(f"{label}: the export does not reload as the params")
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    del state, reloaded
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", "params": n_params, "launches": launches, "expected_launches": want,
+            "losses": losses, "step_seconds": step_s, "phase_seconds": phases, "eval": evals[0],
+            "peak_gib": peak_gib, "run_seconds": run_s, "data_seconds": data_s,
+            "shape": {"batch": VAE_BATCH, "surface_points": VAE_POINTS, "queries": VAE_POINTS,
+                      "attention": VAE_TRAIN_SHAPES}}
+
+
+@contextlib.contextmanager
+def no_plain_version_on_card():
+    """Fails the run if a plain version of kernels A-E (forward or
+    backward) is handed a CUDA tensor: on the card every wrapper must
+    launch its kernel."""
+    from actionmesh_tpu_torch.ops import nn_argmin as nn_module
+
+    plains = ((flash_ops, "chunked_attention", "kernel A's"),
+              (flash_ops, "chunked_attention_trainable", "kernels A, C and D's"),
+              (rope_norm, "rms_rope_reference", "kernel B's"),
+              (nn_module, "nn_argmin_reference", "kernel E's"))
+
+    def guard(plain, what):
+        def guarded(x, *args, **kw):
+            if x.is_cuda:
+                raise AssertionError(f"{what} plain version was called with a CUDA tensor")
+            return plain(x, *args, **kw)
+        return guarded
+
+    saved = [getattr(module, attr) for module, attr, _ in plains]
+    for (module, attr, what), plain in zip(plains, saved):
+        setattr(module, attr, guard(plain, what))
+    try:
+        with no_plain_backward_on_card():
+            yield
+    finally:
+        for (module, attr, _), plain in zip(plains, saved):
+            setattr(module, attr, plain)
+
+
+def phase_prepare_clips() -> dict:
+    """``python -m actionmesh_tpu_torch.prepare_clips``'s ``main`` on the 16
+    synthetic frame pairs at the turbo preset (full widths, random weights,
+    DevTripoSG's 25 guidance-free Stage-0 steps, 4 Stage-I steps): one clip
+    npz that ``ClipWindowDataset`` loads, with the production shapes,
+    finite values and timesteps in order."""
+    from actionmesh_tpu_torch import prepare_clips
+    from actionmesh_tpu_torch.ops import nn_argmin as nn_module
+    from actionmesh_tpu_torch.training.data import ClipWindowDataset
+
+    work = OUT_DIR / "prepare_clips"
+    shutil.rmtree(work, ignore_errors=True)
+    write_frame_pairs(work / "in" / "clip_0", make_frames())
+    reset_counters()
+    nn_module.nn_argmin.launches = 0
+    t0 = time.perf_counter()
+    with no_plain_version_on_card():
+        rc = prepare_clips.main(["--input", str(work / "in"), "--out", str(work / "out"),
+                                 "--config-name", "actionmesh_turbo", "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    item = ClipWindowDataset(work / "out", window=N_FRAMES)[0]
+    shapes = {k: list(v.shape) for k, v in item.items()}
+    finite = all(bool(np.isfinite(v).all()) for v in item.values())
+    log(f"prepare_clips turbo: rc {rc}, {seconds:.1f} s (pipeline built in the call), clip {shapes}, "
+        f"finite {finite}, launches {launches}")
+    want = {"latents": [N_FRAMES, 2048, 64], "context": [N_FRAMES, 257, 1024], "framestep": [N_FRAMES]}
+    if rc != 0 or shapes != want or not finite or not np.array_equal(item["framestep"], np.arange(N_FRAMES)):
+        raise AssertionError(f"prepare_clips: rc {rc}, shapes {shapes}, finite {finite}")
+    if not (launches["flash_fwd"] and launches["fused_rms_rope"]):
+        raise AssertionError(f"prepare_clips: kernels A and B not launched: {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "shapes": shapes, "launches": launches}
+
+
+# The closed loop at the micro spec of tests/test_closed_loop.py (head dims
+# 32 in the denoiser and decoder, 32 in the DiT, 16 in the VAE, 12 in
+# DINOv2), 2 train + 1 eval scenes, through its entry point's phases.
+CLOSED_LOOP_SPEC = dict(image_size=96, surface_samples=256, track_points=128, gt_points=2000, n_lat=12,
+                        n_lon=16, denoiser_width=64, denoiser_layers=2, denoiser_heads=2,
+                        decoder_width=64, decoder_layers=2, decoder_heads=2, num_inference_steps=2)
+CLOSED_LOOP_STEPS = {"vae": 200, "dit": 50, "flow": 20, "decoder": 20, "distill": 4}
+CLOSED_LOOP_VARIANTS = ("random", "trained", "oracle", "video")
+
+
+def phase_closed_loop() -> dict:
+    """``python -m actionmesh_tpu_torch.closed_loop``'s ``main`` at the micro
+    spec on the card: build, stage0 (VAE on exact TSDF, DiT), train (flow,
+    decoder), distill, then eval of the random, trained, oracle and video
+    (Stage 0 from the anchor frame) variants with the ActionBench harness at
+    its closed-loop settings (200 ICP steps, 5,000 ICP points). Every
+    variant must score every scene with finite CDs; kernels A to E must
+    launch and no plain version run on the card."""
+    from actionmesh_tpu_torch import closed_loop as cl_entry
+    from actionmesh_tpu_torch.ops import nn_argmin as nn_module
+
+    root = OUT_DIR / "closed_loop"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--root", str(root), "--device", "cuda", "--batch", "2"]
+    spec = [f for k, v in CLOSED_LOOP_SPEC.items() for f in ("--spec", f"{k}={v}")]
+    st = CLOSED_LOOP_STEPS
+    runs = [
+        ("build", ["build", "--n-train", "2", "--n-eval", "1", *spec]),
+        ("stage0", ["stage0", "--vae-steps", str(st["vae"]), "--dit-steps", str(st["dit"]),
+                    "--vae-query-points", "512"]),
+        ("train", ["train", "--flow-steps", str(st["flow"]), "--decoder-steps", str(st["decoder"])]),
+        ("distill", ["distill", "--distill-steps", str(st["distill"])]),
+        ("eval", ["eval", "--variants", ",".join(CLOSED_LOOP_VARIANTS)]),
+    ]
+    reset_counters()
+    nn_module.nn_argmin.launches = 0
+    seconds, report = {}, {}
+    with no_plain_version_on_card():
+        for name, argv in runs:
+            t0 = time.perf_counter()
+            out = cl_entry.main([*argv, *common])
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            if name == "eval":
+                report = out
+    launches = {**read_counters(), "nn_argmin": nn_module.nn_argmin.launches}
+    log(f"closed loop (micro spec): seconds {seconds} | launches {launches} | report {report}")
+    bad = [v for v in CLOSED_LOOP_VARIANTS if v not in report
+           or report[v]["n_success"] != report[v]["n_samples"]
+           or not all(math.isfinite(report[v][k]) for k in ("cd_3d", "cd_4d", "cd_motion"))]
+    if bad:
+        raise AssertionError(f"closed loop: variants {bad} did not score every scene: {report}")
+    missing = [k for k in ("flash_fwd", "fused_rms_rope", "flash_bwd_dkv", "flash_bwd_dq",
+                           "fused_rms_rope_bwd", "nn_argmin") if not launches[k]]
+    if missing:
+        raise AssertionError(f"closed loop: {missing} never launched on the card: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "launches": launches, "report": report, "steps": st,
+            "spec": CLOSED_LOOP_SPEC}
+
+
 SHARE_MAX = 1.05  # bound_ms / ms; above 1 only by the timer's noise
 
 
@@ -2821,8 +3140,11 @@ def main() -> None:
     dec = phase_train_decoder()
     distill = {mode: phase_distill(mode) for mode in ("guidance", "progressive")}
     dit = phase_train_stage0()
+    vae = phase_train_vae()
     small_icp = phase_small_icp()
     ab = phase_actionbench()
+    prep = phase_prepare_clips()
+    loop = phase_closed_loop()
 
     def summary(name, source, replaces, rows, launches):
         head = rows[0]
@@ -2835,9 +3157,9 @@ def main() -> None:
 
     train_runs = {"training": tr, "training_fp32": tr32, "decoder_fp32": dec,
                   "distill_guidance": distill["guidance"], "distill_progressive": distill["progressive"],
-                  "stage0_dit_fp32": dit}
+                  "stage0_dit_fp32": dit, "vae_fp32": vae, "closed_loop": loop}
 
-    def trained(name):  # every train phase: Stage I bf16 and fp32, decoder, distillation, DiT
+    def trained(name):  # every train phase: Stage I bf16 and fp32, decoder, distillation, DiT, VAE, closed loop
         return sum(run["launches"][name] for run in train_runs.values())
 
     def train_paths(name):
@@ -2848,11 +3170,12 @@ def main() -> None:
                 **{f"cli_{preset}": run["launches"][name] for preset, run in cli_runs.items()
                    if preset in CLI_PRESETS},
                 "cli_checkpoints": ckpt["launches"][name], "cli_video": ckpt["video"]["launches"][name],
-                "video_3d": v3d["launches"][name]}
+                "video_3d": v3d["launches"][name], "prepare_clips": prep["launches"][name]}
 
     def cli_launches(name):
         return (sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
-                + ckpt["launches"][name] + ckpt["video"]["launches"][name] + v3d["launches"][name])
+                + ckpt["launches"][name] + ckpt["video"]["launches"][name] + v3d["launches"][name]
+                + prep["launches"][name])
 
     def bwd_summary(name, replaces, key):
         rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
@@ -2881,7 +3204,7 @@ def main() -> None:
         bwd_summary("flash_bwd_dkv", "actionmesh_tpu/ops/flash_attention_bwd.py:261", ("dkv", ("dk", "dv"))),
         bwd_summary("flash_bwd_dq", "actionmesh_tpu/ops/flash_attention_bwd.py:287", ("dq", ("dq",))),
         summary("nn_argmin", "actionmesh_tpu_torch/csrc/nn_argmin.cu",
-                "actionmesh_tpu/ops/nn_argmin.py:148", nn, ab["launches"]),
+                "actionmesh_tpu/ops/nn_argmin.py:148", nn, ab["launches"] + loop["launches"]["nn_argmin"]),
         summary("flash_attention_fused", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
                 "actionmesh_tpu/ops/flash_attention.py:492", fused,
                 sl["launches"]["flash_fused"] + trained("flash_fused")),
@@ -2908,7 +3231,8 @@ def main() -> None:
                                 "cross q shape (no tables), beside that row's fwd_bwd_ms")
     bwd_b["launches_note"] = "one launch counts a call: the backward kernel and its fixed-order sums"
     kernels.insert(2, bwd_b)
-    kernels[5]["launches_by_path"] = {"actionbench": ab["launches"]}
+    kernels[5]["launches_by_path"] = {"actionbench": ab["launches"],
+                                      "closed_loop": loop["launches"]["nn_argmin"]}
     kernels[5]["library_ms_note"] = "none: no single PyTorch call gives the nearest index (cdist, then argmin)"
     kernels[5]["max_abs_err_note"] = "float64 squared-distance difference of differing picks"
     kernels[5].update({k: nn[0][k] for k in ("bound_tensor_core_ms", "bound_min_op_ms",
@@ -2928,7 +3252,8 @@ def main() -> None:
                       "small_checkpoint": small_ckpt, "checkpoints": ckpt, "video_3d": v3d,
                       "slice": sl, "sdf_chunk": sdf_chunk, "cli": cli_runs, "train": tr,
                       "train_fp32": tr32, "train_decoder": dec, "distill": distill,
-                      "train_stage0_dit": dit,
+                      "train_stage0_dit": dit, "train_vae": vae, "prepare_clips": prep,
+                      "closed_loop": loop,
                       "actionbench": ab,
                       "card": info["nvidia_smi"]}),
           flush=True)
