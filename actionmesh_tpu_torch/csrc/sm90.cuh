@@ -144,6 +144,19 @@ inline EncodeTiledFn encode_tiled() {
 constexpr int kErrNoEncoder = 10000;    // no cuTensorMapEncodeTiled was found
 constexpr int kErrEncodeBase = 20000;   // + the CUresult of a refused encode
 
+// Make the primary context of the device that holds `ptr` current on the
+// calling thread (cudaSetDevice binds it at once since CUDA 12). The encode
+// needs a current context, and a thread whose first CUDA work is a launch
+// here (a server's request thread: PyTorch's allocator may serve its tensors
+// from its cache without a runtime call) has none: the encode then fails with
+// CUDA_ERROR_INVALID_CONTEXT. Returns 0 or a cudaError_t.
+inline int bind_device_of(const void* ptr) {
+  cudaPointerAttributes attr;
+  cudaError_t e = cudaPointerGetAttributes(&attr, ptr);
+  if (e == cudaSuccess) e = cudaSetDevice(attr.device);
+  return static_cast<int>(e);
+}
+
 // Rank-4 tensor map (D, S, H, B) of a tensor of `type` (`elem_bytes` each)
 // with element strides (ss, sh, sb), box 128 bytes of columns (64 bf16, 32
 // fp32: one swizzle atom column) x `box_rows` rows, 128-byte swizzle, zero
@@ -153,6 +166,7 @@ inline int make_tensor_map_typed(CUtensorMap* map, CUtensorMapDataType type, int
                                  long long sh, long long sb, int box_rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
+  if (const int err = bind_device_of(ptr)) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(ss * elem_bytes), (cuuint64_t)(sh * elem_bytes),
                                  (cuuint64_t)(sb * elem_bytes)};

@@ -112,14 +112,16 @@ def encode_draws(seed: int, batch: int, n_points: int, n_presample: int, latent_
     return {"pre_idx": pre_idx, "start": start, "noise": noise}
 
 
-def _refuse_coarse_decode_dtype(coarse_decode_dtype: Optional[str]) -> None:
-    """The JAX package's reduced-precision coarse pass is not ported: no
-    preset sets it, and every query here runs in fp32."""
-    if coarse_decode_dtype is not None:
-        raise NotImplementedError(
-            f"coarse_decode_dtype={coarse_decode_dtype!r}: the reduced-precision "
-            "coarse SDF pass is not ported; leave it None (fp32 queries)"
-        )
+def coarse_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """The torch dtype ``stage_0.coarse_decode_dtype`` names ("bfloat16",
+    "float16", ...), None for None or ""; a name that is no dtype raises,
+    as JAX's ``jnp.dtype`` does."""
+    if not name:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise TypeError(f"coarse_decode_dtype: data type {name!r} not understood")
+    return dtype
 
 
 def triposg_configs(path: Path):
@@ -296,7 +298,7 @@ class TripoSGPipeline:
 
         ``guidance_scale <= 0`` selects guidance-free sampling.
         """
-        _refuse_coarse_decode_dtype(coarse_decode_dtype)
+        coarse_dtype(coarse_decode_dtype)  # a bad name raises before the DiT loop
         t0 = time.perf_counter()
         context = self.image_encoder.encode_images([image])  # (1, S, Dc)
         self._sync()
@@ -361,10 +363,13 @@ class TripoSGPipeline:
 
         ``prefilter_octree_depth``: the two-level coarse pass (only the
         surface band of a depth-P sign grid is queried at the dense depth).
-        ``coarse_decode_dtype`` (the JAX package's reduced-precision coarse
-        pass) is not ported: any value but None raises.
+        ``coarse_decode_dtype`` ("bfloat16"): the coarse passes, which read
+        only signs (the prefilter or dense sign grid and the band), query in
+        that dtype (kernel A's bf16 path on the card); the fine pass, whose
+        values place the vertices, stays fp32. A sign that bf16 flips lies
+        next to the surface, where the fine pass decides.
         """
-        _refuse_coarse_decode_dtype(coarse_decode_dtype)
+        coarse_cd = coarse_dtype(coarse_decode_dtype)
         latents = latents.to(device=self.device, dtype=self._dtype)
         reg_host, reg_torch = self.sdf_regularizer, self.sdf_regularizer_torch
         params, cfg = self.vae_params, self.vae_cfg
@@ -387,11 +392,22 @@ class TripoSGPipeline:
 
                 def grid_inside_fn(lo, step, Rc, level):
                     return query_sdf_grid_inside(
-                        params, cfg, kv, lo, step, level, Rc, regularizer=reg_torch
+                        params, cfg, kv, lo, step, level, Rc, regularizer=reg_torch,
+                        compute_dtype=coarse_cd,
                     )
 
                 def ids_val_fn(ijk, lo, step):
                     return query_sdf_at_ids(params, cfg, kv, ijk, lo, step, regularizer=reg_torch)
+
+            # the sign-only variant for the prefilter and band passes
+            ids_val_coarse_fn = None
+            if ids_val_fn is not None and coarse_cd is not None:
+
+                def ids_val_coarse_fn(ijk, lo, step):
+                    return query_sdf_at_ids(
+                        params, cfg, kv, ijk, lo, step, regularizer=reg_torch,
+                        compute_dtype=coarse_cd,
+                    )
 
             self.extract_stats = {}
             v, f = hierarchical_extract_geometry(
@@ -403,6 +419,7 @@ class TripoSGPipeline:
                 ids_val_fn=ids_val_fn,
                 chunk=QUERY_CHUNK,  # the fast paths' chunk: ids are padded to it
                 prefilter_octree_depth=prefilter_octree_depth,
+                ids_val_coarse_fn=ids_val_coarse_fn,
                 stats=self.extract_stats,
             )
             if len(f) == 0:

@@ -11,7 +11,8 @@ and arbitrary 3D query points cross-attend the decoded set to give one SDF
 value each (``query_sdf``). The lattice queries of the extraction generate
 their points on the device from their flat index or their integer lattice
 ids, run in chunks of 2^18 points (one kernel-A launch each), and copy the
-result to the host once per call.
+result to the host once per call. Their ``compute_dtype`` (bf16 for the
+sign-only coarse passes) runs the query cross-attention in that dtype.
 
 ``init_triposg_vae`` builds the whole parameter tree, encoder included, so
 that the weight bridge sees the JAX package's keys; the query-side
@@ -201,14 +202,29 @@ def _query_core(
     kv: torch.Tensor,
     points: torch.Tensor,
     trainable: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """SDF field query body: points (B, Q, 3) -> (B, Q) values (fp32)."""
+    """SDF field query body: points (B, Q, 3) -> (B, Q) values (fp32).
+
+    ``compute_dtype`` (e.g. bf16): the query cross-attention's four
+    projections and its attention (kernel A's path of that dtype) run in
+    it, on the decoded set cast to it; the point embedding, ``proj_query``,
+    the layer norms and ``dec_proj_out`` stay fp32, as does the residual.
+    Only the coarse passes, which read signs, take it.
+    """
+    attn_params = params["dec_cross_attn"]
+    if compute_dtype is not None:
+        attn_params = {
+            key: {k: w.to(compute_dtype) for k, w in leaf.items()}
+            if key in ("to_q", "to_k", "to_v", "to_out") else leaf  # the norms stay fp32
+            for key, leaf in attn_params.items()
+        }
     q = linear(params["proj_query"], _embed_points(cfg, points))
     h = q + attention(
-        params["dec_cross_attn"],
+        attn_params,
         layer_norm(params["dec_norm_cross_q"], q),
         heads=cfg.decoder_heads,
-        encoder_hidden_states=kv.float(),
+        encoder_hidden_states=kv.to(compute_dtype or torch.float32),
         trainable=trainable,
     ).float()
     out = linear(params["dec_proj_out"], layer_norm(params["dec_norm_out"], h))
@@ -244,14 +260,15 @@ def query_sdf_grid_inside(
     Rc: int,
     chunk: int = QUERY_CHUNK,
     regularizer: Optional[Callable] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> np.ndarray:
     """Inside mask (value < level) of the dense ``Rc**3`` lattice.
 
     The points of each chunk are generated on the device from their flat
     row-major (i, j, k) index; the int8 mask comes to the host once.
     ``regularizer`` is an optional ``(pts, vals) -> vals`` applied before
-    the threshold. Returns int8 (n_chunks * chunk,); entries past ``Rc**3``
-    are padding.
+    the threshold; ``compute_dtype`` as for ``_query_core``. Returns int8
+    (n_chunks * chunk,); entries past ``Rc**3`` are padding.
     """
     n_chunks = -(-Rc**3 // chunk)
     inside = torch.empty(n_chunks * chunk, dtype=torch.int8, device=kv.device)
@@ -259,7 +276,7 @@ def query_sdf_grid_inside(
         idx = ci * chunk + torch.arange(chunk, dtype=torch.int32, device=kv.device)
         ijk = torch.stack([idx // (Rc * Rc), (idx // Rc) % Rc, idx % Rc], dim=-1)
         pts = _lattice_points(lo, step, ijk)
-        vals = _query_core(params, cfg, kv, pts[None])[0]
+        vals = _query_core(params, cfg, kv, pts[None], compute_dtype=compute_dtype)[0]
         if regularizer is not None:
             vals = regularizer(pts, vals)
         inside[ci * chunk : (ci + 1) * chunk] = vals < level
@@ -275,12 +292,15 @@ def query_sdf_at_ids(
     step,
     chunk: int = QUERY_CHUNK,
     regularizer: Optional[Callable] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> np.ndarray:
     """SDF values at lattice ids ``ijk`` (M, 3) int32, points lo + ijk * step.
 
     The ids go to the device in one copy and the fp32 values come back in
     one. ``M`` must be a multiple of ``chunk`` (the caller pads and discards
-    the padded entries).
+    the padded entries). ``compute_dtype`` as for ``_query_core``: only for
+    callers that read signs (the band pass); the fine pass's values, which
+    marching cubes interpolates, leave it None (fp32).
     """
     if len(ijk) % chunk:
         raise ValueError(f"query_sdf_at_ids: {len(ijk)} ids, not a multiple of {chunk}")
@@ -288,7 +308,7 @@ def query_sdf_at_ids(
     vals_out = torch.empty(len(ids), dtype=torch.float32, device=kv.device)
     for c0 in range(0, len(ids), chunk):
         pts = _lattice_points(lo, step, ids[c0 : c0 + chunk])
-        vals = _query_core(params, cfg, kv, pts[None])[0]
+        vals = _query_core(params, cfg, kv, pts[None], compute_dtype=compute_dtype)[0]
         if regularizer is not None:
             vals = regularizer(pts, vals)
         vals_out[c0 : c0 + chunk] = vals.float()

@@ -10,11 +10,12 @@ Stage 0 (anchor latent + mesh) -> DINOv2 encode -> Stage I over AR windows
 family whose directory is absent runs on seeded random weights
 (development mode; without TripoSG, Stage 0 is the real TripoSG path with
 random weights, ``models/stage0.py:DevTripoSG``); one that is present but
-malformed raises. Not ported: device meshes and sharding, segmented
-launches, profiler traces, the download of missing checkpoints (the card has
-no network: the missing families are logged) and the static-shape vertex
-bucketing (padded query rows are independent, so dropping it changes no
-result).
+malformed raises. Each Stage-I and Stage-II window runs inside a
+``trace("stage1_window_<i>")`` / ``trace("stage2_window_<i>")`` span
+(``utils/profiling.py``). Not ported: device meshes and sharding, segmented
+launches, the download of missing checkpoints (the card has no network: the
+missing families are logged) and the static-shape vertex bucketing (padded
+query rows are independent, so dropping it changes no result).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from actionmesh_tpu_torch.sampling.denoise_loop import denoise_window, get_noise
 from actionmesh_tpu_torch.sampling.flow_schedule import get_schedule
 from actionmesh_tpu_torch.sampling.guidance import make_guidance
 from actionmesh_tpu_torch.utils.banks import LatentBank, MeshBank
+from actionmesh_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
 
@@ -320,12 +322,13 @@ class ActionMeshPipeline:
         for i, window_indices in enumerate(ar_windows):
             window_input = input.get(window_indices)
             t0 = time.perf_counter()
-            window_latents = self._denoise_latents(
-                input=window_input,
-                context=context[torch.as_tensor(window_indices, device=context.device)],
-                latent_bank=latent_bank,
-                seed=seed + i,
-            )
+            with trace(f"stage1_window_{i}"):
+                window_latents = self._denoise_latents(
+                    input=window_input,
+                    context=context[torch.as_tensor(window_indices, device=context.device)],
+                    latent_bank=latent_bank,
+                    seed=seed + i,
+                )
             self._sync()
             logger.info(
                 "Stage I window %d/%d: %.2fs", i + 1, len(ar_windows), time.perf_counter() - t0
@@ -409,13 +412,14 @@ class ActionMeshPipeline:
             source_alpha = apply_scaling(window_timesteps[:, 0], t_min, t_range)
             target_alphas = apply_scaling(output_timesteps, t_min, t_range)
             t0 = time.perf_counter()
-            window_meshes = self._decode_displacement(
-                latents=window_latents,
-                window_timesteps=window_timesteps,
-                source_alpha=source_alpha,
-                target_alphas=target_alphas,
-                anchor_mesh=anchor_mesh,
-            )
+            with trace(f"stage2_window_{window_idx}"):
+                window_meshes = self._decode_displacement(
+                    latents=window_latents,
+                    window_timesteps=window_timesteps,
+                    source_alpha=source_alpha,
+                    target_alphas=target_alphas,
+                    anchor_mesh=anchor_mesh,
+                )
             logger.info(
                 "Stage II window %d/%d: %.2fs",
                 window_idx + 1, len(ar_windows), time.perf_counter() - t0,

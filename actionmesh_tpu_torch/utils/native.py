@@ -1,11 +1,14 @@
 """ctypes binding to the repository's native C++ geometry library (``native/``).
 
 Counterpart of ``actionmesh_tpu/utils/native.py``, binding what the port
-calls: ``marching_cubes_grid`` (triangulation of the hierarchical SDF
-lattice), ``quadric_decimate`` (QEM edge collapse), ``grid_cluster_simplify``
-(its clustering pre-pass) and ``rasterize_zbuffer`` (the preview renderer's
-visibility pass). Beside it, the port's own ``csrc/png_unfilter.cpp``
-(``png_unfilter``, for ``io/png.py``) is built and loaded the same way.
+calls: ``marching_cubes_grid`` and ``marching_tetrahedra_grid``
+(triangulation of the hierarchical SDF lattice), ``marching_cubes_cells``
+and ``marching_tetrahedra_cells`` (of pre-filtered crossing cells: the dense
+single-level extraction), ``quadric_decimate`` (QEM edge collapse),
+``grid_cluster_simplify`` (its clustering pre-pass) and
+``rasterize_zbuffer`` (the preview renderer's visibility pass). Beside it,
+the port's own ``csrc/png_unfilter.cpp`` (``png_unfilter``, for
+``io/png.py``) is built and loaded the same way.
 
 ``native/actionmesh_native.cpp`` is compiled with g++, with the flags of
 ``native/build.sh``, into ``actionmesh_tpu_torch/_build/
@@ -98,14 +101,23 @@ def _load() -> ctypes.CDLL:
     lib.quadric_decimate.argtypes = [f64p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64, f64p, i64p, i64p]
     lib.grid_cluster_simplify.restype = ctypes.c_int64
     lib.grid_cluster_simplify.argtypes = [f64p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64, f64p, i64p, i64p]
-    lib.marching_cubes_grid.restype = ctypes.c_int64
-    lib.marching_cubes_grid.argtypes = [
-        ctypes.POINTER(ctypes.c_float), i64p, ctypes.c_int64, ctypes.c_int64,
-        f64p, f64p, ctypes.c_double, ctypes.c_int64,
-        ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
-        ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
-        i64p,
-    ]
+    for name in ("marching_cubes_grid", "marching_tetrahedra_grid"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_float), i64p, ctypes.c_int64, ctypes.c_int64,
+            f64p, f64p, ctypes.c_double, ctypes.c_int64,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+            i64p,
+        ]
+    for name in ("marching_cubes_cells", "marching_tetrahedra_cells"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [
+            f64p, ctypes.POINTER(ctypes.c_float), i64p, ctypes.c_int64, ctypes.c_double,
+            f64p, ctypes.c_int64, i64p, ctypes.c_int64, i64p,
+        ]
     lib.am_free.restype = None
     lib.am_free.argtypes = [ctypes.c_void_p]
     f32p, i32p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
@@ -165,29 +177,18 @@ def grid_cluster_simplify(
     return _simplify("grid_cluster_simplify", vertices, faces, res)
 
 
-def marching_cubes_grid(
-    fine_vals: np.ndarray,
-    cell_ijk: np.ndarray,
-    lo: np.ndarray,
-    cell_size: np.ndarray,
-    fine_R: int,
-    level: float = 0.0,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Marching cubes over hierarchical fine lattices.
+WELD_ID_LIMIT = 2**31  # the native weld key packs two lattice ids into 64 bits
 
-    fine_vals (C, s+1, s+1, s+1) float32 field values at each coarse
-    cell's fine sub-lattice; cell_ijk (C, 3) coarse cell coordinates.
-    Positions and global weld ids derive inside; returns (vertices (V, 3)
-    float32, faces (F, 3) int64).
-    """
+
+def _marching_grid(fn_name, fine_vals, cell_ijk, lo, cell_size, fine_R, level):
     lib = _load()
     if fine_vals.ndim != 4 or len(cell_ijk) != len(fine_vals):
         raise ValueError(
-            f"marching_cubes_grid: fine_vals (C, s+1, s+1, s+1) and cell_ijk (C, 3), "
+            f"{fn_name}: fine_vals (C, s+1, s+1, s+1) and cell_ijk (C, 3), "
             f"got {fine_vals.shape} {np.shape(cell_ijk)}"
         )
-    if fine_R ** 3 >= 2 ** 31:
-        raise ValueError(f"marching_cubes_grid: fine_R {fine_R} exceeds the weld-key range")
+    if fine_R ** 3 >= WELD_ID_LIMIT:
+        raise ValueError(f"{fn_name}: fine_R {fine_R} exceeds the weld-key range")
     fv = np.ascontiguousarray(fine_vals, np.float32)
     cij = np.ascontiguousarray(cell_ijk, np.int64)
     lo = np.ascontiguousarray(lo, np.float64)
@@ -195,7 +196,7 @@ def marching_cubes_grid(
     verts_ptr = ctypes.POINTER(ctypes.c_float)()
     faces_ptr = ctypes.POINTER(ctypes.c_int32)()
     out_nv = ctypes.c_int64(0)
-    nf = lib.marching_cubes_grid(
+    nf = getattr(lib, fn_name)(
         _ptr(fv, ctypes.c_float), _ptr(cij, ctypes.c_int64), len(fv), fv.shape[1] - 1,
         _ptr(lo, ctypes.c_double), _ptr(cs, ctypes.c_double), float(level), int(fine_R),
         ctypes.byref(verts_ptr), ctypes.byref(faces_ptr), ctypes.byref(out_nv),
@@ -211,6 +212,90 @@ def marching_cubes_grid(
         if faces_ptr:
             lib.am_free(faces_ptr)
     return v, f
+
+
+def marching_cubes_grid(
+    fine_vals: np.ndarray,
+    cell_ijk: np.ndarray,
+    lo: np.ndarray,
+    cell_size: np.ndarray,
+    fine_R: int,
+    level: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Marching cubes over hierarchical fine lattices.
+
+    fine_vals (C, s+1, s+1, s+1) float32 field values at each coarse
+    cell's fine sub-lattice; cell_ijk (C, 3) coarse cell coordinates.
+    Positions and global weld ids derive inside; returns (vertices (V, 3)
+    float32, faces (F, 3) int64).
+    """
+    return _marching_grid("marching_cubes_grid", fine_vals, cell_ijk, lo, cell_size, fine_R, level)
+
+
+def marching_tetrahedra_grid(
+    fine_vals: np.ndarray,
+    cell_ijk: np.ndarray,
+    lo: np.ndarray,
+    cell_size: np.ndarray,
+    fine_R: int,
+    level: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Marching tetrahedra (six tetrahedra a cube about its 0-7 diagonal)
+    over hierarchical fine lattices; the contract of
+    ``marching_cubes_grid``, with vertices also on face and body diagonals."""
+    return _marching_grid("marching_tetrahedra_grid", fine_vals, cell_ijk, lo, cell_size, fine_R, level)
+
+
+def _marching_cells(fn_name, corner_points, corner_values, corner_ids, level):
+    lib = _load()
+    cp = np.ascontiguousarray(corner_points, np.float64)
+    cv = np.ascontiguousarray(corner_values, np.float32)
+    cid = np.ascontiguousarray(corner_ids, np.int64)
+    C = len(cp)
+    if cp.shape != (C, 8, 3) or cv.shape != (C, 8) or cid.shape != (C, 8):
+        raise ValueError(
+            f"{fn_name}: corner_points (C, 8, 3), corner_values and corner_ids (C, 8), "
+            f"got {cp.shape} {cv.shape} {cid.shape}"
+        )
+    if cid.size and (cid.min() < 0 or cid.max() >= WELD_ID_LIMIT):
+        raise ValueError(f"{fn_name}: corner ids outside the weld-key range [0, 2^31)")
+    verts_cap, faces_cap = 8 * C + 16, 12 * C + 16
+    out_v = np.empty((verts_cap, 3), np.float64)
+    out_f = np.empty((faces_cap, 3), np.int64)
+    out_nv = ctypes.c_int64(0)
+    nf = getattr(lib, fn_name)(
+        _ptr(cp, ctypes.c_double), _ptr(cv, ctypes.c_float), _ptr(cid, ctypes.c_int64), C,
+        float(level), _ptr(out_v, ctypes.c_double), verts_cap, _ptr(out_f, ctypes.c_int64),
+        faces_cap, ctypes.byref(out_nv),
+    )
+    if nf < 0:
+        raise RuntimeError(f"{fn_name}: output capacity exceeded")
+    return out_v[: out_nv.value].astype(np.float32), out_f[:nf].copy()
+
+
+def marching_cubes_cells(
+    corner_points: np.ndarray,
+    corner_values: np.ndarray,
+    corner_ids: np.ndarray,
+    level: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Marching cubes (the generated table of ``native/mc_table.h``) over
+    pre-filtered crossing cells: corner_points (C, 8, 3), corner_values
+    (C, 8), corner_ids (C, 8) globally unique lattice ids below 2^31 (the
+    exact vertex welding keys on them). Returns (vertices (V, 3) float32,
+    faces (F, 3) int64)."""
+    return _marching_cells("marching_cubes_cells", corner_points, corner_values, corner_ids, level)
+
+
+def marching_tetrahedra_cells(
+    corner_points: np.ndarray,
+    corner_values: np.ndarray,
+    corner_ids: np.ndarray,
+    level: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Marching tetrahedra over pre-filtered crossing cells; the contract
+    of ``marching_cubes_cells``."""
+    return _marching_cells("marching_tetrahedra_cells", corner_points, corner_values, corner_ids, level)
 
 
 def rasterize_zbuffer(

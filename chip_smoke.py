@@ -4,7 +4,8 @@
     python3 chip_smoke.py --cli "--fast" "--distilled4" "--dtype float16"
 
 The second form runs only the CLI phase (4 below), once per quoted set of
-flags, and prints its results (a run that fails is reported, not raised).
+flags, and prints its results: every set runs and is reported, and the
+script exits non-zero when any of them failed.
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card (nvidia-smi name, power limit)
@@ -120,7 +121,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      card;
  11. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
      at the production DenoiserConfig (window 16, batch 2, EMA, remat, on
-     synthetic clips of production size), 3 steps with bf16 compute and 2
+     synthetic clips of production size), 2 steps with bf16 compute and 2
      with the entry point's default fp32 (kernels A, C and D on their fp32
      paths); checks finite losses, moved params, launch counts equal to
      what the path implies, and (bf16) a checkpoint that restores; prints
@@ -165,7 +166,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      build, stage0 (VAE and DiT), train, distill, then eval of the random,
      trained, oracle and video variants; every variant scores every scene
      with finite CD-3D, CD-4D and CD-M, kernels A to E launch, and no plain
-     version is handed a CUDA tensor.
+     version is handed a CUDA tensor;
+ 17. the resident server: kernels A, C and D as the first CUDA work of a new
+     thread (bf16 and fp32, forward and backward), equal to the main
+     thread's; then ``python -m actionmesh_tpu_torch.inference.serve``'s
+     ``build_server`` at the turbo preset's full width (random weights) with
+     ``--prewarm`` on the 16 frame pairs, served from a thread: /healthz
+     reports cuda; a turbo request (16 GLBs with the anchor's topology, the
+     deformation arrays, 16 morph targets, launches as the path implies); a
+     short request (5 Stage-0 and 2 Stage-I steps) inside ``profile_to``,
+     whose trace holds the spans stage1_window_0 and stage2_window_0 and
+     kernel A's device kernel; two concurrent short requests, one at a time
+     in the pipeline; a bad request answered 400, and the server answering
+     after it; prints the prewarm's and each request's seconds;
+ 18. the bf16 coarse SDF pass: ``decode_latents`` of the slice's Stage-0
+     latents (its VAE, the dev regularizer) at prefilter 6 / dense 8 / fine
+     9, in fp32 and with ``coarse_decode_dtype="bfloat16"``: kernel A's bf16
+     path launches once per prefilter and band chunk, its fp32 path once per
+     fine chunk; every coarse sign that differs from the fp32 field lies
+     within 2^-7 of the largest |value| of the level; the two meshes'
+     symmetric Chamfer distance is below one fine cell (2.01 / 512); prints
+     both decodes' seconds;
+ 19. the extraction variants through the slice's fp32 SDF (kernel A's fp32
+     path): the dense extraction at depth 7 with cubes, tetrahedra and
+     cubes_numpy, the hierarchical one with tetrahedra at dense 8 / fine 9,
+     and its single-level branch (dense 7 = fine 7): finite, non-empty,
+     tetrahedra 1.5-4x the faces of cubes, cubes_numpy with the native cubes'
+     counts, vertices within 1e-4 and triangles, the single-level branch
+     equal to the dense extraction.
+Kernel A is also checked (5) in bf16 at the SDF query shape (1, 8, 2^18,
+2048, 128), the coarse passes' chunk.
 Kernels A, C and D are also checked (5, 7) at the VAE step's four fp32
 shapes and at head dims 12, 16 and 32 (zero-padded to 64 by the wrapper),
 and kernel B in its three forms (norm and rotation, rotation, norm) at head
@@ -206,6 +236,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -241,6 +272,7 @@ from actionmesh_tpu_torch.ops.attention import (
     chunked_attention,
     dot_product_attention,
 )
+from actionmesh_tpu_torch.ops import isosurface
 from actionmesh_tpu_torch.ops.chunking import chunk_from
 from actionmesh_tpu_torch.models import layers as model_layers
 from actionmesh_tpu_torch.models.triposg import pipeline as triposg_pipeline
@@ -249,6 +281,7 @@ from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_fused,
+    flash_attention_trainable,
     flash_attention_fused_reference,
     launch_bwd_kernels,
     norm_rope_interleaved,
@@ -283,6 +316,7 @@ from actionmesh_tpu_torch.models.triposg.vae import (
     TripoSGVAEConfig,
     decode_kv,
     init_triposg_vae,
+    query_sdf,
     query_sdf_at_ids,
 )
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
@@ -292,6 +326,7 @@ from actionmesh_tpu_torch.training.checkpoint import restore_train_state
 from actionmesh_tpu_torch.training.flow_train import init_train_state, make_train_step
 from actionmesh_tpu_torch.training.loop import TrainLoopConfig, make_optimizer, step_generator
 from actionmesh_tpu_torch.utils import cuda_build, native, weights
+from actionmesh_tpu_torch.utils.profiling import profile_to
 from actionmesh_tpu_torch.utils.tree import leaves, named_leaves, tree_map
 from synthetic_checkpoints import brightness_rmbg, reference_state_dict, shape_vae_sdf, write_checkpoint
 
@@ -314,7 +349,7 @@ CLOSED_LOOP_ROPE_FORMS = (("norm_rope", True, 16), ("rope", False, 0), ("norm", 
 # Kernel E's yardstick, the CUDA-core design (csrc/nn_argmin_cuda_core.cu):
 # built and timed here only, beside kernel E; the port never calls it.
 NN_YARDSTICK = "nn_argmin_cuda_core"
-TRAIN_STEPS = 3      # the bf16 train phase's steps
+TRAIN_STEPS = 2      # the bf16 train phase's steps
 TRAIN_STEPS_F32 = 2  # the fp32 (the entry point's default dtype) train phase's steps
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"  # git-ignored; removed at the end
 
@@ -456,7 +491,8 @@ def cuda_ms(fn, reps: int, run_ms: float = 1.0) -> float:
     """Median CUDA-event time per call of ``reps`` warm runs, in ms. A run
     is as many back-to-back calls as last about ``run_ms`` (one for a call
     of that or more), so that a short kernel's time is not the host time of
-    one call's wrapper."""
+    one call's wrapper. The warm call that sizes the runs is the first run
+    when a run is one call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -465,9 +501,10 @@ def cuda_ms(fn, reps: int, run_ms: float = 1.0) -> float:
     fn()
     end.record()
     end.synchronize()
-    calls = max(1, min(1000, int(run_ms / max(start.elapsed_time(end), 1e-3))))
-    times = []
-    for _ in range(reps):
+    first = start.elapsed_time(end)
+    calls = max(1, min(1000, int(run_ms / max(first, 1e-3))))
+    times = [first] if calls == 1 else []
+    while len(times) < reps:
         start.record()
         for _ in range(calls):
             fn()
@@ -487,7 +524,8 @@ def heads_view(gen, B, S, H, D, dtype):
 # targets per chunk; DINOv2-L has 257 tokens, head dim 64; V is the anchor
 # mesh's vertex count. Stage 0: the DiT over 2049 tokens (2 CFG branches
 # self, the conditional one cross), the VAE decoder over 2048 latent tokens,
-# and the SDF query of one 2^18-point chunk onto the decoded set, in fp32.
+# and the SDF query of one 2^18-point chunk onto the decoded set, in fp32
+# (the fine pass) and in bf16 (the coarse passes of coarse_decode_dtype).
 def flash_cases(n_vertices: int):
     bf, f32 = torch.bfloat16, torch.float32
     pipelined, one_block = "actionmesh_tpu/ops/flash_attention.py:302", "actionmesh_tpu/ops/flash_attention.py:612"
@@ -504,6 +542,7 @@ def flash_cases(n_vertices: int):
         ("stage0_dit_cross", (1, 16, 2049, 257, 128), bf, one_block),
         ("stage0_vae_self", (1, 8, 2048, 2048, 128), bf, one_block),
         ("stage0_sdf_query", (1, 8, 1 << 18, 2048, 128), f32, one_block),
+        ("stage0_sdf_query_coarse", (1, 8, 1 << 18, 2048, 128), bf, one_block),
         # the {video + 3D} mode's VAE encoder: 2048 FPS queries onto the
         # 16,384 surface points, then its self-attention blocks
         ("vae_encoder_cross", (1, 8, 2048, 16384, 64), bf, one_block),
@@ -1750,7 +1789,8 @@ def phase_slice() -> dict:
     inp = ActionMeshInput(frames=frames, timesteps=np.arange(N_FRAMES, dtype=np.float32))
     preset_stage1_steps = pipe.cfg.scheduler.num_inference_steps  # the call cuts it
 
-    # keep the arguments of the decode's last SDF query, the fine pass's
+    # keep the arguments of the decode's last SDF query, the fine pass's,
+    # and the latents it decoded (the later decode and extraction phases')
     fine_query = {}
     query_at_ids = triposg_pipeline.query_sdf_at_ids
 
@@ -1759,6 +1799,14 @@ def phase_slice() -> dict:
         return query_at_ids(params, cfg, kv, ijk, lo, step, **kw)
 
     triposg_pipeline.query_sdf_at_ids = recording_query
+    tripo = pipe.image_to_3d.pipeline
+    decode = tripo.decode_latents
+
+    def recording_decode(latents, **kw):
+        fine_query["latents"] = latents
+        return decode(latents, **kw)
+
+    tripo.decode_latents = recording_decode
     reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3063,6 +3111,392 @@ def phase_closed_loop() -> dict:
             "spec": CLOSED_LOOP_SPEC}
 
 
+SERVE_SHORT = {"stage_0_steps": 5, "stage_1_steps": 2}  # the profiled and concurrent requests
+KERNEL_A_16BIT = "flash_fwd_16bit_kernel"  # kernel A's bf16 / fp16 device function
+
+
+class ServedPipeline:
+    """The server's pipeline behind a counter of the requests inside it at
+    once; ``profile_dir`` set runs the next request inside ``profile_to``
+    (on the handler thread: torch.profiler records the thread that starts
+    it) and keeps that profiler as ``profiled``."""
+
+    def __init__(self, pipe):
+        self.pipe, self.device = pipe, pipe.device
+        self.in_flight = self.max_in_flight = 0
+        self.profile_dir, self.profiled = None, None
+        self._lock = threading.Lock()
+
+    def __call__(self, inp, **kw):
+        with self._lock:
+            self.in_flight += 1
+            self.max_in_flight = max(self.max_in_flight, self.in_flight)
+            profile_dir, self.profile_dir = self.profile_dir, None
+        try:
+            if profile_dir is None:
+                return self.pipe(inp, **kw)
+            with profile_to(profile_dir) as prof:
+                out = self.pipe(inp, **kw)
+                torch.cuda.synchronize()
+            self.profiled = prof
+            return out
+        finally:
+            with self._lock:
+                self.in_flight -= 1
+
+
+def fresh_thread_launches() -> dict:
+    """Kernels A, C and D as the first CUDA work of a new thread, as in a
+    server's request thread (whose tensors the allocator may serve from its
+    cache without binding the card's context to the thread): attention
+    forward and backward through ``flash_attention_trainable`` in bf16 and
+    fp32, equal bit for bit to the same calls on the main thread (the
+    kernels are deterministic)."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (heads_view(gen, 1, S, 2, 128, dtype).detach().requires_grad_() for S in (300, 500, 500))
+        do = heads_view(gen, 1, 300, 2, 128, dtype)
+
+        def run():
+            o = flash_attention_trainable(q, k, v)
+            grads = torch.autograd.grad(o, (q, k, v), do)
+            torch.cuda.synchronize()
+            return (o.detach(), *grads)
+
+        results, errors = [], []
+
+        def in_thread():
+            try:
+                results.append(run())
+            except Exception as e:  # reported below, on the main thread
+                errors.append(f"{type(e).__name__}: {e}")
+
+        thread = threading.Thread(target=in_thread)
+        thread.start()
+        thread.join()
+        if errors:
+            raise AssertionError(f"kernels A, C, D in a new thread ({dtype}): {errors[0]}")
+        same = all(torch.equal(a, b) for a, b in zip(results[0], run()))
+        out[str(dtype)[6:]] = same
+        if not same:
+            raise AssertionError(f"kernels A, C, D in a new thread ({dtype}) differ from the main thread's")
+    log(f"fresh-thread launches of A, C, D equal the main thread's: {out}")
+    return out
+
+
+def http_json(url: str, body: dict | None = None) -> tuple[int, dict, float]:
+    """GET (``body`` None) or POST ``body`` as JSON: (status, reply, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"},
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def phase_serve() -> dict:
+    """Kernels A, C and D launched first thing in a new thread
+    (``fresh_thread_launches``); then
+    ``python -m actionmesh_tpu_torch.inference.serve``'s ``build_server``
+    at the turbo preset's full width (random weights) with ``--prewarm`` on
+    the 16 frame pairs, served from a thread: /healthz reports cuda; a turbo
+    request gives 16 GLBs with the anchor's topology, the deformation
+    arrays, an animated GLB with 16 morph targets and the launches the path
+    implies; a short request (5 Stage-0 steps, 2 Stage-I steps) inside
+    ``profile_to`` leaves the spans stage1_window_0 and stage2_window_0 and
+    kernel A's device kernel in the trace; two concurrent short requests
+    enter the pipeline one at a time; a bad request is answered 400 and the
+    server answers again after it."""
+    from actionmesh_tpu_torch.inference import serve as serve_entry
+
+    fresh = fresh_thread_launches()
+    work = OUT_DIR / "serve"
+    shutil.rmtree(work, ignore_errors=True)
+    frames_dir = work / "frames"
+    write_frame_pairs(frames_dir, make_frames())
+    t0 = time.perf_counter()
+    httpd, srv = serve_entry.build_server([
+        "--config", "actionmesh_turbo", "--port", "0", "--weights_dir", str(work / "no_weights"),
+        "--prewarm", str(frames_dir)])
+    build_s, prewarm_s = time.perf_counter() - t0, srv.prewarm_seconds
+    log(f"serve: build_server {build_s:.2f} s, of which the prewarm run {prewarm_s:.2f} s")
+    pipe = srv.pipeline
+    served = srv.pipeline = ServedPipeline(pipe)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    totals = dict.fromkeys(COUNTERS, 0)
+    requests = {}
+
+    def request(name: str, body: dict, concurrent: int = 1) -> list:
+        """POST ``body`` ``concurrent`` times at once; check each reply and
+        the launches against what the path implies for each request."""
+        replies = []
+        reset_counters()
+        threads = [threading.Thread(target=lambda i=i: replies.append(http_json(
+            f"{url}/v1/video_to_4d", {**body, "output_dir": str(work / f"{name}_{i}")})))
+            for i in range(concurrent)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        launches = read_counters()
+        for k in COUNTERS:
+            totals[k] += launches[k]
+        bad = [r for r in replies if r[0] != 200]
+        if len(replies) != concurrent or bad:
+            raise AssertionError(f"serve {name}: replies {replies}")
+        want_flash, want_rope = expected_launches(pipe, N_FRAMES)
+        want = {"flash_fwd": concurrent * want_flash, "fused_rms_rope": concurrent * want_rope}
+        if {k: launches[k] for k in want} != want or any(launches[k] for k in COUNTERS[2:]):
+            raise AssertionError(f"serve {name}: launches {launches} != {want}")
+        for i, (_, reply, wall_s) in enumerate(replies):
+            out_dir = work / f"{name}_{i}"
+            meshes = [load_glb(p) for p in reply["artifacts"]["meshes"]]
+            clip = check_clip(f"serve {name}", meshes, out_dir)
+            requests[f"{name}_{i}" if concurrent > 1 else name] = {
+                "generation_seconds": reply["generation_seconds"], "wall_seconds": wall_s,
+                "clip": clip}
+            log(f"serve {name}[{i}]: generation {reply['generation_seconds']} s, wall {wall_s:.2f} s, "
+                f"{clip['vertices']} vertices / {clip['faces']} faces, launches {launches} "
+                f"(expected {want})")
+        return replies
+
+    try:
+        status, health, _ = http_json(f"{url}/healthz")
+        if status != 200 or health["backend"] != "cuda" or health["n_devices"] < 1:
+            raise AssertionError(f"serve: /healthz {status} {health}")
+        request("turbo", {"input": str(frames_dir), "seed": 44})
+        served.profile_dir = work / "trace"
+        request("profiled", {"input": str(frames_dir), "seed": 44, **SERVE_SHORT})
+        prof = served.profiled
+        names = {e.name for e in prof.events()}
+        device = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+        kernel_a = sorted(n for n in device if KERNEL_A_16BIT in n)
+        (trace,) = (work / "trace").glob("trace_*.json")
+        trace_names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+        spans = {"stage1_window_0", "stage2_window_0"}
+        log(f"serve profiled: spans {sorted(n for n in names if 'window' in n)}, kernel A "
+            f"{kernel_a}, trace {trace.name} {trace.stat().st_size / 1e6:.1f} MB")
+        if not (spans <= names and spans <= trace_names and kernel_a
+                and set(kernel_a) <= trace_names):
+            raise AssertionError(f"serve: the profiled request's trace lacks {spans} or kernel A")
+        served.max_in_flight = 0
+        request("concurrent", {"input": str(frames_dir), "seed": 44, **SERVE_SHORT}, concurrent=2)
+        if served.max_in_flight != 1:
+            raise AssertionError(f"serve: {served.max_in_flight} requests in the pipeline at once")
+        status, reply, _ = http_json(f"{url}/v1/video_to_4d", {"input": str(work / "no_frames")})
+        status_after, health, _ = http_json(f"{url}/healthz")
+        log(f"serve: bad request {status} {reply}; then /healthz {status_after} {health}")
+        if status != 400 or status_after != 200 or health["requests"] != 4 or srv.lock.locked():
+            raise AssertionError(f"serve: bad request {status}, then {status_after} {health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+        del pipe, served, srv
+        torch.cuda.empty_cache()
+    return {"build_seconds": build_s, "prewarm_seconds": prewarm_s, "requests": requests,
+            "fresh_thread_launches": fresh, "launches": totals}
+
+
+def tallied_decode(tripo: TripoSGPipeline, latents: torch.Tensor, coarse_decode_dtype) -> dict:
+    """One ``decode_latents`` at the default depths (prefilter 6, dense 8,
+    fine 9), its SDF attention calls tallied by the dtype of q (the VAE
+    decoder's blocks in the model's bf16 included) and its coarse queries
+    recorded (arguments and results) for the sign comparison."""
+    tally, coarse = {}, []
+    at_ids, grid_inside = triposg_pipeline.query_sdf_at_ids, triposg_pipeline.query_sdf_grid_inside
+
+    def tallied(attn):
+        def fn(q, k, v, **kw):
+            tally[str(q.dtype)[6:]] = tally.get(str(q.dtype)[6:], 0) + 1
+            return attn(q, k, v, **kw)
+        return fn
+
+    def recorded(query):
+        def fn(*args, **kw):
+            out = query(*args, **kw)
+            if kw.get("compute_dtype") is not None:
+                coarse.append((query, args, kw, out))
+            return out
+        return fn
+
+    launched = flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(model_layers, "dot_product_attention", tallied), \
+            recording(triposg_pipeline, "query_sdf_at_ids", recorded), \
+            recording(triposg_pipeline, "query_sdf_grid_inside", recorded):
+        mesh = tripo.decode_latents(latents, prefilter_octree_depth=6,
+                                    coarse_decode_dtype=coarse_decode_dtype)[0]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = flash_attention.launches - launched
+    if launches != sum(tally.values()):
+        raise AssertionError(f"decode: {launches} kernel-A launches for {tally} attention calls")
+    return {"mesh": mesh, "seconds": seconds, "by_dtype": tally, "launches": launches,
+            "chunks": dict(tripo.extract_stats), "coarse": coarse}
+
+
+def coarse_sign_flips(q: dict, coarse: list) -> dict:
+    """Each recorded bf16 coarse query against fp32 values at its points (the
+    same query without ``compute_dtype``): how many signs differ and the
+    largest |fp32 value| among them, beside the largest |fp32 value|."""
+    params, cfg, kv = q["params"], q["cfg"], q["kv"]
+    flips = points = 0
+    flipped_max = value_max = 0.0
+    for query, args, kw, out in coarse:
+        reg = kw.get("regularizer")
+        if query is triposg_vae.query_sdf_grid_inside:
+            _, _, _, lo, step, level, Rc = args
+            idx = np.arange(-(-Rc**3 // QUERY_CHUNK) * QUERY_CHUNK)
+            ijk = np.stack([idx // (Rc * Rc), (idx // Rc) % Rc, idx % Rc], -1).astype(np.int32)
+            vals = query_sdf_at_ids(params, cfg, kv, ijk, lo, step, regularizer=reg)[: Rc**3] - level
+            signs = out[: Rc**3].astype(bool)
+        else:
+            _, _, _, ijk, lo, step = args
+            vals = query_sdf_at_ids(params, cfg, kv, ijk, lo, step, regularizer=reg)
+            signs = out < 0
+        differ = signs != (vals < 0)
+        flips += int(differ.sum())
+        points += int(vals.size)
+        value_max = max(value_max, float(np.abs(vals).max()))
+        if differ.any():
+            flipped_max = max(flipped_max, float(np.abs(vals[differ]).max()))
+    return {"points": points, "sign_flips": flips, "max_abs_value_flipped": flipped_max,
+            "max_abs_value": value_max}
+
+
+def chamfer(a: np.ndarray, b: np.ndarray) -> float:
+    """Symmetric Chamfer distance of two vertex sets: the mean distance to
+    the nearest point of the other set, summed over both directions."""
+    from scipy.spatial import cKDTree
+
+    return float(cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0].mean())
+
+
+COARSE_FLIP_REL = 2.0**-7  # bf16's relative rounding: a flipped sign lies within it of the level
+
+
+def phase_coarse_bf16(q: dict) -> tuple[dict, Mesh]:
+    """``decode_latents`` of the slice's Stage-0 latents (its DevTripoSG VAE
+    at full width, bf16, the dev regularizer) at the default depths, once in
+    fp32 and once with ``coarse_decode_dtype="bfloat16"``: the bf16 decode
+    launches kernel A's bf16 path once per prefilter and band chunk and its
+    fp32 path once per fine chunk; every coarse sign that differs from the
+    fp32 field lies within 2^-7 of the largest |value| of the level; the
+    meshes' symmetric Chamfer distance is below one fine cell. Returns the
+    report and the fp32 decode's mesh."""
+    tripo = TripoSGPipeline(None, q["params"], None, vae_cfg=q["cfg"], dtype=torch.bfloat16,
+                            device=q["kv"].device)
+    tripo.sdf_regularizer = _dev_sdf_regularizer
+    tripo.sdf_regularizer_torch = _dev_sdf_regularizer_torch
+    dec_layers = q["cfg"].decoder_layers
+    reset_counters()
+    runs = {name: tallied_decode(tripo, q["latents"], dtype)
+            for name, dtype in (("fp32", None), ("bf16", "bfloat16"))}
+    launches = read_counters()
+    f32, bf16 = runs["fp32"], runs["bf16"]
+    ch = bf16["chunks"]
+    want = {"bfloat16": dec_layers + ch["prefilter"] + ch["band"], "float32": ch["fine"]}
+    flips = coarse_sign_flips(q, bf16["coarse"])
+    fine_cell = 2.01 / (1 << 9)
+    cd = chamfer(f32["mesh"].vertices, bf16["mesh"].vertices)
+    log(f"coarse bf16: fp32 decode {f32['seconds']:.3f} s, chunks {f32['chunks']}, attention "
+        f"{f32['by_dtype']} | bf16 decode {bf16['seconds']:.3f} s, chunks {ch}, attention "
+        f"{bf16['by_dtype']} (expected {want}: {dec_layers} VAE decoder blocks in bf16 beside the "
+        f"queries) | coarse signs {flips} (allowed |value| <= {COARSE_FLIP_REL} x max) | meshes "
+        f"{f32['mesh'].n_faces} / {bf16['mesh'].n_faces} faces, Chamfer {cd:.3e} (one fine cell "
+        f"{fine_cell:.3e})")
+    if bf16["by_dtype"] != want or f32["by_dtype"] != {"bfloat16": dec_layers, "float32": sum(
+            f32["chunks"].values())}:
+        raise AssertionError(f"coarse bf16: kernel A's paths {bf16['by_dtype']} != {want}, or the "
+                             f"fp32 decode's {f32['by_dtype']}")
+    if flips["max_abs_value_flipped"] > COARSE_FLIP_REL * flips["max_abs_value"]:
+        raise AssertionError(f"coarse bf16: a sign flips at |value| {flips['max_abs_value_flipped']}")
+    if not (bf16["mesh"].n_faces > 0 and np.isfinite(bf16["mesh"].vertices).all() and cd < fine_cell):
+        raise AssertionError(f"coarse bf16: the mesh is empty, not finite or {cd} from the fp32 one")
+    return {"seconds": {k: r["seconds"] for k, r in runs.items()},
+            "chunks": {k: r["chunks"] for k, r in runs.items()},
+            "by_dtype": {k: r["by_dtype"] for k, r in runs.items()}, "sign_flips": flips,
+            "chamfer": cd, "faces": {k: int(r["mesh"].n_faces) for k, r in runs.items()},
+            "launches": launches}, f32["mesh"]
+
+
+def phase_extraction(q: dict, cubes_mesh: Mesh) -> dict:
+    """The extraction variants through the slice's fp32 ``sdf_fn`` (kernel
+    A's fp32 path, the dev regularizer): ``extract_geometry_dense`` at depth
+    7 with cubes, tetrahedra and cubes_numpy; the hierarchical extraction
+    with tetrahedra at the default depths (dense 8, fine 9) and its
+    single-level branch (dense 7 = fine 7). Every mesh finite and
+    non-empty; tetrahedra 1.5-4x the faces of cubes (at depth 7, and at the
+    default depths against ``cubes_mesh``, the fp32 decode's); cubes_numpy
+    the native cubes' vertex and face counts, vertices within 1e-4 after
+    nearest-point matching and the same triangles; the single-level branch
+    the dense extraction's mesh."""
+    from scipy.spatial import cKDTree
+
+    params, cfg, kv = q["params"], q["cfg"], q["kv"]
+
+    def sdf_fn(pts: np.ndarray) -> np.ndarray:
+        pts_t = torch.as_tensor(pts, dtype=torch.float32, device=kv.device)
+        return _dev_sdf_regularizer(pts, query_sdf(params, cfg, kv, pts_t[None])[0].cpu().numpy())
+
+    runs = {
+        "dense7_cubes": lambda: isosurface.extract_geometry_dense(sdf_fn, octree_depth=7),
+        "dense7_tetrahedra": lambda: isosurface.extract_geometry_dense(sdf_fn, octree_depth=7,
+                                                                       method="tetrahedra"),
+        "dense7_cubes_numpy": lambda: isosurface.extract_geometry_dense(sdf_fn, octree_depth=7,
+                                                                        method="cubes_numpy"),
+        "hierarchical_tetrahedra": lambda: isosurface.hierarchical_extract_geometry(
+            sdf_fn, method="tetrahedra"),
+        "single_level7": lambda: isosurface.hierarchical_extract_geometry(
+            sdf_fn, dense_octree_depth=7, hierarchical_octree_depth=7),
+    }
+    meshes, seconds = {}, {}
+    reset_counters()
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        meshes[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    launches = read_counters()
+    faces = {name: len(f) for name, (_, f) in meshes.items()}
+    (v_np, f_np), (v_nat, f_nat) = meshes["dense7_cubes_numpy"], meshes["dense7_cubes"]
+    d, perm = cKDTree(v_np).query(v_nat)
+
+    def canon(f):
+        first = np.argmin(f, axis=1)
+        return set(map(tuple, np.stack([np.roll(t, -s) for t, s in zip(f, first)])))
+
+    numpy_ok = v_np.shape == v_nat.shape and f_np.shape == f_nat.shape and d.max() < 1e-4 \
+        and canon(perm[f_nat]) == canon(f_np)
+    (v1, f1), (vd, fd) = meshes["single_level7"], meshes["dense7_cubes"]
+    single_ok = np.array_equal(f1, fd) and np.array_equal(v1, vd)
+    ratios = {"dense7": faces["dense7_tetrahedra"] / faces["dense7_cubes"],
+              "hierarchical": faces["hierarchical_tetrahedra"] / cubes_mesh.n_faces}
+    log(f"extraction: faces {faces} (hierarchical cubes {cubes_mesh.n_faces}), tetrahedra / cubes "
+        f"{ratios}; cubes_numpy vs cubes: vertices within {d.max():.2e}, same triangles {numpy_ok}; "
+        f"single-level = dense {single_ok}; seconds "
+        + " ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f"; launches {launches}")
+    if not all(len(f) and np.isfinite(v).all() for v, f in meshes.values()):
+        raise AssertionError(f"extraction: an empty or non-finite mesh: {faces}")
+    if not all(1.5 <= r <= 4 for r in ratios.values()):
+        raise AssertionError(f"extraction: tetrahedra / cubes face ratios {ratios}")
+    if not (numpy_ok and single_ok):
+        raise AssertionError(f"extraction: cubes_numpy agrees {numpy_ok}, single-level agrees {single_ok}")
+    return {"faces": faces, "ratios": ratios, "seconds": seconds, "launches": launches,
+            "cubes_numpy_max_vertex_diff": float(d.max())}
+
+
 SHARE_MAX = 1.05  # bound_ms / ms; above 1 only by the timer's noise
 
 
@@ -3122,7 +3556,6 @@ def main() -> None:
     build = phase_build()
     sl, fine_query = phase_slice()
     sdf_chunk = phase_sdf_chunk(fine_query)
-    del fine_query
     torch.cuda.empty_cache()
     cli_runs = phase_cli(CLI_PRESETS)
     ckpt = phase_checkpoints()
@@ -3145,6 +3578,11 @@ def main() -> None:
     ab = phase_actionbench()
     prep = phase_prepare_clips()
     loop = phase_closed_loop()
+    served = phase_serve()
+    coarse, cubes_mesh = phase_coarse_bf16(fine_query)
+    extraction = phase_extraction(fine_query, cubes_mesh)
+    del fine_query, cubes_mesh
+    torch.cuda.empty_cache()
 
     def summary(name, source, replaces, rows, launches):
         head = rows[0]
@@ -3170,12 +3608,17 @@ def main() -> None:
                 **{f"cli_{preset}": run["launches"][name] for preset, run in cli_runs.items()
                    if preset in CLI_PRESETS},
                 "cli_checkpoints": ckpt["launches"][name], "cli_video": ckpt["video"]["launches"][name],
-                "video_3d": v3d["launches"][name], "prepare_clips": prep["launches"][name]}
+                "video_3d": v3d["launches"][name], "prepare_clips": prep["launches"][name],
+                "serve": served["launches"][name], "coarse_bf16": coarse["launches"][name],
+                "extraction": extraction["launches"][name]}
 
-    def cli_launches(name):
+    def cli_launches(name):  # the entry points' paths: CLIs, clip preparation, the server
         return (sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
                 + ckpt["launches"][name] + ckpt["video"]["launches"][name] + v3d["launches"][name]
-                + prep["launches"][name])
+                + prep["launches"][name] + served["launches"][name])
+
+    def decode_launches(name):  # the bf16 coarse pass's decodes and the extraction variants
+        return coarse["launches"][name] + extraction["launches"][name]
 
     def bwd_summary(name, replaces, key):
         rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
@@ -3196,11 +3639,12 @@ def main() -> None:
     kernels = [
         summary("flash_fwd", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
                 "actionmesh_tpu/ops/flash_attention.py:302", flash,
-                sl["launches"]["flash_fwd"] + trained("flash_fwd") + cli_launches("flash_fwd")),
+                sl["launches"]["flash_fwd"] + trained("flash_fwd") + cli_launches("flash_fwd")
+                + decode_launches("flash_fwd")),
         summary("fused_rms_rope", "actionmesh_tpu_torch/csrc/rms_rope.cu",
                 "actionmesh_tpu/ops/rope_norm.py:94", rope,
                 sl["launches"]["rms_rope"] + trained("fused_rms_rope")
-                + cli_launches("fused_rms_rope")),
+                + cli_launches("fused_rms_rope") + decode_launches("fused_rms_rope")),
         bwd_summary("flash_bwd_dkv", "actionmesh_tpu/ops/flash_attention_bwd.py:261", ("dkv", ("dk", "dv"))),
         bwd_summary("flash_bwd_dq", "actionmesh_tpu/ops/flash_attention_bwd.py:287", ("dq", ("dq",))),
         summary("nn_argmin", "actionmesh_tpu_torch/csrc/nn_argmin.cu",
@@ -3253,7 +3697,8 @@ def main() -> None:
                       "slice": sl, "sdf_chunk": sdf_chunk, "cli": cli_runs, "train": tr,
                       "train_fp32": tr32, "train_decoder": dec, "distill": distill,
                       "train_stage0_dit": dit, "train_vae": vae, "prepare_clips": prep,
-                      "closed_loop": loop,
+                      "closed_loop": loop, "serve": served, "coarse_bf16": coarse,
+                      "extraction": extraction,
                       "actionbench": ab,
                       "card": info["nvidia_smi"]}),
           flush=True)
@@ -3268,8 +3713,9 @@ def main() -> None:
 def main_cli_runs(specs: list[str]) -> None:
     """``chip_smoke.py --cli "FLAGS" ...``: only the CLI phase, once for each
     quoted set of CLI flags (e.g. "--fast", "--dtype float16"), each checked
-    as in the full run; a run that fails its checks is reported, not
-    raised. Prints one JSON object of the results."""
+    as in the full run. Every set runs and is reported, a failed one with
+    its error; prints one JSON object of the results, then exits non-zero
+    when any run failed."""
     logging.basicConfig(level=logging.WARNING)
     info = phase_device()
     phase_build()
@@ -3281,6 +3727,9 @@ def main_cli_runs(specs: list[str]) -> None:
             log(f"cli {spec}: FAILED:\n{traceback.format_exc()}")
             out[spec] = {"error": f"{type(e).__name__}: {e}"}
     print(json.dumps({"cli": out, "card": info["nvidia_smi"]}), flush=True)
+    failed = [spec for spec, result in out.items() if "error" in result]
+    if failed:
+        raise SystemExit(f"chip_smoke.py --cli: {len(failed)} of {len(out)} runs failed: {failed}")
 
 
 if __name__ == "__main__":

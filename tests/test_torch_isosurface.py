@@ -76,8 +76,17 @@ def test_extraction_without_a_surface_and_bad_depths():
     v, f = textract(outside, dense_octree_depth=3, hierarchical_octree_depth=4, chunk=CHUNK,
                     prefilter_octree_depth=2)
     assert v.shape == (0, 3) and f.shape == (0, 3)
-    with pytest.raises(ValueError, match="must exceed"):
-        textract(torus_sdf, dense_octree_depth=4, hierarchical_octree_depth=4, chunk=CHUNK)
+    # a fine depth at or below the dense depth is JAX's single-level
+    # extraction (the dense lattice triangulated whole), not an error
+    for fine in (4, 3):
+        kw = dict(dense_octree_depth=4, hierarchical_octree_depth=fine, chunk=CHUNK)
+        (tv, tf), (jv, jf) = textract(torus_sdf, **kw), jextract(torus_sdf, **kw)
+        assert len(tf) > 100
+        np.testing.assert_array_equal(tf, jf)
+        np.testing.assert_array_equal(tv, jv)
+    with pytest.raises(ValueError, match="unknown triangulation method"):
+        textract(torus_sdf, dense_octree_depth=4, hierarchical_octree_depth=5, chunk=CHUNK,
+                 method="marching_squares")
 
 
 def _sphere(n_lat, n_lon):

@@ -9,6 +9,7 @@ the same bits).
 
 import ast
 import dataclasses
+import json
 from pathlib import Path
 
 import jax
@@ -155,6 +156,25 @@ def test_two_ar_windows_freeze_banked_frames(monkeypatch):
     (ts1, lat1), (ts2, lat2) = [r for r in records if len(r[0]) == 16]
     assert list(ts1) == list(range(16)) and list(ts2) == list(range(2, 18))
     torch.testing.assert_close(lat2[0, :14], lat1[0, 2:], rtol=0, atol=0)
+
+
+def test_profile_to_records_the_window_spans(tmp_path):
+    """``profile_to`` around a tiny pipeline call on the CPU records JAX's
+    spans, one per Stage-I and Stage-II window, in its events and in the
+    Chrome trace it writes."""
+    from actionmesh_tpu_torch.utils.profiling import profile_to
+
+    pipe = tpipeline_mod.ActionMeshPipeline(
+        device=torch.device("cpu"), dtype=torch.float32, config_updates=dict(TINY_UPDATES)
+    )
+    pipe.image_encoder = TImageEncoder(torch.device("cpu"), torch.float32, TDinoCfg(**TINY_DINO))
+    with profile_to(tmp_path / "trace") as prof:
+        pipe(TInput(frames=make_frames(), timesteps=np.arange(16)), seed=5)
+    spans = {e.name for e in prof.events() if e.name.startswith(("stage1_window", "stage2_window"))}
+    assert spans == {"stage1_window_0", "stage2_window_0"}
+    (trace,) = (tmp_path / "trace").glob("trace_*.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert spans <= names
 
 
 def test_launch_counters_stay_zero_on_cpu(slice_outputs):

@@ -104,3 +104,35 @@ def test_bwd_times_reads_the_smoke_fp32_rows():
 
     want = {n: s for n, s, dtype in smoke.BWD_CASES if dtype == smoke.torch.float32}
     assert bwd_times.fp32_shapes() == want
+
+
+@pytest.mark.parametrize("failing", [(), ("--bad",)], ids=["all_pass", "one_fails"])
+def test_cli_mode_reports_every_run_then_fails_on_a_failure(monkeypatch, capsys, failing):
+    """``chip_smoke.py --cli "FLAGS" ...`` runs and reports every quoted set
+    of flags, a failed one with its error, and then exits non-zero when any
+    run failed (a failure is never caught into a passing exit)."""
+    specs = ["--fast", "--bad", "--dtype float16"] if failing else ["--fast", "--dtype float16"]
+    ran = []
+
+    def phase_cli(presets):
+        (spec, flags), = presets.items()
+        ran.append(spec)
+        if spec in failing:
+            raise AssertionError(f"cli {spec}: launch counts differ")
+        return {spec: {"flags": flags, "clip_seconds": 1.0}}
+
+    monkeypatch.setattr(smoke, "phase_device", lambda: {"nvidia_smi": "a card, 700 W"})
+    monkeypatch.setattr(smoke, "phase_build", lambda: {})
+    monkeypatch.setattr(smoke, "phase_cli", phase_cli)
+    if failing:
+        with pytest.raises(SystemExit) as exit_info:
+            smoke.main_cli_runs(specs)
+        assert exit_info.value.code not in (0, None) and "--bad" in str(exit_info.value.code)
+    else:
+        smoke.main_cli_runs(specs)
+    assert ran == specs
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["cli"]
+    assert list(report) == specs
+    if failing:
+        assert report["--bad"]["error"].startswith("AssertionError")
+    assert report["--dtype float16"] == {"flags": ["--dtype", "float16"], "clip_seconds": 1.0}

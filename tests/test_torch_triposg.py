@@ -27,6 +27,7 @@ from actionmesh_tpu.models.triposg.pipeline import TripoSGPipeline as JPipeline
 from actionmesh_tpu.models.triposg.pipeline import _flow_sample as jflow_sample
 from actionmesh_tpu.ops import rotary as jrot
 from actionmesh_tpu.sampling.flow_schedule import get_schedule
+from actionmesh_tpu_torch.models import layers as tlayers
 from actionmesh_tpu_torch.models import stage0 as tstage0
 from actionmesh_tpu_torch.models.dinov2 import DinoV2Config as TDinoCfg
 from actionmesh_tpu_torch.models.image_encoder import ImageEncoder as TImageEncoder
@@ -302,14 +303,73 @@ def test_query_sdf_grid_inside_matches_jax(vae, reg):
 
 
 # ---------------------------------------------------------------------------
-# The pipeline end to end, and the Stage-0 selection
+# The bf16 coarse pass (stage_0.coarse_decode_dtype)
 # ---------------------------------------------------------------------------
 
+BF16_TOL = 1e-2  # of max|value|: bf16 q, k, v and projections (8 mantissa bits)
 
-def test_tiny_pipeline_matches_jax(monkeypatch):
-    """Image -> DINOv2 -> 3 CFG steps -> VAE decode -> prefilter extraction
-    (dense 4, fine 5, prefilter 3) with the dev regularizer, the same noise
-    on both sides. Latents within 5e-5; faces equal; vertices within 1e-5."""
+
+def _lattice(Rc):
+    idx = np.arange(Rc**3)
+    return np.stack([idx // (Rc * Rc), (idx // Rc) % Rc, idx % Rc], -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("reg", list(REGULARIZERS))
+def test_bf16_query_matches_jax_bf16(vae, reg, monkeypatch):
+    """``compute_dtype=bf16``: the port's values within 1e-2 of max|value|
+    of JAX's bf16 ones, and the query cross-attention really runs on bf16
+    q, k and v (a fp32 q would take kernel A's fp32 path on the card)."""
+    jparams, tparams, jkv, tkv, jcfg, tcfg = vae
+    jreg, treg = REGULARIZERS[reg]
+    seen = []
+    plain_attention = tlayers.dot_product_attention
+
+    def recording(q, k, v, **kw):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return plain_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(tlayers, "dot_product_attention", recording)
+    ijk = np.random.default_rng(3).integers(0, 17, (192, 3)).astype(np.int32)
+    lo, step = np.full(3, -1.005), np.full(3, 2.01 / 16)
+    ref = _np(jvae.query_sdf_at_ids(
+        jparams, jcfg, jkv, jnp.asarray(ijk), jnp.asarray(lo), jnp.asarray(step),
+        chunk=64, attn_impl="naive", regularizer=jreg, compute_dtype=jnp.bfloat16,
+    ))
+    out = tvae.query_sdf_at_ids(tparams, tcfg, tkv, ijk, lo, step, chunk=64, regularizer=treg,
+                                compute_dtype=torch.bfloat16)
+    assert out.dtype == np.float32 and seen == [(torch.bfloat16,) * 3] * 3
+    np.testing.assert_allclose(out, ref, atol=BF16_TOL * np.abs(ref).max())
+    f32 = tvae.query_sdf_at_ids(tparams, tcfg, tkv, ijk, lo, step, chunk=64, regularizer=treg)
+    assert seen[-1] == (torch.float32,) * 3 and np.abs(out - f32).max() > 0
+
+
+@pytest.mark.parametrize("reg", list(REGULARIZERS))
+def test_bf16_inside_mask_matches_jax_bf16_off_the_surface(vae, reg):
+    """The bf16 inside mask of a 9^3 lattice: wherever it differs from JAX's
+    bf16 mask, the fp32 value lies within 1e-2 of max|value| of the level."""
+    jparams, tparams, jkv, tkv, jcfg, tcfg = vae
+    jreg, treg = REGULARIZERS[reg]
+    Rc, lo = 9, np.full(3, -1.0)
+    step = np.full(3, 2.0 / (Rc - 1))
+    ijk = np.concatenate([_lattice(Rc), np.zeros((768 - Rc**3, 3), np.int32)])
+    vals = tvae.query_sdf_at_ids(tparams, tcfg, tkv, ijk, lo, step, chunk=256, regularizer=treg)[: Rc**3]
+    level = 0.0 if reg == "dev_regularizer" else float(np.median(vals))
+    ref = np.asarray(jvae.query_sdf_grid_inside(
+        jparams, jcfg, jkv, jnp.asarray(lo), jnp.asarray(step), jnp.float32(level), Rc=Rc,
+        chunk=256, attn_impl="naive", regularizer=jreg, compute_dtype=jnp.bfloat16,
+    ))[: Rc**3]
+    out = tvae.query_sdf_grid_inside(tparams, tcfg, tkv, lo, step, level, Rc, chunk=256,
+                                     regularizer=treg, compute_dtype=torch.bfloat16)[: Rc**3]
+    assert 0 < out.sum() < Rc**3
+    differ = out != ref
+    assert np.all(np.abs(vals[differ] - level) <= BF16_TOL * np.abs(vals).max())
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    """The tiny TripoSG on both sides (JAX-initialised weights), with the
+    dev regularizer: (JAX pipeline, port pipeline, JAX DINOv2), built once
+    for the module's pipeline tests."""
     jdino = JImageEncoder(weights_dir=None, dtype=jnp.float32, config=JDinoCfg(**TINY_DINO))
     jpipe = JPipeline.from_random(
         seed=0, dtype=jnp.float32, dit_cfg=jdit.triposg_dit_config(**TINY_DIT),
@@ -325,6 +385,87 @@ def test_tiny_pipeline_matches_jax(monkeypatch):
     )
     tpipe.sdf_regularizer = tstage0._dev_sdf_regularizer
     tpipe.sdf_regularizer_torch = tstage0._dev_sdf_regularizer_torch
+    return jpipe, tpipe, jdino
+
+
+def test_bf16_coarse_decode_matches_jax(pipelines):
+    """JAX's own check (tests/test_triposg.py, the speed knobs): prefilter 3
+    + bf16 coarse passes give a finite mesh whose mean radius is within 0.01
+    of the fp32 decode's; here also of JAX's bf16 decode. The bf16 passes
+    take the prefilter and band chunks, the fp32 one the fine chunks."""
+    jpipe, tpipe, _ = pipelines
+    latents = np.random.default_rng(2).standard_normal((1, 16, 8)).astype(np.float32)
+    depths = dict(dense_octree_depth=4, hierarchical_octree_depth=5)
+    ref = tpipe.decode_latents(torch.from_numpy(latents), **depths)[0]
+    seen = []
+    plain_attention = tlayers.dot_product_attention
+
+    def recording(q, k, v, **kw):
+        seen.append(q.dtype)
+        return plain_attention(q, k, v, **kw)
+
+    tlayers.dot_product_attention = recording
+    try:
+        fast = tpipe.decode_latents(torch.from_numpy(latents), prefilter_octree_depth=3,
+                                    coarse_decode_dtype="bfloat16", **depths)[0]
+    finally:
+        tlayers.dot_product_attention = plain_attention
+    jfast = jpipe.decode_latents(jnp.asarray(latents), prefilter_octree_depth=3,
+                                 coarse_decode_dtype="bfloat16", **depths)[0]
+    stats = tpipe.extract_stats
+    n_dec = TINY_VAE["decoder_layers"]
+    assert seen[n_dec:].count(torch.bfloat16) == stats["prefilter"] + stats["band"] > 0
+    assert seen[n_dec:].count(torch.float32) == stats["fine"] > 0
+    assert len(fast.faces) > 50 and np.isfinite(fast.vertices).all()
+    radius = [np.linalg.norm(m.vertices, axis=1).mean() for m in (ref, fast, jfast)]
+    assert abs(radius[0] - radius[1]) < 0.01 and abs(radius[1] - radius[2]) < 0.01
+
+
+def test_stage0_coarse_decode_dtype_reaches_stage0(tmp_path):
+    """``stage_0.coarse_decode_dtype: bfloat16`` from a YAML preset
+    (``load_config(config_dir=...)``) or ``config_updates`` reaches the
+    Stage-0 backend's call, which runs it (test_bf16_coarse_decode_matches_jax)."""
+    from actionmesh_tpu_torch.config import load_config
+    from actionmesh_tpu_torch.io.video_input import ActionMeshInput
+    from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
+    from tests.test_torch_pipeline import TINY_UPDATES, make_frames
+
+    (tmp_path / "coarse.yaml").write_text("stage_0:\n  coarse_decode_dtype: bfloat16\n")
+    assert load_config("coarse", config_dir=tmp_path).stage_0.coarse_decode_dtype == "bfloat16"
+    pipe = ActionMeshPipeline(weights_dir=None, device=CPU, dtype=torch.float32,
+                              config_updates={**TINY_UPDATES, "stage_0.coarse_decode_dtype": "bfloat16"})
+    seen = {}
+
+    def image_to_3d(image, **kwargs):
+        seen.update(kwargs)
+        return torch.zeros(1, 16, 8), tstage0.make_uv_sphere(n_lat=6, n_lon=8)
+
+    pipe.image_to_3d = image_to_3d
+    pipe.init_banks_from_anchor(ActionMeshInput(frames=make_frames(), timesteps=np.arange(16.0)))
+    assert seen["coarse_decode_dtype"] == "bfloat16"
+    assert tpipe_mod.coarse_dtype(seen["coarse_decode_dtype"]) == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["bfloat17", "Linear"])
+def test_coarse_decode_dtype_that_names_no_dtype_raises(name, pipelines):
+    """As JAX's ``jnp.dtype`` does; before any work."""
+    tpipe = pipelines[1]
+    with pytest.raises(TypeError, match="not understood"):
+        tpipe.decode_latents(torch.zeros(1, 16, 8), coarse_decode_dtype=name)
+    with pytest.raises(TypeError, match="not understood"):
+        tpipe(np.zeros((64, 64, 3), np.uint8), coarse_decode_dtype=name)
+
+
+# ---------------------------------------------------------------------------
+# The pipeline end to end, and the Stage-0 selection
+# ---------------------------------------------------------------------------
+
+
+def test_tiny_pipeline_matches_jax(monkeypatch, pipelines):
+    """Image -> DINOv2 -> 3 CFG steps -> VAE decode -> prefilter extraction
+    (dense 4, fine 5, prefilter 3) with the dev regularizer, the same noise
+    on both sides. Latents within 5e-5; faces equal; vertices within 1e-5."""
+    jpipe, tpipe, jdino = pipelines
 
     rng = np.random.default_rng(6)
     image = rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)
@@ -350,11 +491,14 @@ def test_tiny_pipeline_matches_jax(monkeypatch):
     np.testing.assert_allclose(tmesh.vertices, jmesh.vertices, atol=1e-5)
     assert set(tpipe.phase_seconds) == {"encode", "dit_sample", "decode"}
     assert tpipe.extract_stats == {"prefilter": 1, "band": 1, "dense": 0, "fine": 1}
-    # the reduced-precision coarse pass is not ported: it raises, never runs in fp32
-    with pytest.raises(NotImplementedError, match="coarse_decode_dtype"):
-        tpipe.decode_latents(tlat, coarse_decode_dtype="bfloat16", **decode)
-    with pytest.raises(NotImplementedError, match="coarse_decode_dtype"):
-        tpipe(image, coarse_decode_dtype="bfloat16", **decode)
+    # the reduced-precision coarse pass (bf16 prefilter and band, fp32 fine)
+    # runs as JAX's does: on the same latents, the same surface up to the
+    # bf16 near-zero band (the mean radius within 0.01, JAX's own bound)
+    jfast = jpipe.decode_latents(jlat, coarse_decode_dtype="bfloat16", **decode)[0]
+    tfast = tpipe.decode_latents(tlat, coarse_decode_dtype="bfloat16", **decode)[0]
+    assert tfast.n_faces > 100 and tpipe.extract_stats == {"prefilter": 1, "band": 1, "dense": 0, "fine": 1}
+    radius = [np.linalg.norm(v, axis=1).mean() for v in (tfast.vertices, jfast.vertices, jmesh.vertices)]
+    assert abs(radius[0] - radius[1]) < 0.01 and abs(radius[0] - radius[2]) < 0.01
 
 
 def test_make_image_to_3d_selection(monkeypatch, tmp_path):
