@@ -11,7 +11,7 @@ loaded on the device, so a request pays no set-up, and one lock lets one
 request at a time into it: the device runs one program at a time.
 
   GET  /healthz          -> {"status": "ok", "backend": "cuda" | "cpu",
-                             "n_devices": N, "sharded": false, "requests": N}
+                             "n_devices": N, "sharded": bool, "requests": N}
   POST /v1/video_to_4d   -> run the pipeline
        body: {"input": <path>, "output_dir": <path>, "seed": 44,
               "stage_0_steps"/"stage_1_steps"/"guidance_scales"/
@@ -26,6 +26,20 @@ failure 500; the server keeps serving after each, with the lock released.
 ``--prewarm`` runs the pipeline once on a frames directory before the
 server answers, so the CUDA kernels and the native library are built and
 the first request is warm.
+
+On several cards, one rank per card:
+
+    torchrun --nproc-per-node N -m actionmesh_tpu_torch.inference.serve [flags]
+
+Every rank builds the pipeline on its card with the default device mesh
+(``parallel/mesh.py:make_mesh``; dp = 2 when N is even, the rest tp). Rank 0
+serves HTTP; it sends each admitted request (frames, timesteps, seed,
+overrides) to the other ranks (``broadcast_object``) under the lock, and
+every rank runs the same pipeline call (``worker_loop`` on the others).
+``/healthz`` then says ``"n_devices": N, "sharded": true``. When the server
+stops, rank 0 sends the workers a stop message. A request that fails on
+one rank after the others started it leaves them waiting in a collective:
+restart the job. Without ``torchrun`` it is the one-process server above.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -44,7 +59,8 @@ import torch
 
 from actionmesh_tpu_torch.io.animated_glb import create_animated_glb_native
 from actionmesh_tpu_torch.io.mesh_io import save_deformation, save_meshes
-from actionmesh_tpu_torch.io.video_input import load_frames
+from actionmesh_tpu_torch.io.video_input import ActionMeshInput, load_frames
+from actionmesh_tpu_torch.parallel.mesh import broadcast_object, init_distributed
 
 logger = logging.getLogger(__name__)
 
@@ -59,24 +75,49 @@ OVERRIDE_KEYS = (
 )
 
 
-class ActionMeshServer:
-    """Holds the resident pipeline and serialises device access."""
+def distributed_world() -> int:
+    """The number of ranks ``torchrun`` started (WORLD_SIZE; 1 without it)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
-    def __init__(self, pipeline):
+
+class ActionMeshServer:
+    """Holds the resident pipeline and serialises device access. On rank 0
+    of a distributed job (``distributed``) each run is also sent to the
+    other ranks, which run it with it (``worker_loop``)."""
+
+    def __init__(self, pipeline, distributed: bool = False):
         self.pipeline = pipeline
+        self.distributed = distributed
         self.lock = threading.Lock()
         self.requests_served = 0
         self.prewarm_seconds: Optional[float] = None
 
     def health(self) -> dict:
         backend = self.pipeline.device.type
+        if self.distributed:
+            n_devices = distributed_world()
+        else:
+            n_devices = torch.cuda.device_count() if backend == "cuda" else 1
         return {
             "status": "ok",
             "backend": backend,
-            "n_devices": torch.cuda.device_count() if backend == "cuda" else 1,
-            "sharded": False,
+            "n_devices": n_devices,
+            "sharded": getattr(self.pipeline, "device_mesh", None) is not None,
             "requests": self.requests_served,
         }
+
+    def run(self, inp: ActionMeshInput, seed: int, overrides: dict):
+        """One pipeline call (the caller holds the lock), on every rank."""
+        if self.distributed:
+            broadcast_object(("run", inp.frames, inp.timesteps, seed, overrides))
+        return self.pipeline(inp, seed=seed, **overrides)
+
+    def stop_workers(self) -> None:
+        """End the other ranks' ``worker_loop``."""
+        if self.distributed:
+            with self.lock:
+                broadcast_object(("stop",))
+            self.distributed = False
 
     def handle(self, req: dict) -> dict:
         input_path = req.get("input")
@@ -91,7 +132,7 @@ class ActionMeshServer:
 
         t0 = time.perf_counter()
         with self.lock:  # one device program at a time
-            meshes = self.pipeline(inp, seed=seed, **overrides)
+            meshes = self.run(inp, seed, overrides)
             self.requests_served += 1
         gen_s = time.perf_counter() - t0
 
@@ -120,6 +161,25 @@ class ActionMeshServer:
             "generation_seconds": round(gen_s, 2),
             "artifacts": artifacts,
         }
+
+
+def worker_loop(pipeline) -> int:
+    """A rank other than 0: run each call rank 0 sends, until it sends
+    stop. A call that raises is logged and the loop goes on, as rank 0's
+    handler answers 500 and goes on: a request that fails (bad overrides, a
+    broken invariant) fails at the same point on every rank, so the ranks
+    stay in step. Returns the number of calls that raised."""
+    failed = 0
+    while True:
+        msg = broadcast_object(None)
+        if msg[0] == "stop":
+            return failed
+        _, frames, timesteps, seed, overrides = msg
+        try:
+            pipeline(ActionMeshInput(frames=frames, timesteps=timesteps), seed=seed, **overrides)
+        except Exception:
+            logger.exception("worker call failed")
+            failed += 1
 
 
 def make_handler(server: ActionMeshServer):
@@ -178,24 +238,41 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_server(argv: Optional[list[str]] = None) -> tuple[ThreadingHTTPServer, ActionMeshServer]:
+def build_server(
+    argv: Optional[list[str]] = None,
+) -> tuple[Optional[ThreadingHTTPServer], ActionMeshServer]:
     """Parse ``argv`` (the command line if None), build the pipeline, run
     ``--prewarm`` and bind the HTTP server (``--port 0``: any free port,
-    ``httpd.server_address`` says which); the caller runs ``serve_forever``."""
+    ``httpd.server_address`` says which); the caller runs ``serve_forever``.
+
+    Under ``torchrun`` (WORLD_SIZE > 1) this rank joins the process group
+    on its card (``init_distributed``; gloo with ``--device cpu``) and
+    builds the pipeline on the default mesh. Rank 0 returns as above (its
+    server sends every run to the others); any other rank runs
+    ``worker_loop`` (the prewarm included) and returns (None, server) once
+    rank 0 stops it.
+    """
     from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
 
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
+    distributed = distributed_world() > 1
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available (use --device cpu)")
+    if distributed:
+        device = init_distributed(device_type=device.type)
     pipe = ActionMeshPipeline(
         config_name=args.config, weights_dir=args.weights_dir, device=device, dtype=DTYPES[args.dtype]
     )
-    server = ActionMeshServer(pipe)
+    server = ActionMeshServer(pipe, distributed=distributed)
+    if distributed and torch.distributed.get_rank() != 0:
+        worker_loop(pipe)
+        return None, server
     if args.prewarm:
         logger.info("Prewarming on %s ...", args.prewarm)
         t0 = time.perf_counter()
-        pipe(load_frames(args.prewarm, max_frames=16), seed=0)
+        with server.lock:
+            server.run(load_frames(args.prewarm, max_frames=16), seed=0, overrides={})
         server.prewarm_seconds = time.perf_counter() - t0
         logger.info("Prewarm done in %.1f s", server.prewarm_seconds)
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
@@ -204,13 +281,19 @@ def build_server(argv: Optional[list[str]] = None) -> tuple[ThreadingHTTPServer,
 
 def main(argv: Optional[list[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
-    httpd, _ = build_server(argv)
+    httpd, server = build_server(argv)
+    if httpd is None:  # a worker rank, stopped by rank 0
+        torch.distributed.destroy_process_group()
+        return
     host, port = httpd.server_address[:2]
     logger.info("Serving on http://%s:%d", host, port)
     try:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if server.distributed:
+            server.stop_workers()
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

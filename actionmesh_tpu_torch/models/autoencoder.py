@@ -9,6 +9,9 @@ final cross-attention block and the output head stay fp32, as in JAX.
 For training, ``trainable`` takes every attention with the O(S)-memory
 flash backward and ``remat`` recomputes each self-attention block in the
 backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint`` in JAX).
+Under a device mesh the folded target batch splits over dp, the heads and
+MLP columns over tp, and the [T*N | T] sequence over sp through the ring;
+the vertex queries of the final block split over sp.
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ from actionmesh_tpu_torch.ops.embeddings import (
 )
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.ops.tensor_ops import merge_batch_time, merge_time_tokens
+from actionmesh_tpu_torch.parallel.mesh import (
+    axis_size,
+    gather_shards,
+    local_shard,
+    split_axes,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +142,7 @@ def autoencoder_forward(
     compute_dtype: torch.dtype = torch.float32,
     trainable: bool = False,
     remat: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Decode latents to per-vertex displacements for every target timestep.
 
@@ -145,9 +155,22 @@ def autoencoder_forward(
     (kernels C and D on the card); ``remat`` recomputes each self-attention
     block in the backward pass, which runs its kernels a second time.
     Neither changes the forward's output.
+
+    ``mesh``: the inputs are the whole tensors, the same on every rank, and
+    ``params`` this rank's ``shard_params`` slices; every rank returns the
+    whole displacement. The folded (B*T_out) target batch splits over dp
+    (JAX's ``constrain_target_batch``; T_out is padded with copies of the
+    last target to a multiple of dp, as in JAX, and the copies dropped), the
+    [T*N | T] sequence over sp when sp divides it (the self-attention as the
+    ring), the heads over tp. The final block's vertex queries split over sp
+    (V padded to a multiple of sp) against the gathered KV sequence.
     """
     if target_alphas.ndim != 2 or source_alpha.ndim != 1:
         raise ValueError("target_alphas must be (B, T_out), source_alpha (B,)")
+    T_out_real = target_alphas.shape[1]
+    pad_t = (-T_out_real) % axis_size(mesh, "dp")
+    if pad_t:
+        target_alphas = torch.cat([target_alphas, target_alphas[:, -1:].expand(-1, pad_t)], dim=1)
     B, T, N, _ = latent.shape
     T_out = target_alphas.shape[1]
     V = query.shape[1]
@@ -183,10 +206,21 @@ def autoencoder_forward(
         cos_b = cos.repeat_interleave(T_out, dim=0)
         sin_b = sin.repeat_interleave(T_out, dim=0)
 
+    t_axes = s_axes = v_axes = ()
+    if mesh is not None:
+        t_axes = split_axes(B * T_out, mesh, ("dp",))
+        s_axes = split_axes(x.shape[1], mesh, ("sp",))
+        v_axes = ("sp",) if axis_size(mesh, "sp") > 1 else ()
+        x = local_shard(local_shard(x, 0, mesh, t_axes), 1, mesh, s_axes)
+        if cos_b.ndim == 3:
+            cos_b, sin_b = (local_shard(t, 0, mesh, t_axes) for t in (cos_b, sin_b))
+        cos_b, sin_b = (local_shard(t, t.ndim - 2, mesh, s_axes).contiguous() for t in (cos_b, sin_b))
+
     def block(x, cos_b, sin_b, _params):
         return flow_matching_block(
             _params, x, num_attention_heads=cfg.num_attention_heads,
             freqs_rot=(cos_b, sin_b), gelu_approx=cfg.gelu_approx, trainable=trainable,
+            mesh=mesh, sequence_parallel=bool(s_axes),
         )
 
     for block_params in params["blocks"][:-1]:
@@ -197,16 +231,24 @@ def autoencoder_forward(
             x = block(x, cos_b, sin_b, block_params)
 
     # Final cross-attention with vertex queries (fp32 island)
-    kv_cache = x.float()
+    kv_cache = gather_shards(x.float(), 1, mesh, s_axes)
     queries = linear(params["proj_query"], embed_queries(cfg, query))  # (B, V, W)
     queries_b = queries[:, None].expand(B, T_out, V, cfg.width).reshape(
         B * T_out, V, cfg.width
     )
+    if mesh is not None:
+        queries_b = local_shard(queries_b, 0, mesh, t_axes)
+        if v_axes:  # pad V with zero queries to a multiple of sp; their rows are dropped
+            pad_v = (-V) % axis_size(mesh, "sp")
+            queries_b = local_shard(torch.nn.functional.pad(queries_b, (0, 0, 0, pad_v)), 1, mesh, v_axes)
     logits = flow_matching_block(
         params["blocks"][-1], queries_b, num_attention_heads=cfg.num_attention_heads,
-        encoder_hidden_states=kv_cache, trainable=trainable,
+        encoder_hidden_states=kv_cache, trainable=trainable, mesh=mesh,
     )
     logits = linear(params["proj_out"], layer_norm(params["norm_out"], logits))
     logits = logits * -1.0  # sign flip (reference temporal_autoencoder.py:160)
     displacement = 2.0 * torch.sigmoid(logits) - 1.0
-    return displacement.reshape(B, T_out, V, cfg.out_dim)
+    if mesh is not None:
+        displacement = gather_shards(gather_shards(displacement, 1, mesh, v_axes)[:, :V], 0, mesh, t_axes)
+    out = displacement.reshape(B, T_out, V, cfg.out_dim)
+    return out[:, :T_out_real] if pad_t else out

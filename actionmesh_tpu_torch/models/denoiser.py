@@ -6,6 +6,9 @@ U-Net long skips (blocks 0-9 push, 11-20 pop and concat); self-attention
 inflated across frames (one attention over T*(N+1) = 32,784 tokens per CFG
 branch); temporal RoPE from centred video timesteps; a per-frame
 diffusion-time token, with the diffusion time zeroed on ground-truth frames.
+Under a device mesh the batch (the CFG branches) splits over dp, the frames
+over sp (the inflated self-attention then runs the ring) and the heads and
+MLP columns over tp (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from actionmesh_tpu_torch.models.layers import (
     init_linear,
     layer_norm,
     linear,
+    row_parallel_linear,
 )
 from actionmesh_tpu_torch.ops.embeddings import (
     scale_timestep,
@@ -33,6 +37,12 @@ from actionmesh_tpu_torch.ops.embeddings import (
 )
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.ops.tensor_ops import merge_batch_time, split_batch_time
+from actionmesh_tpu_torch.parallel.mesh import (
+    axis_size,
+    gather_shards,
+    local_shard,
+    split_axes,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +137,7 @@ def denoiser_forward(
     uncond_batch: int = 0,
     trainable: bool = False,
     remat: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """One denoising step (velocity prediction).
 
@@ -139,10 +150,31 @@ def denoiser_forward(
     backward; ``remat`` recomputes each block in the backward pass
     (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX package),
     which runs every block's kernels a second time.
+
+    ``mesh``: the inputs are the whole tensors, the same on every rank, and
+    ``params`` this rank's ``shard_params`` slices. The rank runs its batch
+    rows (dp) and its block of frames (sp), with the RoPE table rows of
+    those frames, and every rank returns the whole, gathered prediction. An
+    axis that does not divide B or T runs them all; ``uncond_batch`` is
+    not used (the skip is off-mesh only).
     """
     B, T, N, _ = hidden_states.shape
     if freqs_rot is None:
         freqs_rot = precompute_freqs_rot(cfg, framestep, N)
+    b_axes = f_axes = ()
+    if mesh is not None:
+        b_axes = split_axes(B, mesh, ("dp",))
+        f_axes = split_axes(T, mesh, ("sp",))
+
+        def shard(x):  # (B, T, ...) or (B, T*(N+1), Dh): frame blocks are row blocks
+            return local_shard(local_shard(x, 0, mesh, b_axes), 1, mesh, f_axes)
+
+        hidden_states, context = shard(hidden_states), shard(context)
+        mask = shard(mask) if mask is not None else None
+        diffusion_time = local_shard(diffusion_time, 0, mesh, b_axes)
+        freqs_rot = tuple(shard(f).contiguous() for f in freqs_rot)
+        uncond_batch = 0
+        B, T = hidden_states.shape[:2]
 
     x = linear(params["proj_in"], merge_batch_time(hidden_states))  # (B*T, N, W)
     compute_dtype = x.dtype
@@ -155,10 +187,11 @@ def denoiser_forward(
         dt, cfg.width, flip_sin_to_cos=False, downscale_freq_shift=0.0
     ).to(compute_dtype)
     # erf GELU here whatever gelu_approx says (actionmesh_tpu denoiser.py:210-212)
-    dt_emb = linear(
-        params["time_proj"]["linear_2"],
-        F.gelu(linear(params["time_proj"]["linear_1"], dt_emb)),
-    )
+    dt_hidden = F.gelu(linear(params["time_proj"]["linear_1"], dt_emb))
+    if axis_size(mesh, "tp") > 1:
+        dt_emb = row_parallel_linear(params["time_proj"]["linear_2"], dt_hidden, mesh)
+    else:
+        dt_emb = linear(params["time_proj"]["linear_2"], dt_hidden)
     x = torch.cat([dt_emb[:, None, :], x], dim=1)  # (B*T, N+1, W)
 
     context_merged = merge_batch_time(context).to(compute_dtype)
@@ -181,6 +214,8 @@ def denoiser_forward(
                 gelu_approx=cfg.gelu_approx,
                 uncond_prefix=uncond_batch * T,  # batch-major merge_batch_time
                 trainable=trainable,
+                mesh=mesh,
+                sequence_parallel=bool(f_axes),
             )
 
         args = (x, context_merged, freqs_rot if inflate is not None else None, skip)
@@ -193,4 +228,7 @@ def denoiser_forward(
 
     x = layer_norm(params["norm_out"], x)
     x = linear(params["proj_out"], x[:, -N:])  # drop the time token
-    return split_batch_time(x, T)
+    out = split_batch_time(x, T)
+    if mesh is not None:
+        out = gather_shards(gather_shards(out, 1, mesh, f_axes), 0, mesh, b_axes)
+    return out

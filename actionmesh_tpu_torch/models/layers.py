@@ -8,7 +8,14 @@ in fp32.
 
 Two JAX switches are not ported as switches: q, k and v are never
 concatenated into one projection, and the cross-attention of CFG branches
-with all-zero image context is always skipped (it is bitwise-exact).
+with all-zero image context is skipped off a mesh (it is bitwise-exact).
+
+Under a device mesh (``parallel/mesh.py``) these functions take the rank's
+local shard: activations whole over tp, the rank's batch rows and frames;
+parameters cut by ``shard_params``. Column-parallel q/k/v and ``net_0`` give
+the rank's heads and inner columns; row-parallel ``to_out`` and ``net_2``
+are summed over tp (``row_parallel_linear``). A self-attention whose
+sequence is split over sp (``sequence_parallel``) runs the ring.
 """
 
 from __future__ import annotations
@@ -24,6 +31,11 @@ from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope
 from actionmesh_tpu_torch.ops.tensor_ops import (
     flat_batch_to_flat_seq,
     flat_seq_to_flat_batch,
+)
+from actionmesh_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    axis_size,
+    tp_splits_heads,
 )
 
 Params = dict
@@ -166,13 +178,27 @@ def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tens
     return y.to(x.dtype)
 
 
+def row_parallel_linear(params: Params, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A linear whose weight holds this rank's input columns: the partial
+    products summed over tp, then the bias, added once."""
+    w = params["weight"]
+    y = all_reduce_sum(F.linear(x.to(w.dtype), w), mesh, "tp")
+    b = params.get("bias")
+    return y if b is None else y + b
+
+
 def feed_forward(
-    params: Params, x: torch.Tensor, gelu_approx: bool = False
+    params: Params, x: torch.Tensor, gelu_approx: bool = False, mesh=None
 ) -> torch.Tensor:
-    """Linear -> GELU (tanh approximation if ``gelu_approx``, else erf) -> Linear."""
+    """Linear -> GELU (tanh approximation if ``gelu_approx``, else erf) -> Linear.
+
+    ``mesh`` with tp > 1: ``net_0`` holds this rank's inner columns and
+    ``net_2`` its rows (``shard_params``), summed over tp."""
     h = F.gelu(
         linear(params["net_0"], x), approximate="tanh" if gelu_approx else "none"
     )
+    if axis_size(mesh, "tp") > 1:
+        return row_parallel_linear(params["net_2"], h, mesh)
     return linear(params["net_2"], h)
 
 
@@ -185,6 +211,8 @@ def attention(
     kv_mask: Optional[torch.Tensor] = None,
     uncond_prefix: int = 0,
     trainable: bool = False,
+    mesh=None,
+    sequence_parallel: bool = False,
 ) -> torch.Tensor:
     """Multi-head (self or cross) attention on (B, S, D) activations.
 
@@ -197,11 +225,22 @@ def attention(
     are all zero (CFG branches without the image). With bias-free k/v
     projections and no ``norm_cross``, their k = v = 0, the softmax is
     uniform over zero values, and the output is exactly the out-projection
-    bias, so their cross-attention is skipped.
+    bias, so their cross-attention is skipped (off a mesh only, as in JAX).
+
+    ``mesh``: the rank's local activations and ``shard_params`` weights;
+    with tp splitting the heads (``tp_splits_heads``) the rank runs
+    ``heads / tp`` of them and ``to_out`` is summed over tp.
+    ``sequence_parallel``: a self-attention whose (B, S) rows are this
+    rank's S of the sp-split sequence, run as the ring over sp.
     """
     B, S, _ = hidden_states.shape
+    if mesh is not None and trainable:
+        raise NotImplementedError(
+            "attention(trainable=True, mesh=...): sharded training is not ported yet"
+        )
     if (
-        encoder_hidden_states is not None
+        mesh is None
+        and encoder_hidden_states is not None
         and 0 < uncond_prefix < B
         and "norm_cross" not in params
         and "bias" not in params["to_k"]
@@ -231,6 +270,9 @@ def attention(
     k = linear(params["to_k"], kv_src)
     v = linear(params["to_v"], kv_src)
 
+    split_heads = tp_splits_heads(heads, axis_size(mesh, "tp"))
+    if split_heads:
+        heads //= axis_size(mesh, "tp")
     dim_head = q.shape[-1] // heads
     # (B, S, H*Dh) -> (B, H, S, Dh) views
     q = q.view(B, S, heads, dim_head).transpose(1, 2)
@@ -243,8 +285,11 @@ def attention(
         q = fused_rms_rope(q, params["norm_q"]["scale"] if has_norm else None, cos, sin)
         k = fused_rms_rope(k, params["norm_k"]["scale"] if has_norm else None, cos, sin)
 
-    out = dot_product_attention(q, k, v, kv_mask=kv_mask, trainable=trainable)
+    out = dot_product_attention(q, k, v, kv_mask=kv_mask, trainable=trainable, mesh=mesh,
+                                sequence_parallel=sequence_parallel)
     out = out.transpose(1, 2).reshape(B, S, heads * dim_head)
+    if split_heads:
+        return row_parallel_linear(params["to_out"], out, mesh)
     return linear(params["to_out"], out)
 
 
@@ -259,6 +304,8 @@ def flow_matching_block(
     gelu_approx: bool = False,
     uncond_prefix: int = 0,
     trainable: bool = False,
+    mesh=None,
+    sequence_parallel: bool = False,
 ) -> torch.Tensor:
     """Pre-norm transformer block with optional U-skip concat.
 
@@ -266,6 +313,13 @@ def flow_matching_block(
     sequence (B, T*N, D) built from the per-frame layout (B*T, N, D);
     cross-attention and FF stay per frame. ``freqs_rot`` must match the
     self-attention layout.
+
+    ``mesh``: local shards, as ``attention``. ``sequence_parallel``: the
+    self-attention's sequence is split over sp, and its rows here are this
+    rank's. Inflated, that means the rank holds T of the window's frames,
+    a whole block of them (JAX's ``constrain_sp_layout``): an sp shard
+    boundary falls on a frame boundary, so inflating and de-inflating stay
+    local and the ring runs over the rank's T*N rows.
     """
     if "linear_skip" in params:
         if skip is None:
@@ -279,7 +333,7 @@ def flow_matching_block(
             normed = flat_batch_to_flat_seq(normed, inflate_n_frames)
         att = attention(
             params["s_attn"], normed, heads=num_attention_heads, freqs_rot=freqs_rot,
-            trainable=trainable,
+            trainable=trainable, mesh=mesh, sequence_parallel=sequence_parallel,
         )
         if inflate_n_frames is not None:
             att = flat_seq_to_flat_batch(att, inflate_n_frames)
@@ -293,10 +347,12 @@ def flow_matching_block(
             encoder_hidden_states=encoder_hidden_states,
             uncond_prefix=uncond_prefix,
             trainable=trainable,
+            mesh=mesh,
         )
 
     return hidden_states + feed_forward(
         params["ff"],
         layer_norm(params["norm_ff"], hidden_states),
         gelu_approx=gelu_approx,
+        mesh=mesh,
     )

@@ -85,8 +85,10 @@ class DevTripoSG:
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
         image_encoder=None,
+        device_mesh=None,
     ):
         self.device = device
+        self._device_mesh = device_mesh
         self._dtype = dtype
         self._seed = seed
         self._image_encoder = image_encoder
@@ -100,7 +102,7 @@ class DevTripoSG:
             logger.info("Building the random-weight TripoSG pipeline (development mode)")
             self._pipe = TripoSGPipeline.from_random(
                 seed=self._seed, dtype=self._dtype, image_encoder=self._image_encoder,
-                device=self.device,
+                device=self.device, device_mesh=self._device_mesh,
             )
             self._pipe.sdf_regularizer = _dev_sdf_regularizer
             self._pipe.sdf_regularizer_torch = _dev_sdf_regularizer_torch
@@ -137,17 +139,20 @@ def make_image_to_3d(
     device: torch.device,
     dtype: torch.dtype = torch.bfloat16,
     image_encoder=None,
+    device_mesh=None,
 ):
     """TripoSG from the checkpoint in ``weights_dir`` if that exists (its
     DINOv2 is ``image_encoder`` if given, else the checkpoint beside it);
     without weights ``DevTripoSG`` at the production latent shape unless
-    ``ACTIONMESH_DEV_STAGE0=stub``; the stub otherwise."""
+    ``ACTIONMESH_DEV_STAGE0=stub``; the stub otherwise. ``device_mesh``:
+    TripoSG's (``TripoSGPipeline``)."""
     if weights_dir is not None and Path(weights_dir).exists():
         from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
 
         logger.info("Loading TripoSG weights from %s", weights_dir)
         return TripoSGPipeline.from_pretrained(
-            Path(weights_dir), dtype=dtype, image_encoder=image_encoder, device=device
+            Path(weights_dir), dtype=dtype, image_encoder=image_encoder, device=device,
+            device_mesh=device_mesh,
         )
     if tuple(latent_shape) == (2048, 64) and os.environ.get("ACTIONMESH_DEV_STAGE0", "triposg") != "stub":
         logger.warning(
@@ -155,7 +160,7 @@ def make_image_to_3d(
             "random weights (development mode, dev SDF regularizer).",
             weights_dir,
         )
-        return DevTripoSG(device, dtype=dtype, image_encoder=image_encoder)
+        return DevTripoSG(device, dtype=dtype, image_encoder=image_encoder, device_mesh=device_mesh)
     logger.warning(
         "TripoSG weights not found (%s) — using the deterministic Stage-0 stub "
         "(development mode).",

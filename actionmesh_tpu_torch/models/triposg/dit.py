@@ -55,13 +55,16 @@ def triposg_dit_forward(
     context: torch.Tensor,
     diffusion_time: torch.Tensor,
     uncond_batch: int = 0,
+    mesh=None,
 ) -> torch.Tensor:
     """One velocity prediction: latents (B, N, C), context (B, S, Dc),
     diffusion_time (B,) -> (B, N, C).
 
     ``uncond_batch``: leading batch entries whose context is all zero (the
     CFG unconditional branch); their cross-attention is skipped, as it
-    reduces exactly to the out-projection bias.
+    reduces exactly to the out-projection bias. ``mesh``: as
+    ``denoiser_forward``'s (whole tensors in and out, ``shard_params``
+    weights).
     """
     B = latents.shape[0]
     out = denoiser_forward(
@@ -72,5 +75,6 @@ def triposg_dit_forward(
         framestep=torch.zeros((B, 1), dtype=torch.float32, device=latents.device),
         diffusion_time=diffusion_time,
         uncond_batch=uncond_batch,
+        mesh=mesh,
     )
     return out[:, 0]

@@ -11,6 +11,11 @@ with marching cubes (``decode_latents``).
 any key it does not know), the development path random weights
 (``from_random``). ``encode_to_latent`` maps a surface (B, N, 6) to a latent
 through the VAE's encoder (the {video + 3D} mode's Stage 0).
+
+``device_mesh`` (``parallel/mesh.py``): the DiT's weights are cut as the
+Stage-I denoiser's (heads and MLP columns over tp), the CFG pair of each
+sampling step splits over dp, and each SDF query chunk splits over every
+rank; the VAE stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from actionmesh_tpu_torch.models.triposg.vae import (
     encode_surface,
     init_triposg_vae,
     presample_size,
-    query_sdf,
+    _query_chunk,
     query_sdf_at_ids,
     query_sdf_grid_inside,
 )
@@ -61,6 +66,7 @@ def flow_sample(
     timesteps: np.ndarray,
     distances: np.ndarray,
     guidance_scale: Optional[float],
+    mesh=None,
 ) -> torch.Tensor:
     """Euler rectified-flow loop from ``init_noise`` (B, N, C).
 
@@ -70,6 +76,11 @@ def flow_sample(
     context, cross-attention skipped) and the conditional one in one batch
     and mixes them; ``None`` is the guidance-free path of a distilled
     checkpoint, one conditional forward per step.
+
+    ``mesh``: ``dit_params`` are this rank's ``shard_params`` slices and the
+    inputs the whole tensors, the same on every rank; the CFG pair splits
+    over dp (the guidance-free batch of 1 runs whole on every dp rank),
+    the heads over tp, and every rank's latents stay the same.
     """
     B = init_noise.shape[0]
     latents = init_noise
@@ -80,12 +91,12 @@ def flow_sample(
     for t, dist in zip(ts.tolist(), ds.tolist()):
         if guidance_scale is None:
             dt = torch.full((B,), t, dtype=torch.float32, device=latents.device)
-            v = triposg_dit_forward(dit_params, dit_cfg, latents, context, dt).float()
+            v = triposg_dit_forward(dit_params, dit_cfg, latents, context, dt, mesh=mesh).float()
         else:
             dt = torch.full((2 * B,), t, dtype=torch.float32, device=latents.device)
             pred = triposg_dit_forward(
                 dit_params, dit_cfg, torch.cat([latents, latents], dim=0), context, dt,
-                uncond_batch=B,
+                uncond_batch=B, mesh=mesh,
             ).float()
             uncond, cond = pred[:B], pred[B:]
             v = uncond + guidance_scale * (cond - uncond)
@@ -195,8 +206,18 @@ class TripoSGPipeline:
         device: torch.device = torch.device("cuda"),
         num_train_timesteps: int = 1000,
         shift: float = 3.0,
+        device_mesh=None,
     ):
         self.dit_cfg = dit_cfg or triposg_dit_config()
+        self.device_mesh = device_mesh
+        if device_mesh is not None:
+            from actionmesh_tpu_torch.parallel.mesh import denoiser_param_shardings, shard_params
+
+            dit_params = shard_params(
+                dit_params,
+                denoiser_param_shardings(dit_params, device_mesh, self.dit_cfg.num_attention_heads),
+                device_mesh,
+            )
         self.vae_cfg = vae_cfg or TripoSGVAEConfig()
         self.dit_params = dit_params
         self.vae_params = vae_params
@@ -219,6 +240,7 @@ class TripoSGPipeline:
         dtype: torch.dtype = torch.bfloat16,
         image_encoder: Optional[ImageEncoder] = None,
         device: torch.device = torch.device("cuda"),
+        device_mesh=None,
     ) -> "TripoSGPipeline":
         """Load a VAST-AI/TripoSG checkpoint (``transformer/`` + ``vae/``).
 
@@ -248,6 +270,7 @@ class TripoSGPipeline:
             vae_cfg=vae_cfg,
             dtype=dtype,
             device=device,
+            device_mesh=device_mesh,
         )
 
     @classmethod
@@ -259,9 +282,11 @@ class TripoSGPipeline:
         vae_cfg: Optional[TripoSGVAEConfig] = None,
         image_encoder: Optional[ImageEncoder] = None,
         device: torch.device = torch.device("cuda"),
+        device_mesh=None,
     ) -> "TripoSGPipeline":
         """Random weights: the DiT from generator ``seed``, the VAE from
-        generator ``seed + 1``, both on ``device``."""
+        generator ``seed + 1``, both on ``device`` (the same on every rank,
+        which then keeps its slices)."""
         device = torch.device(device)
         dit_cfg = dit_cfg or triposg_dit_config()
         vae_cfg = vae_cfg or TripoSGVAEConfig()
@@ -275,6 +300,7 @@ class TripoSGPipeline:
             vae_cfg=vae_cfg,
             dtype=dtype,
             device=device,
+            device_mesh=device_mesh,
         )
 
     def _sync(self) -> None:
@@ -311,6 +337,7 @@ class TripoSGPipeline:
         latents = flow_sample(
             self.dit_params, self.dit_cfg, noise, context.to(self._dtype), ts, dist,
             guidance_scale=None if guidance_scale <= 0 else float(guidance_scale),
+            mesh=self.device_mesh,
         )
         self._sync()
         t2 = time.perf_counter()
@@ -372,14 +399,14 @@ class TripoSGPipeline:
         coarse_cd = coarse_dtype(coarse_decode_dtype)
         latents = latents.to(device=self.device, dtype=self._dtype)
         reg_host, reg_torch = self.sdf_regularizer, self.sdf_regularizer_torch
-        params, cfg = self.vae_params, self.vae_cfg
+        params, cfg, mesh = self.vae_params, self.vae_cfg, self.device_mesh
         meshes = []
         for b in range(latents.shape[0]):
             kv = decode_kv(params, cfg, latents[b : b + 1])
 
             def sdf_fn(pts: np.ndarray) -> np.ndarray:
                 pts_t = torch.as_tensor(pts, dtype=torch.float32, device=self.device)
-                out = query_sdf(params, cfg, kv, pts_t[None])[0].cpu().numpy()
+                out = _query_chunk(params, cfg, kv, pts_t, mesh).cpu().numpy()
                 if reg_host is not None:
                     out = reg_host(pts, out)
                 return out
@@ -393,11 +420,13 @@ class TripoSGPipeline:
                 def grid_inside_fn(lo, step, Rc, level):
                     return query_sdf_grid_inside(
                         params, cfg, kv, lo, step, level, Rc, regularizer=reg_torch,
-                        compute_dtype=coarse_cd,
+                        compute_dtype=coarse_cd, mesh=mesh,
                     )
 
                 def ids_val_fn(ijk, lo, step):
-                    return query_sdf_at_ids(params, cfg, kv, ijk, lo, step, regularizer=reg_torch)
+                    return query_sdf_at_ids(
+                        params, cfg, kv, ijk, lo, step, regularizer=reg_torch, mesh=mesh
+                    )
 
             # the sign-only variant for the prefilter and band passes
             ids_val_coarse_fn = None
@@ -406,7 +435,7 @@ class TripoSGPipeline:
                 def ids_val_coarse_fn(ijk, lo, step):
                     return query_sdf_at_ids(
                         params, cfg, kv, ijk, lo, step, regularizer=reg_torch,
-                        compute_dtype=coarse_cd,
+                        compute_dtype=coarse_cd, mesh=mesh,
                     )
 
             self.extract_stats = {}

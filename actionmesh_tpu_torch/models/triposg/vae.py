@@ -243,6 +243,30 @@ def query_sdf(
     return _query_core(params, cfg, kv, points, trainable=trainable)
 
 
+def _query_chunk(
+    params: Params,
+    cfg: TripoSGVAEConfig,
+    kv: torch.Tensor,
+    pts: torch.Tensor,
+    mesh=None,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """One flat chunk of points (Q, 3) -> (Q,) values.
+
+    ``mesh``: the query axis is embarrassingly parallel, so the chunk splits
+    over every rank of the mesh (JAX splits it over dp and the heads over
+    tp; here each rank runs all heads of its Q / n_ranks points), and the
+    values are all-gathered: every rank returns all Q. The VAE's weights are
+    whole on every rank. A Q the ranks do not divide runs whole on each.
+    """
+    from actionmesh_tpu_torch.parallel.mesh import gather_shards, local_shard, split_axes
+
+    axes = split_axes(pts.shape[0], mesh, mesh.mesh_dim_names) if mesh is not None else ()
+    vals = _query_core(params, cfg, kv, local_shard(pts, 0, mesh, axes)[None],
+                       compute_dtype=compute_dtype)[0]
+    return gather_shards(vals, 0, mesh, axes)
+
+
 def _lattice_points(lo, step, ijk: torch.Tensor) -> torch.Tensor:
     """lo + ijk * step in fp32 on ijk's device: (N, 3) int -> (N, 3) points."""
     lo = torch.as_tensor(np.asarray(lo, np.float32), device=ijk.device)
@@ -261,14 +285,16 @@ def query_sdf_grid_inside(
     chunk: int = QUERY_CHUNK,
     regularizer: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> np.ndarray:
     """Inside mask (value < level) of the dense ``Rc**3`` lattice.
 
     The points of each chunk are generated on the device from their flat
     row-major (i, j, k) index; the int8 mask comes to the host once.
     ``regularizer`` is an optional ``(pts, vals) -> vals`` applied before
-    the threshold; ``compute_dtype`` as for ``_query_core``. Returns int8
-    (n_chunks * chunk,); entries past ``Rc**3`` are padding.
+    the threshold; ``compute_dtype`` as for ``_query_core``; ``mesh`` as
+    for ``_query_chunk``. Returns int8 (n_chunks * chunk,); entries past
+    ``Rc**3`` are padding.
     """
     n_chunks = -(-Rc**3 // chunk)
     inside = torch.empty(n_chunks * chunk, dtype=torch.int8, device=kv.device)
@@ -276,7 +302,7 @@ def query_sdf_grid_inside(
         idx = ci * chunk + torch.arange(chunk, dtype=torch.int32, device=kv.device)
         ijk = torch.stack([idx // (Rc * Rc), (idx // Rc) % Rc, idx % Rc], dim=-1)
         pts = _lattice_points(lo, step, ijk)
-        vals = _query_core(params, cfg, kv, pts[None], compute_dtype=compute_dtype)[0]
+        vals = _query_chunk(params, cfg, kv, pts, mesh, compute_dtype)
         if regularizer is not None:
             vals = regularizer(pts, vals)
         inside[ci * chunk : (ci + 1) * chunk] = vals < level
@@ -293,6 +319,7 @@ def query_sdf_at_ids(
     chunk: int = QUERY_CHUNK,
     regularizer: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> np.ndarray:
     """SDF values at lattice ids ``ijk`` (M, 3) int32, points lo + ijk * step.
 
@@ -300,7 +327,8 @@ def query_sdf_at_ids(
     one. ``M`` must be a multiple of ``chunk`` (the caller pads and discards
     the padded entries). ``compute_dtype`` as for ``_query_core``: only for
     callers that read signs (the band pass); the fine pass's values, which
-    marching cubes interpolates, leave it None (fp32).
+    marching cubes interpolates, leave it None (fp32). ``mesh`` as for
+    ``_query_chunk``.
     """
     if len(ijk) % chunk:
         raise ValueError(f"query_sdf_at_ids: {len(ijk)} ids, not a multiple of {chunk}")
@@ -308,7 +336,7 @@ def query_sdf_at_ids(
     vals_out = torch.empty(len(ids), dtype=torch.float32, device=kv.device)
     for c0 in range(0, len(ids), chunk):
         pts = _lattice_points(lo, step, ids[c0 : c0 + chunk])
-        vals = _query_core(params, cfg, kv, pts[None], compute_dtype=compute_dtype)[0]
+        vals = _query_chunk(params, cfg, kv, pts, mesh, compute_dtype)
         if regularizer is not None:
             vals = regularizer(pts, vals)
         vals_out[c0 : c0 + chunk] = vals.float()

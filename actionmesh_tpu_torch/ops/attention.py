@@ -9,13 +9,21 @@ backward, and ``chunked_attention_trainable`` joining the two.
 Stage I's inflated self-attention spans 16 x 2049 = 32,784 tokens; a
 materialised fp32 score matrix there would be 2 x 16 x 32,784^2 x 4 bytes
 = 137 GB, so the plain version scans KV in chunks with an online softmax.
+
+Under a device mesh (``parallel/mesh.py``), ``dot_product_attention(mesh=)``
+runs the kernel on the rank's (batch, head, sequence) shard; a sequence
+split over ``sp`` runs ``ring_attention_local``, which merges the kernel's
+per-shard partials by their online-softmax statistics (``merge_partials``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
+
+from actionmesh_tpu_torch.parallel.mesh import axis_size
 
 NEG_INF = -1e30
 
@@ -156,6 +164,83 @@ def chunked_attention_trainable(
     return _ChunkedAttentionTrainable.apply(q, k, v, scale)
 
 
+def merge_partials(partials: Sequence, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Attention over the union of KV shards from each shard's partial.
+
+    ``partials``: (out, (m, l)) per KV shard, as ``flash_attention(...,
+    return_stats=True)`` gives them for the same queries: out (B, H, Sq, D)
+    normalised by its own l, m the running max of the scaled scores and l
+    the sum of exp(s - m), (B, H, Sq) fp32. The log-sum-exp combine of
+    ``actionmesh_tpu/ops/attention.py:ring_attention_local``: with M the max
+    of the m_i, w_i = l_i exp(m_i - M), out = sum_i w_i out_i / max(sum_i
+    w_i, 1e-30) in fp32. A partial with l = 0 weighs 0 whatever its m (so
+    -inf stats give no NaN). A shard whose keys a row masks entirely has
+    m = -1e30 and weighs exp(-1e30 - M) = 0 beside any shard with a valid
+    key; when every shard masks the row, the result is the mean of v over
+    all keys, as one unsharded call gives. Returns ``dtype`` (the first
+    out's by default).
+    """
+    m = torch.stack([p[1][0] for p in partials]).amax(dim=0)
+    num = l = None
+    for out_i, (m_i, l_i) in partials:
+        w = torch.where(l_i > 0, l_i * torch.exp(m_i - m), 0.0)
+        term = out_i.float() * w[..., None]
+        num = term if num is None else num + term
+        l = w if l is None else l + w
+    return (num / torch.clamp(l, min=1e-30)[..., None]).to(dtype or partials[0][0].dtype)
+
+
+def ring_attention_local(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float],
+    kv_mask: Optional[torch.Tensor],
+    group,
+) -> torch.Tensor:
+    """Sequence-parallel attention on this rank's shard (ring schedule).
+
+    Each rank of ``group`` (the sp axis) holds S/sp query rows and the S/sp
+    keys of the same positions, k, v (B, H, S/sp, D) and kv_mask (B, S/sp).
+    The KV shards go round the ring (this rank sends to the next and
+    receives from the previous, ``dist.batch_isend_irecv``, the next shard's
+    transfer running while the current one's partial is computed); each step
+    runs kernel A (the plain version on CPU tensors) with
+    ``return_stats=True``, and the sp partials are merged by
+    ``merge_partials``. Port of ``actionmesh_tpu/ops/attention.py:
+    ring_attention_local``.
+    """
+    from actionmesh_tpu_torch.ops.flash_attention import flash_attention
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return flash_attention(q, k, v, scale=scale, kv_mask=kv_mask)
+    rank = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (rank + 1) % n)
+    prv = dist.get_global_rank(group, (rank - 1) % n)
+    cur = [k.contiguous(), v.contiguous()]
+    if kv_mask is not None:
+        cur.append(kv_mask.to(torch.int32).contiguous())
+    partials = []
+    for step in range(n):
+        reqs = ()
+        if step < n - 1:
+            incoming = [torch.empty_like(t) for t in cur]
+            reqs = dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, t, nxt, group) for t in cur]
+                + [dist.P2POp(dist.irecv, t, prv, group) for t in incoming]
+            )
+        partials.append(flash_attention(
+            q, cur[0], cur[1], scale=scale,
+            kv_mask=cur[2] if kv_mask is not None else None, return_stats=True,
+        ))
+        for req in reqs:  # the buffers are read or replaced only after this
+            req.wait()
+        if reqs:
+            cur = incoming
+    return merge_partials(partials, q.dtype)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -163,6 +248,8 @@ def dot_product_attention(
     scale: Optional[float] = None,
     kv_mask: Optional[torch.Tensor] = None,
     trainable: bool = False,
+    mesh=None,
+    sequence_parallel: bool = False,
 ) -> torch.Tensor:
     """Fused multi-head attention, q (B,H,Sq,D), k/v (B,H,Sk,D) -> q.dtype.
 
@@ -170,6 +257,13 @@ def dot_product_attention(
     take); CPU tensors to the plain chunked versions. ``trainable`` gives
     the O(S)-memory backward (kernels C and D on the card), as JAX's
     ``auto_train``; it takes no kv mask.
+
+    ``mesh``: q, k, v (and the mask) are this rank's shards, as the layers
+    hold them. A (batch, head) shard needs no communication and runs the
+    local kernel. With ``sequence_parallel`` they hold the rank's S/sp rows
+    of a self-attention whose sequence is split over the mesh's sp axis,
+    and it runs as the ring over sp (``ring_attention_local``). The
+    trainable path under a mesh waits for multi-GPU training and raises.
     """
     from actionmesh_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -177,7 +271,14 @@ def dot_product_attention(
     )
 
     if trainable:
+        if mesh is not None:
+            raise NotImplementedError(
+                "dot_product_attention(trainable=True, mesh=...): sharded training "
+                "attention is not ported yet"
+            )
         if kv_mask is not None:
             raise ValueError("trainable attention takes no kv_mask")
         return flash_attention_trainable(q, k, v, scale=scale)
+    if sequence_parallel and axis_size(mesh, "sp") > 1:
+        return ring_attention_local(q, k, v, scale, kv_mask, mesh.get_group("sp"))
     return flash_attention(q, k, v, scale=scale, kv_mask=kv_mask)

@@ -12,14 +12,24 @@ family whose directory is absent runs on seeded random weights
 random weights, ``models/stage0.py:DevTripoSG``); one that is present but
 malformed raises. Each Stage-I and Stage-II window runs inside a
 ``trace("stage1_window_<i>")`` / ``trace("stage2_window_<i>")`` span
-(``utils/profiling.py``). Not ported: device meshes and sharding, segmented
-launches, the download of missing checkpoints (the card has no network: the
-missing families are logged) and the static-shape vertex bucketing (padded
-query rows are independent, so dropping it changes no result).
+(``utils/profiling.py``). The per-call overrides of ``__call__`` hold for
+that call only.
+
+``device_mesh`` (``parallel/mesh.py``) runs the pipeline as one SPMD program
+over ``torch.distributed``, one rank per card: Stage I/II and the TripoSG
+DiT weights are cut over tp, and Stage 0's sampling and SDF decode, Stage I
+and Stage II split as their ``mesh=`` functions say. Every rank runs the
+same call; the preprocessed frames and Stage 0's anchor are rank 0's,
+broadcast, so every rank agrees on the shapes that follow. Not ported:
+segmented launches, the download of missing checkpoints (the card has no
+network: the missing families are logged) and the static-shape vertex
+bucketing (padded query rows are independent, so dropping it changes no
+result).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from pathlib import Path
@@ -46,6 +56,13 @@ from actionmesh_tpu_torch.ops.embeddings import (
     get_scaling,
     interpolate_timesteps,
 )
+from actionmesh_tpu_torch.parallel.mesh import (
+    autoencoder_param_shardings,
+    broadcast_object,
+    default_mesh,
+    denoiser_param_shardings,
+    shard_params,
+)
 from actionmesh_tpu_torch.preprocessing.background import BackgroundRemover
 from actionmesh_tpu_torch.preprocessing.image import ImagePreprocessor
 from actionmesh_tpu_torch.preprocessing.mesh import MeshPostprocessor, get_mesh_features
@@ -67,7 +84,8 @@ WEIGHT_FAMILIES = {
 
 
 class ActionMeshPipeline:
-    """Video -> 4D pipeline (three-stage cascade) on one device."""
+    """Video -> 4D pipeline (three-stage cascade) on one device, or on a
+    device mesh with one rank per card."""
 
     def __init__(
         self,
@@ -80,6 +98,7 @@ class ActionMeshPipeline:
         lazy_loading: bool = False,
         image_encoder: Optional[ImageEncoder] = None,
         image_to_3d=None,
+        device_mesh="auto",
     ):
         """``config_name``: one of ``config.PRESETS``; ``dtype``: bf16, fp16 or
         fp32 compute (the fp32 islands stay fp32). ``lazy_loading`` (the
@@ -87,10 +106,26 @@ class ActionMeshPipeline:
         accepted and does nothing, as in the JAX package: the weights stay
         on the device. ``image_encoder`` and ``image_to_3d``: the DINOv2
         encoder and the Stage-0 backend to use instead of those built from
-        ``weights_dir`` (the closed loop's frozen conditioning stack)."""
+        ``weights_dir`` (the closed loop's frozen conditioning stack).
+
+        ``device_mesh``: a ``parallel/mesh.py`` DeviceMesh, None (one
+        device), or "auto": ``make_mesh()``'s default mesh when
+        ``torch.distributed`` is initialised with more than one rank, else
+        None. With a mesh on cuda, ``device`` must be this rank's card, the
+        current device (``init_distributed`` sets it)."""
         del lazy_loading
         self.cfg: PipelineConfig = load_config(config_name, updates=config_updates)
+        self.device_mesh = default_mesh() if device_mesh == "auto" else device_mesh
         self.device = torch.device(device)
+        if self.device_mesh is not None and self.device.type == "cuda":
+            current = torch.cuda.current_device()
+            if self.device.index is None:
+                self.device = torch.device("cuda", current)
+            elif self.device.index != current:
+                raise ValueError(
+                    f"device {self.device} is not this rank's card cuda:{current} "
+                    "(torch.cuda.set_device(local_rank) before building the pipeline)"
+                )
         self._dtype = dtype
         self._weights_dir = Path(weights_dir) if weights_dir else None
 
@@ -130,6 +165,7 @@ class ActionMeshPipeline:
 
         self._init_seed = init_seed
         self._load_actionmesh_weights()
+        self._shard_model_params()
         self._load_backends(image_encoder, image_to_3d)
         self.phase_seconds: dict[str, float] = {}
         self.stage0_seconds: dict[str, float] = {}
@@ -173,6 +209,28 @@ class ActionMeshPipeline:
             gen, self.autoencoder_config, self._dtype, self.device
         )
 
+    def _shard_model_params(self) -> None:
+        """Keep this rank's slices of the Stage I/II params (Megatron col ->
+        row for attention and feed-forward, replicated elsewhere); every
+        rank built or loaded the same full trees. No-op without a mesh."""
+        mesh = self.device_mesh
+        if mesh is None:
+            return
+        self.denoiser_params = shard_params(
+            self.denoiser_params,
+            denoiser_param_shardings(
+                self.denoiser_params, mesh, self.denoiser_config.num_attention_heads
+            ),
+            mesh,
+        )
+        self.autoencoder_params = shard_params(
+            self.autoencoder_params,
+            autoencoder_param_shardings(
+                self.autoencoder_params, mesh, self.autoencoder_config.num_attention_heads
+            ),
+            mesh,
+        )
+
     def _load_backends(self, image_encoder=None, image_to_3d=None) -> None:
         """DINOv2, the Stage-0 backend and RMBG, each the one given or else
         from its family's directory when present."""
@@ -187,6 +245,7 @@ class ActionMeshPipeline:
             device=self.device,
             dtype=self._dtype,
             image_encoder=self.image_encoder,
+            device_mesh=self.device_mesh,
         )
         self.background_removal = BackgroundRemover(self._family_dir("RMBG"), self.device)
 
@@ -210,6 +269,7 @@ class ActionMeshPipeline:
         path = Path(path)
         self.denoiser_params = load_npz(path / "denoiser.npz", self.device)
         self.autoencoder_params = load_npz(path / "autoencoder.npz", self.device)
+        self._shard_model_params()
         logger.info("Loaded pipeline weights from %s", path)
         return self
 
@@ -244,6 +304,10 @@ class ActionMeshPipeline:
         self._sync()
         t1 = time.perf_counter()
         anchor_mesh = self.mesh_process.process_mesh(anchor_mesh, seed=seed)
+        if self.device_mesh is not None:
+            # rank 0's anchor on every rank: its vertex count sets Stage II's shapes
+            latent_np, anchor_mesh = broadcast_object((anchor_latent.cpu().numpy(), anchor_mesh))
+            anchor_latent = torch.as_tensor(latent_np, device=self.device)
         self.stage0_seconds = {
             **(getattr(self.image_to_3d, "phase_seconds", None) or {"image_to_3d": t1 - t0}),
             "process_mesh": time.perf_counter() - t1,
@@ -303,6 +367,7 @@ class ActionMeshPipeline:
             torch.as_tensor(distances, device=self.device),
             is_additive=self.cfg.scheduler.is_additive,
             split_cfg_batch=self.cfg.scheduler.split_cfg_batch,
+            mesh=self.device_mesh,
         )
 
     def generate_3d_latents(
@@ -368,6 +433,7 @@ class ActionMeshPipeline:
                 torch.as_tensor(target_alphas[:, start : start + chunk], device=dev),
                 vertex_features,
                 compute_dtype=self._dtype,
+                mesh=self.device_mesh,
             )
             for start in range(0, n_targets, chunk)
         ]
@@ -429,6 +495,54 @@ class ActionMeshPipeline:
 
     # -- Full pipeline -----------------------------------------------------
 
+    @contextlib.contextmanager
+    def call_overrides(
+        self,
+        stage_0_steps: Optional[int] = None,
+        face_decimation: Optional[int] = None,
+        floaters_threshold: Optional[float] = None,
+        stage_1_steps: Optional[int] = None,
+        guidance_scales: Optional[list[float]] = None,
+        anchor_idx: Optional[int] = None,
+    ):
+        """Apply a call's overrides (those not None) for the ``with`` block
+        only, restoring the configuration after it, also when it raises. (JAX
+        ``pipeline.py:581-590`` keeps them after the call, so a served
+        request inherits the previous request's; not ported.)"""
+        targets = {
+            "stage_0_steps": (self.cfg.stage_0, "num_inference_steps"),
+            "stage_1_steps": (self.cfg.scheduler, "num_inference_steps"),
+            "guidance_scales": (self.cfg.cf_guidance, "guidance_scales"),
+            "face_decimation": (self.mesh_process, "face_decimation"),
+            "floaters_threshold": (self.mesh_process, "floaters_threshold"),
+            "anchor_idx": (self.cfg, "anchor_idx"),
+        }
+        given = {
+            "stage_0_steps": stage_0_steps, "stage_1_steps": stage_1_steps,
+            "guidance_scales": guidance_scales, "face_decimation": face_decimation,
+            "floaters_threshold": floaters_threshold, "anchor_idx": anchor_idx,
+        }
+        saved = {name: getattr(*targets[name]) for name in targets}
+        try:
+            for name, value in given.items():
+                if value is not None:
+                    setattr(*targets[name], value)
+            yield
+        finally:
+            for name, value in saved.items():
+                setattr(*targets[name], value)
+
+    def preprocess(self, input: ActionMeshInput) -> ActionMeshInput:
+        """Matting (frames without a valid alpha) and crop, on a copy: the
+        caller's frames keep their alpha. Under a mesh every rank takes rank
+        0's frames."""
+        input = ActionMeshInput(frames=list(input.frames), timesteps=input.timesteps.copy())
+        input.frames = self.background_removal.process_images(input.frames)
+        input.frames = self.image_process.process_images(input.frames)
+        if self.device_mesh is not None:
+            input.frames = broadcast_object(input.frames)
+        return input
+
     @torch.no_grad()
     def __call__(
         self,
@@ -443,24 +557,18 @@ class ActionMeshPipeline:
     ) -> list[Mesh]:
         """Run the video -> 4D pipeline. Returns meshes ordered by timestep.
 
+        The overrides hold for this call only (``call_overrides``).
         Per-phase wall times (device work synchronised) are logged and kept
         in ``self.phase_seconds``.
         """
-        if stage_0_steps is not None:
-            self.cfg.stage_0.num_inference_steps = stage_0_steps
-        if stage_1_steps is not None:
-            self.cfg.scheduler.num_inference_steps = stage_1_steps
-        if guidance_scales is not None:
-            self.cfg.cf_guidance.guidance_scales = guidance_scales
-        if face_decimation is not None:
-            self.mesh_process.face_decimation = face_decimation
-        if floaters_threshold is not None:
-            self.mesh_process.floaters_threshold = floaters_threshold
-        if anchor_idx is not None:
-            self.cfg.anchor_idx = anchor_idx
+        with self.call_overrides(
+            stage_0_steps=stage_0_steps, face_decimation=face_decimation,
+            floaters_threshold=floaters_threshold, stage_1_steps=stage_1_steps,
+            guidance_scales=guidance_scales, anchor_idx=anchor_idx,
+        ):
+            return self._run(input, seed)
 
-        # Work on a copy: the caller's frames keep their alpha.
-        input = ActionMeshInput(frames=list(input.frames), timesteps=input.timesteps.copy())
+    def _run(self, input: ActionMeshInput, seed: int) -> list[Mesh]:
         phases = {}
         t = time.perf_counter()
 
@@ -472,8 +580,7 @@ class ActionMeshPipeline:
             logger.info("phase %s: %.2fs", name, now - t)
             t = now
 
-        input.frames = self.background_removal.process_images(input.frames)
-        input.frames = self.image_process.process_images(input.frames)
+        input = self.preprocess(input)
         phase("preprocess")
         latent_bank, mesh_bank = self.init_banks_from_anchor(input, seed)
         phase("stage0")

@@ -89,23 +89,17 @@ class ActionMeshPipelineWithMeshInput(ActionMeshPipeline):
         anchor_idx: Optional[int] = None,
     ) -> list[Mesh]:
         """Run {video + 3D} -> 4D. The meshes keep the input's topology, uv
-        and visual. Per-phase seconds go to ``self.phase_seconds``
-        (preprocess, stage0 = sampling + VAE encode, encode, stage1, stage2)."""
-        if stage_0_steps is not None:
-            self.cfg.stage_0.num_inference_steps = stage_0_steps
-        if stage_1_steps is not None:
-            self.cfg.scheduler.num_inference_steps = stage_1_steps
-        if guidance_scales is not None:
-            self.cfg.cf_guidance.guidance_scales = guidance_scales
-        if face_decimation is not None:
-            self.mesh_process.face_decimation = face_decimation
-        if floaters_threshold is not None:
-            self.mesh_process.floaters_threshold = floaters_threshold
-        if anchor_idx is not None:
-            self.cfg.anchor_idx = anchor_idx
+        and visual. The overrides hold for this call only. Per-phase seconds
+        go to ``self.phase_seconds`` (preprocess, stage0 = sampling + VAE
+        encode, encode, stage1, stage2)."""
+        with self.call_overrides(
+            stage_0_steps=stage_0_steps, face_decimation=face_decimation,
+            floaters_threshold=floaters_threshold, stage_1_steps=stage_1_steps,
+            guidance_scales=guidance_scales, anchor_idx=anchor_idx,
+        ):
+            return self._run_3d(input, anchor_mesh, seed)
 
-        # Work on a copy: the caller's frames keep their alpha.
-        input = ActionMeshInput(frames=list(input.frames), timesteps=input.timesteps.copy())
+    def _run_3d(self, input: ActionMeshInput, anchor_mesh: Mesh, seed: int) -> list[Mesh]:
         phases = {}
         t = time.perf_counter()
 
@@ -117,8 +111,7 @@ class ActionMeshPipelineWithMeshInput(ActionMeshPipeline):
             logger.info("phase %s: %.2fs", name, now - t)
             t = now
 
-        input.frames = self.background_removal.process_images(input.frames)
-        input.frames = self.image_process.process_images(input.frames)
+        input = self.preprocess(input)
         phase("preprocess")
         latent_bank, mesh_bank, (center, factor), vertex_merge_map, pre_merge_faces = (
             self.init_banks_from_anchor(input, anchor_mesh, seed)

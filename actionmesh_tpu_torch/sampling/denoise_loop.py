@@ -4,7 +4,12 @@ Counterpart of ``actionmesh_tpu/sampling/denoise_loop.py``: a Python loop
 over steps (PyTorch runs eagerly; JAX scans). The CFG branch batch and the
 RoPE tables are built once per window. The schedule and the Euler update
 are fp32; frames with mask=1 are frozen. ``split_cfg_batch`` runs the
-guidance branches one at a time instead of as one batch.
+guidance branches one at a time instead of as one batch. Under a device
+mesh every rank runs the same loop on the same latents: each step's
+``denoiser_forward(mesh=)`` splits the CFG branch batch over dp and the
+window's frames over sp and gathers the prediction, so the guidance mix and
+the Euler update see every branch and frame, and every rank's latents stay
+the same.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ def denoise_window(
     distances: torch.Tensor,
     is_additive: bool = True,
     split_cfg_batch: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Denoise one AR window.
 
@@ -70,6 +76,10 @@ def denoise_window(
     concatenate the predictions (the reference's low-RAM mode, reference
     ``scheduler.py:139-170``; ``actionmesh_tpu/sampling/denoise_loop.py``
     does the same), so only one branch's activations are live at a time.
+
+    ``mesh``: a ``parallel/mesh.py`` device mesh and ``params`` this rank's
+    ``shard_params`` slices; the inputs are the whole tensors, the same on
+    every rank (the noise from one seeded generator), and so is the result.
     """
     B, T, N, _ = init_latent.shape
     compute_dtype = init_latent.dtype
@@ -98,6 +108,7 @@ def denoise_window(
                     timesteps[i].expand(B),
                     mask=mask_f[sl] if mask_f is not None else None,
                     freqs_rot=tuple(f[sl] for f in freqs_rot),
+                    mesh=mesh,
                 ))
             pred = torch.cat(preds, dim=0)
         else:
@@ -112,6 +123,7 @@ def denoise_window(
                 mask=mask_f,
                 freqs_rot=freqs_rot,
                 uncond_batch=guidance.leading_uncond_image_branches * B,
+                mesh=mesh,
             )
         pred32 = guidance.aggregate_cfg(pred).float()
         lat32 = latents.float()

@@ -6,12 +6,17 @@ source and the shared headers (``csrc/*.cuh``), at first use. The library
 exposes a plain C interface and is loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds, not minutes. ``build`` starts one
 ``nvcc`` per source, all at once, with ``-Xptxas -v``; ``ptxas_report``
-reads each kernel's registers and spills from what ptxas printed.
+reads each kernel's registers and spills from what ptxas printed. A build
+holds a file lock on its ``.so`` (``build_lock``), so the ranks of a
+distributed job that all reach a kernel first at once build it once: the
+others wait, then load what the first built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -51,14 +56,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def build_lock(lib_path: Path):
+    """Hold an exclusive lock on ``<lib_path>.lock`` (released when the
+    process ends, however it ends)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(f"{lib_path}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names=SOURCES) -> None:
-    """Compile every source in ``names`` that is not built yet, in parallel."""
+    """Compile every source in ``names`` that is not built yet, in parallel,
+    each under its ``build_lock`` (taken in the order of ``names``)."""
+    with contextlib.ExitStack() as locks:
+        _build_locked(names, locks)
+
+
+def _build_locked(names, locks: contextlib.ExitStack) -> None:
     jobs = []
     for name in names:
         lib_path = library_path(name)
         if lib_path.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        locks.enter_context(build_lock(lib_path))
+        if lib_path.exists():  # built by another process while this one waited
+            continue
         # build under a temporary name, then rename: never a half-written .so
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)

@@ -33,7 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
-from actionmesh_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC_DIR, PACKAGE_DIR
+from actionmesh_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC_DIR, PACKAGE_DIR, build_lock
 
 NATIVE_DIR = PACKAGE_DIR.parent / "native"
 SOURCE = NATIVE_DIR / "actionmesh_native.cpp"
@@ -73,21 +73,24 @@ def library_path(source: Path = SOURCE, headers: tuple = HEADERS) -> Path:
 
 
 def build(source: Path = SOURCE, headers: tuple = HEADERS) -> Path:
-    """Compile ``source`` unless it is built already; return its path."""
+    """Compile ``source`` unless it is built already (under its
+    ``build_lock``: one process builds, the others wait); return its path."""
     lib_path = library_path(source, headers)
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: never a half-written .so
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [find_cxx(), *CXX_FLAGS, str(source), "-o", tmp], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"g++ failed for {source} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    with build_lock(lib_path):
+        if lib_path.exists():  # built by another process while this one waited
+            return lib_path
+        # build under a temporary name, then rename: never a half-written .so
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run(
+            [find_cxx(), *CXX_FLAGS, str(source), "-o", tmp], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"g++ failed for {source} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)
     return lib_path
 
 

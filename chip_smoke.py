@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cli "--fast" "--distilled4" "--dtype float16"
+    python3 chip_smoke.py --distributed
 
 The second form runs only the CLI phase (4 below), once per quoted set of
 flags, and prints its results: every set runs and is reported, and the
-script exits non-zero when any of them failed.
+script exits non-zero when any of them failed. The third runs only the
+device mesh's phase (20 below), on every card up to 4.
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card (nvidia-smi name, power limit)
@@ -32,7 +34,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. the command line: ``python -m actionmesh_tpu_torch.inference.
      video_to_animated_mesh``'s ``main`` in process on the 16 synthetic
      frames written as NN_image.png + NN_mask.png pairs, at the default
-     preset (full width, 30 Stage-I steps) and at --turbo; checks 16
+     preset (full width, Stage I cut to 10 of its 30 steps) and at --turbo; checks 16
      mesh_XX.glb files that load back with the anchor's topology, the
      deformation arrays, an animated GLB with 16 morph targets, a non-blank
      preview and launch counts equal to what each preset's path implies;
@@ -121,7 +123,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      card;
  11. the training slice: ``python -m actionmesh_tpu_torch.train``'s code path
      at the production DenoiserConfig (window 16, batch 2, EMA, remat, on
-     synthetic clips of production size), 2 steps with bf16 compute and 2
+     synthetic clips of production size), 1 step with bf16 compute and 1
      with the entry point's default fp32 (kernels A, C and D on their fp32
      paths); checks finite losses, moved params, launch counts equal to
      what the path implies, and (bf16) a checkpoint that restores; prints
@@ -130,12 +132,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      losses, moved params and launch counts as its path implies: Stage-II
      decoder training (``run_decoder_training``, production
      AutoencoderConfig, fp32, window 8, batch 2, bucket 4096, synthetic
-     clips + tracks through DecoderTrackDataset and decoder_batches, 2
-     steps and one held-out eval with the chamfer metrics, an
+     clips + tracks through DecoderTrackDataset and decoder_batches, 1
+     step and one held-out eval with the chamfer metrics, an
      autoencoder.npz export that reloads); distillation (``train.py
      --stage distill``, production DenoiserConfig, window 16, batch 2,
      bf16, a random teacher) in guidance and progressive mode (30 teacher
-     steps), 2 steps each, timed as teacher and student, the teacher's
+     steps), 1 step each, timed as teacher and student, the teacher's
      inference launches of A and B counted; and ``--model stage0`` (the
      production TripoSG DiT, fp32, 2 steps, a dit.npz export that reloads);
  12. small ICP reference: gradient ICP (2 problems x 24 inits, 384 points
@@ -193,7 +195,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      and its single-level branch (dense 7 = fine 7): finite, non-empty,
      tetrahedra 1.5-4x the faces of cubes, cubes_numpy with the native cubes'
      counts, vertices within 1e-4 and triangles, the single-level branch
-     equal to the dense extraction.
+     equal to the dense extraction;
+ 20. the device mesh (``parallel/``): on this card, for sp 2 and 4 and
+     bf16, fp32, one rank's S/sp queries of the Stage-I self-attention
+     against each KV shard through kernel A with its stats, merged by
+     ``merge_partials``, within kernel A's tolerance of one unsharded call
+     (also with a kv_mask that leaves a batch entry's keys in one shard),
+     and the tp = 2 head shard equal to the unsharded call's heads; then
+     one NCCL rank per visible card (at most 4; ``torchrun``'s environment
+     set by hand), each building the turbo preset's pipeline at full width
+     on its world's mesh and running a request through the server's worker
+     path (rank 0's ``ActionMeshServer.handle``, the others' ``worker_loop``):
+     at world 1 (mesh (dp 1, tp 1)) the vertices are bit-equal to the
+     unsharded run's and the launches equal the path's; at 4 cards the
+     layouts (dp 2, tp 2), (dp 2, sp 2), (dp 1, sp 4), each also on a small
+     fp32 slice within 1e-4 of unsharded; prints the world, each layout's
+     seconds and its largest difference from the unsharded run. A rank
+     that fails fails the run.
+Kernel A is also checked (5) in bf16 at the device mesh's shapes of the
+Stage-I self-attention: a ring step at sp 2 and sp 4 with its stats, and
+the tp = 2 head shard, each with SDPA's time at its shape.
 Kernel A is also checked (5) in bf16 at the SDF query shape (1, 8, 2^18,
 2048, 128), the coarse passes' chunk.
 Kernels A, C and D are also checked (5, 7) at the VAE step's four fp32
@@ -271,6 +292,7 @@ from actionmesh_tpu_torch.ops.attention import (
     bwd_row_stats,
     chunked_attention,
     dot_product_attention,
+    merge_partials,
 )
 from actionmesh_tpu_torch.ops import isosurface
 from actionmesh_tpu_torch.ops.chunking import chunk_from
@@ -349,13 +371,21 @@ CLOSED_LOOP_ROPE_FORMS = (("norm_rope", True, 16), ("rope", False, 0), ("norm", 
 # Kernel E's yardstick, the CUDA-core design (csrc/nn_argmin_cuda_core.cu):
 # built and timed here only, beside kernel E; the port never calls it.
 NN_YARDSTICK = "nn_argmin_cuda_core"
-TRAIN_STEPS = 2      # the bf16 train phase's steps
-TRAIN_STEPS_F32 = 2  # the fp32 (the entry point's default dtype) train phase's steps
+# The full-width trainers take one step each (no warmup, so the step moves
+# every parameter): a step's time is a step's (PR 15's R1: steps 1 and 2
+# within 2% of each other in each trainer), and the run stays under its
+# time limit. The DiT and the VAE, whose steps take about a second, take two.
+TRAIN_STEPS = 1      # the bf16 train phase's steps
+TRAIN_STEPS_F32 = 1  # the fp32 (the entry point's default dtype) train phase's steps
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"  # git-ignored; removed at the end
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def phase_device() -> dict:
@@ -365,7 +395,7 @@ def phase_device() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    log(smi.splitlines()[0])
+    print(smi.splitlines()[0], flush=True)  # as nvidia-smi prints it
     nvcc = subprocess.run(
         [cuda_build.find_nvcc(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
@@ -570,6 +600,17 @@ def flash_cases(n_vertices: int):
     ]
 
 
+# Kernel A at the device mesh's shapes of the Stage-I self-attention (bf16):
+# one ring step at sp 2 and at sp 4 (a rank's S/sp queries against one KV
+# shard, with the stats the ring merges), and the tp = 2 head shard of one
+# CFG branch (dp 2 holds the other)
+MESH_FLASH_CASES = [
+    ("stage1_self_ring_sp2", (2, 16, 16392, 16392, 128), True),
+    ("stage1_self_ring_sp4", (2, 16, 8196, 8196, 128), True),
+    ("stage1_self_tp2", (1, 8, 32784, 32784, 128), False),
+]
+
+
 def flash_cases_fp16(n_vertices: int):
     """The fp16 twin of every bf16 main-path row (``--dtype float16`` runs
     kernel A's fp16 instantiation at these shapes)."""
@@ -663,7 +704,8 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
     the plain model of its split arithmetic and SDPA's distance from the
     plain version, carry ``library_kernel_names`` (the kernels SDPA
     launches) and hold the split pre-pass's workspaces bit-equal to
-    ``split_kv_reference``."""
+    ``split_kv_reference``. A stats row's library time is SDPA's all the
+    same, which gives no (m, l)."""
     B, H, Sq, Sk, D = shape
     q = heads_view(gen, B, Sq, H, D, dtype)
     k = heads_view(gen, B, Sk, H, D, dtype)
@@ -711,8 +753,7 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
     tol = attention_tol(dtype) * scale
     ms = cuda_ms(lambda: flash_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
     plain_ms = cuda_ms(lambda: chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=stats), reps)
-    # SDPA gives no (m, l): no library call for the stats row
-    library_ms = None if stats else library_time(lambda: sdpa(q, k, v, mask4), reps, f"flash {name}")
+    library_ms = library_time(lambda: sdpa(q, k, v, mask4), reps, f"flash {name}")
     bnd = attention_bound(B, H, Sq, Sk, D, dtype, 0 if kv_mask is None else B * Sk * 4)
     rates = attention_rates(B, H, Sq, Sk, D, ms, bnd["bound_ms"], library_ms)
     log(f"flash {name} q{(B, H, Sq, D)} k{(B, H, Sk, D)} {str(dtype)[6:]}"
@@ -738,6 +779,8 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
         row["padded_to"] = flash_ops.padded_head_dim(D)  # ms includes the wrapper's padding copies
     if with_stats:
         row.update(stats_err=stats_err, stats_tol=stats_tol)
+    if stats:
+        row["library_note"] = "SDPA at this shape, which gives no (m, l); the row's kernel call returns them"
     return row
 
 
@@ -891,6 +934,10 @@ def phase_kernels(n_vertices: int) -> tuple[list, list]:
                                       stats=True), replaces=one_block))
         flash.append(dict(check_flash(gen, "d64_ragged" + suffix, (2, 4, 777, 1029, 64), dtype),
                           replaces=one_block))
+        torch.cuda.empty_cache()
+    for name, shape, stats in MESH_FLASH_CASES:
+        flash.append(dict(check_flash(gen, name, shape, torch.bfloat16, stats=stats),
+                          replaces="actionmesh_tpu/ops/flash_attention.py:302"))
         torch.cuda.empty_cache()
     rope = []
     for name, shape, norm, tables, dtype in ROPE_CASES:
@@ -1732,8 +1779,11 @@ def make_frames(n: int = N_FRAMES, size: int = 256, seed: int = 0) -> list[np.nd
     return frames
 
 
-def expected_launches(pipe: ActionMeshPipeline, n_frames: int, stage0: bool = True) -> tuple[int, int]:
-    """Kernel launches the main path implies for ``n_frames`` frames.
+def expected_launches(pipe: ActionMeshPipeline, n_frames: int, stage0: bool = True,
+                      stage0_steps: int | None = None, stage1_steps: int | None = None) -> tuple[int, int]:
+    """Kernel launches the main path implies for ``n_frames`` frames, at
+    the preset's steps or the call's overrides (``stage0_steps``,
+    ``stage1_steps``: a call's overrides hold for that call only).
 
     Stage 0 (TripoSG): DINOv2 on the anchor, one flash per layer; per DiT
     step and block, self (q, k rms; flash) and cross (q, k rms; flash; the
@@ -1758,13 +1808,13 @@ def expected_launches(pipe: ActionMeshPipeline, n_frames: int, stage0: bool = Tr
     win1 = len(chunk_from(cfg.anchor_idx, n_frames, cfg.temporal_3D_denoiser.temporal_context_size, cfg.sliding_window_denoiser))
     win2 = chunk_from(cfg.anchor_idx, n_frames, cfg.temporal_3D_vae.temporal_context_size, cfg.sliding_window_autoencoder)
     chunks2 = sum(math.ceil((len(w) - 1) / cfg.decode_target_chunk) for w in win2)
-    steps = cfg.scheduler.num_inference_steps
+    steps = stage1_steps or cfg.scheduler.num_inference_steps
     L1, L2 = cfg.temporal_3D_denoiser.num_layers, cfg.temporal_3D_vae.num_layers
     dino = pipe.image_encoder.config.num_layers
     stage0_flash = stage0_rope = 0
     if stage0:
         tripo = getattr(pipe.image_to_3d, "pipeline", pipe.image_to_3d)
-        steps0, L0 = cfg.stage_0.num_inference_steps, tripo.dit_cfg.num_layers
+        steps0, L0 = stage0_steps or cfg.stage_0.num_inference_steps, tripo.dit_cfg.num_layers
         stage0_flash = dino + 2 * L0 * steps0 + tripo.vae_cfg.decoder_layers + sum(tripo.extract_stats.values())
         stage0_rope = 4 * L0 * steps0
     guidance = cfg.cf_guidance
@@ -1787,7 +1837,7 @@ def phase_slice() -> dict:
     init_s = time.perf_counter() - t0
     frames = make_frames()
     inp = ActionMeshInput(frames=frames, timesteps=np.arange(N_FRAMES, dtype=np.float32))
-    preset_stage1_steps = pipe.cfg.scheduler.num_inference_steps  # the call cuts it
+    preset_stage1_steps = pipe.cfg.scheduler.num_inference_steps  # the call cuts it (for itself)
 
     # keep the arguments of the decode's last SDF query, the fine pass's,
     # and the latents it decoded (the later decode and extraction phases')
@@ -1821,7 +1871,7 @@ def phase_slice() -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     chunks = dict(pipe.image_to_3d.pipeline.extract_stats)
 
-    want_flash, want_rope = expected_launches(pipe, N_FRAMES)
+    want_flash, want_rope = expected_launches(pipe, N_FRAMES, stage1_steps=STAGE1_STEPS)
     log(f"slice: init {init_s:.2f} s | __call__ {total_s:.2f} s | phases "
         + " ".join(f"{k} {v:.2f} s" for k, v in pipe.phase_seconds.items())
         + " | stage0 sub-phases " + " ".join(f"{k} {v:.2f} s" for k, v in pipe.stage0_seconds.items())
@@ -1885,6 +1935,11 @@ def glb_json(path: Path) -> dict:
     return json.loads(raw[20 : 20 + length])
 
 
+def flag_value(flags: list[str], name: str) -> int | None:
+    """The integer after ``name`` in a CLI's flags, None without it."""
+    return int(flags[flags.index(name) + 1]) if name in flags else None
+
+
 def run_cli(name: str, flags: list[str], frames_dir: Path, out_dir: Path) -> dict:
     """One in-process call of the CLI's ``main`` on the frame pairs at full
     width, then its outputs checked: 16 mesh_XX.glb with the anchor's
@@ -1910,9 +1965,10 @@ def run_cli(name: str, flags: list[str], frames_dir: Path, out_dir: Path) -> dic
     wall_s = time.perf_counter() - t0
     launches = read_counters()
     pipe, meshes = result.pop("pipeline"), result.pop("meshes")
-    want_flash, want_rope = expected_launches(pipe, N_FRAMES)
-    phase_s, steps1 = dict(pipe.phase_seconds), pipe.cfg.scheduler.num_inference_steps
-    steps0 = pipe.cfg.stage_0.num_inference_steps
+    steps0 = flag_value(flags, "--stage_0_steps") or pipe.cfg.stage_0.num_inference_steps
+    steps1 = flag_value(flags, "--stage_1_steps") or pipe.cfg.scheduler.num_inference_steps
+    want_flash, want_rope = expected_launches(pipe, N_FRAMES, stage0_steps=steps0, stage1_steps=steps1)
+    phase_s = dict(pipe.phase_seconds)
     del pipe
     seconds = result["seconds"]
     clip_s = sum(seconds.values())
@@ -1966,8 +2022,9 @@ def run_cli(name: str, flags: list[str], frames_dir: Path, out_dir: Path) -> dic
             "preview": Path(preview).name, "preview_covered": covered}
 
 
-# the CLI phase's presets: the default (30 Stage-I steps) and turbo
-CLI_PRESETS = {"default": [], "turbo": ["--turbo"]}
+# the CLI phase's presets: the default, its Stage I cut from 30 steps to
+# 10 (the slice phase derives the clip at the preset's 30), and turbo
+CLI_PRESETS = {"default": ["--stage_1_steps", "10"], "turbo": ["--turbo"]}
 
 
 def phase_cli(presets: dict) -> dict:
@@ -2009,7 +2066,8 @@ def host_io_seconds(work: Path) -> dict:
     return {"read_png_1024_rgba_seconds": png_s, "write_gif_16x256x1024_seconds": gif_s}
 
 
-def plain_dot_product_attention(q, k, v, scale=None, kv_mask=None, trainable=False):
+def plain_dot_product_attention(q, k, v, scale=None, kv_mask=None, trainable=False, mesh=None,
+                                sequence_parallel=False):
     return chunked_attention(q, k, v, scale=scale, kv_mask=kv_mask)
 
 
@@ -2057,7 +2115,7 @@ def phase_train(compute_dtype: str | None = "bfloat16") -> dict:
     args = train_entry.build_args().parse_args([
         "--synthetic", "--size", "production", "--window", "16", "--batch", "2",
         *(["--compute-dtype", compute_dtype] if compute_dtype else []),
-        "--steps", str(steps), "--warmup", "1",
+        "--steps", str(steps), "--warmup", "0",
         "--ema-decay", "0.999", "--log-every", "1", "--ckpt-every", "0",
         "--out", str(OUT_DIR), "--no-resume", "--time-phases", "--device", "cuda",
     ])
@@ -2088,7 +2146,7 @@ def phase_train(compute_dtype: str | None = "bfloat16") -> dict:
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label} losses {losses}")
 
-    # every leaf moved from its initial value (lr > 0 from the second step)
+    # every leaf moved from its initial value (no warmup: lr > 0 from the first step)
     init = init_denoiser(torch.Generator("cuda").manual_seed(loop_cfg.seed), cfg, device=torch.device("cuda"))
     moved = [
         (name, (p.detach() - p0).abs().max().item())
@@ -2130,7 +2188,7 @@ def phase_train(compute_dtype: str | None = "bfloat16") -> dict:
 # batch 2, the bucket of 4096 vertices, fp32; 4 synthetic clips of 10 frames
 # with 4096, 3584, 3072 and 2560 tracked vertices, a quarter of the windows
 # held out for one eval with the chamfer metrics.
-DECODER_STEPS = 2
+DECODER_STEPS = 1
 DECODER_WINDOW, DECODER_BATCH, DECODER_BUCKET = 8, 2, 4096
 
 
@@ -2203,7 +2261,7 @@ def phase_train_decoder() -> dict:
     train_ds, eval_ds = split_windows(dataset, 0.25, seed=0)
     eval_set = list(decoder_batches(eval_ds, DECODER_BATCH, vertex_bucket=DECODER_BUCKET, seed=0, epochs=1))[:1]
     data_s = time.perf_counter() - t0
-    loop_cfg = TrainLoopConfig(total_steps=DECODER_STEPS, warmup_steps=1, log_every=1, ckpt_every=0,
+    loop_cfg = TrainLoopConfig(total_steps=DECODER_STEPS, warmup_steps=0, log_every=1, ckpt_every=0,
                                eval_every=DECODER_STEPS, keep_best_eval=True, best_metric="eval_score",
                                out_dir=str(work / "run"), resume=False, time_phases=True)
     eval_s = []
@@ -2275,7 +2333,7 @@ def run_train_entry(flags: list[str], steps: int) -> tuple:
     peak GiB, seconds)."""
     shutil.rmtree(OUT_DIR, ignore_errors=True)
     args = train_entry.build_args().parse_args([
-        "--synthetic", "--size", "production", "--steps", str(steps), "--warmup", "1",
+        "--synthetic", "--size", "production", "--steps", str(steps), "--warmup", "0",
         "--log-every", "1", "--ckpt-every", "0", "--out", str(OUT_DIR), "--no-resume",
         "--time-phases", "--device", "cuda", *flags,
     ])
@@ -2290,7 +2348,7 @@ def run_train_entry(flags: list[str], steps: int) -> tuple:
         time.perf_counter() - t0
 
 
-DISTILL_STEPS = 2
+DISTILL_STEPS = 1
 
 
 def phase_distill(mode: str) -> dict:
@@ -2815,11 +2873,11 @@ def textured_anchor(seed: int = 0) -> Mesh:
     return Mesh(vertices=v, faces=np.arange(len(v)).reshape(-1, 3), uv=uv)
 
 
-def expected_launches_3d(pipe, n_frames: int) -> tuple[int, int]:
+def expected_launches_3d(pipe, n_frames: int, stage1_steps: int | None = None) -> tuple[int, int]:
     """``expected_launches`` with Stage 0 the VAE encode: one cross launch
     onto all surface points and one per encoder block (no qk-norm, no
     RoPE), DINOv2 on the frames only."""
-    flash, rope = expected_launches(pipe, n_frames, stage0=False)
+    flash, rope = expected_launches(pipe, n_frames, stage0=False, stage1_steps=stage1_steps)
     vae_cfg = getattr(pipe.vae, "pipeline", pipe.vae).vae_cfg
     return flash + 1 + vae_cfg.encoder_layers, rope
 
@@ -2856,7 +2914,7 @@ def phase_video_3d() -> dict:
     wall_s = time.perf_counter() - t0
     launches = read_counters()
     pipe = result.pop("pipeline")
-    want_flash, want_rope = expected_launches_3d(pipe, N_FRAMES)
+    want_flash, want_rope = expected_launches_3d(pipe, N_FRAMES, VIDEO_3D_STAGE1_STEPS)
     want_shapes = {"vae_encoder_cross": 1,
                    "vae_encoder_self": getattr(pipe.vae, "pipeline", pipe.vae).vae_cfg.encoder_layers}
     phase_s, stage0_s, seconds = dict(pipe.phase_seconds), dict(pipe.stage0_seconds), result["seconds"]
@@ -3206,12 +3264,13 @@ def phase_serve() -> dict:
     (``fresh_thread_launches``); then
     ``python -m actionmesh_tpu_torch.inference.serve``'s ``build_server``
     at the turbo preset's full width (random weights) with ``--prewarm`` on
-    the 16 frame pairs, served from a thread: /healthz reports cuda; a turbo
-    request gives 16 GLBs with the anchor's topology, the deformation
-    arrays, an animated GLB with 16 morph targets and the launches the path
-    implies; a short request (5 Stage-0 steps, 2 Stage-I steps) inside
-    ``profile_to`` leaves the spans stage1_window_0 and stage2_window_0 and
-    kernel A's device kernel in the trace; two concurrent short requests
+    the 16 frame pairs, served from a thread: /healthz reports cuda; a short
+    request (5 Stage-0 steps, 2 Stage-I steps) inside ``profile_to`` leaves
+    the spans stage1_window_0 and stage2_window_0 and kernel A's device
+    kernel in the trace; a turbo request after it gives 16 GLBs with the
+    anchor's topology, the deformation arrays, an animated GLB with 16 morph
+    targets and the launches of the preset's steps (the short request's
+    overrides did not outlive it); two concurrent short requests
     enter the pipeline one at a time; a bad request is answered 400 and the
     server answers again after it."""
     from actionmesh_tpu_torch.inference import serve as serve_entry
@@ -3253,7 +3312,9 @@ def phase_serve() -> dict:
         bad = [r for r in replies if r[0] != 200]
         if len(replies) != concurrent or bad:
             raise AssertionError(f"serve {name}: replies {replies}")
-        want_flash, want_rope = expected_launches(pipe, N_FRAMES)
+        # from the request's own overrides: they hold for that request only
+        want_flash, want_rope = expected_launches(pipe, N_FRAMES, stage0_steps=body.get("stage_0_steps"),
+                                                  stage1_steps=body.get("stage_1_steps"))
         want = {"flash_fwd": concurrent * want_flash, "fused_rms_rope": concurrent * want_rope}
         if {k: launches[k] for k in want} != want or any(launches[k] for k in COUNTERS[2:]):
             raise AssertionError(f"serve {name}: launches {launches} != {want}")
@@ -3273,9 +3334,12 @@ def phase_serve() -> dict:
         status, health, _ = http_json(f"{url}/healthz")
         if status != 200 or health["backend"] != "cuda" or health["n_devices"] < 1:
             raise AssertionError(f"serve: /healthz {status} {health}")
-        request("turbo", {"input": str(frames_dir), "seed": 44})
+        # the short request first: the turbo request after it runs at the
+        # preset's steps, its launches say so (a request's overrides hold
+        # for that request only)
         served.profile_dir = work / "trace"
         request("profiled", {"input": str(frames_dir), "seed": 44, **SERVE_SHORT})
+        request("turbo", {"input": str(frames_dir), "seed": 44})
         prof = served.profiled
         names = {e.name for e in prof.events()}
         device = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
@@ -3497,6 +3561,218 @@ def phase_extraction(q: dict, cubes_mesh: Mesh) -> dict:
             "cubes_numpy_max_vertex_diff": float(d.max())}
 
 
+RING_SHAPE = (2, 16, 32784, 128)  # the Stage-I self-attention: B, H, S, D
+
+
+def phase_ring_merge() -> dict:
+    """The sequence-parallel ring's arithmetic on one card: for sp in 2, 4
+    and bf16, fp32, one rank's S/sp queries of the Stage-I self-attention
+    against each of the sp KV shards through kernel A with its stats,
+    merged by ``merge_partials``, against one unsharded kernel-A call for
+    those queries; and with a kv_mask that masks a third of the keys at
+    random and, for the second batch entry, every key outside the first
+    shard (so its other partials have l > 0 over masked keys only and must
+    weigh nothing). Also the tp = 2 head shard against the unsharded call's
+    heads (heads are independent: equal). Errors against kernel A's
+    tolerance rows (2e-2 of max|ref| in bf16, 2e-5 in fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    B, H, S, D = RING_SHAPE
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (heads_view(gen, B, S, H, D, dtype) for _ in range(3))
+        mask = torch.rand((B, S), generator=gen, device="cuda") > 0.3
+        for sp in (2, 4):
+            n = S // sp
+            mask_sp = mask.clone()
+            mask_sp[1, n:] = False  # the second entry's keys all in the first shard
+            for masked in (False, True):
+                kv_mask = mask_sp if masked else None
+                q0 = q[:, :, :n]  # rank 0's query rows
+                ref = flash_attention(q0, k, v, kv_mask=kv_mask)
+                parts = [flash_attention(q0, k[:, :, j * n:(j + 1) * n], v[:, :, j * n:(j + 1) * n],
+                                         kv_mask=None if kv_mask is None else kv_mask[:, j * n:(j + 1) * n],
+                                         return_stats=True) for j in range(sp)]
+                merged = merge_partials(parts, dtype)
+                err = (merged.float() - ref.float()).abs().max().item()
+                tol = attention_tol(dtype) * ref.float().abs().max().item()
+                finite = bool(torch.isfinite(merged).all())
+                name = f"sp{sp}_{str(dtype)[6:]}" + ("_masked" if masked else "")
+                out[name] = {"max_abs_err": err, "tol": tol}
+                log(f"ring merge {name}: q{tuple(q0.shape)} against {sp} KV shards of {n} keys: "
+                    f"max abs err vs unsharded kernel A {err:.3e} (tol {tol:.3e}), finite {finite}")
+                if not (err <= tol and finite):
+                    raise AssertionError(f"ring merge {name}: {err} > {tol} or not finite")
+                del ref, parts, merged
+        if dtype == torch.bfloat16:
+            ref = flash_attention(q[:1], k[:1], v[:1])[:, : H // 2]
+            shard = flash_attention(q[:1, : H // 2], k[:1, : H // 2], v[:1, : H // 2])
+            out["tp2_bf16"] = {"max_abs_err": (shard.float() - ref.float()).abs().max().item(), "tol": 0.0}
+            log(f"tp2 head shard: max abs err vs the unsharded call's heads {out['tp2_bf16']['max_abs_err']}")
+            if out["tp2_bf16"]["max_abs_err"] != 0.0:
+                raise AssertionError("the tp = 2 head shard differs from the unsharded call's heads")
+            del ref, shard
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+# The layouts each world runs ({}: make_mesh()'s default, dp 2 when the
+# world is even, the rest tp)
+DIST_LAYOUTS = {1: ({},), 2: ({},), 3: ({},), 4: ({}, {"dp": 2, "tp": 1, "sp": 2}, {"dp": 1, "tp": 1, "sp": 4})}
+DIST_SMALL_TOL = 1e-4  # the small fp32 slice, sharded against unsharded
+
+
+def distributed_rank(rank: int, world: int, port: int, work: str) -> None:
+    """One rank of the distributed phase (a spawned process, one card): joins
+    the NCCL group, then for each of its world's layouts builds the turbo
+    pipeline at full width on the mesh and runs one request through the
+    server's worker path (rank 0's ``ActionMeshServer.handle``, the others'
+    ``worker_loop``); at world 1 rank 0 also runs the request unsharded
+    (its vertices must be bit-equal), at a larger world a small fp32 slice
+    sharded against unsharded (within DIST_SMALL_TOL). Rank 0 writes the
+    results to ``work/results.json``; any failure raises, so the rank's exit
+    code is not 0."""
+    import os
+
+    from actionmesh_tpu_torch.inference.serve import ActionMeshServer, worker_loop
+    from actionmesh_tpu_torch.parallel.mesh import init_distributed, layout, make_mesh
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    # one host: NCCL's bootstrap over the loopback (its data goes by NVLink)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    logging.basicConfig(level=logging.WARNING)
+    device = init_distributed()
+    work = Path(work)
+    frames = str(work / "frames")
+    results = {"world": world, "layouts": []}
+
+    def serve_once(pipe, out_dir: Path, distributed: bool) -> dict:
+        server = ActionMeshServer(pipe, distributed=distributed)
+        if rank != 0:
+            failed = worker_loop(pipe)
+            if failed:
+                raise AssertionError(f"rank {rank}: {failed} worker call(s) raised")
+            return {}
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            reply = server.handle({"input": frames, "output_dir": str(out_dir), "seed": 44})
+        finally:
+            server.stop_workers()
+        torch.cuda.synchronize()
+        return {"seconds": time.perf_counter() - t0, "generation_seconds": reply["generation_seconds"],
+                "launches": read_counters(), "n_frames": reply["n_frames"],
+                "vertices": np.load(reply["artifacts"]["deformation_vertices"])}
+
+    def turbo(mesh):
+        return ActionMeshPipeline(config_name="actionmesh_turbo", weights_dir=str(work / "no_weights"),
+                                  device=device, device_mesh=mesh)
+
+    unsharded = None
+    if rank == 0:
+        pipe = turbo(None)
+        unsharded = serve_once(pipe, work / "unsharded", distributed=False)
+        results["unsharded_seconds"] = unsharded["seconds"]
+        del pipe
+        torch.cuda.empty_cache()
+    for lay in DIST_LAYOUTS[world]:
+        mesh = make_mesh(**lay)
+        name = "x".join(f"{a}{n}" for a, n in layout(mesh).items())
+        pipe = turbo(mesh)
+        got = serve_once(pipe, work / name, distributed=True)
+        if rank == 0:
+            want_flash, want_rope = expected_launches(pipe, N_FRAMES)
+            # at world > 1 the bf16 sums over tp and the ring round in
+            # another order, so the anchor's extraction may give another
+            # vertex count: no diff then (the small fp32 slice below is the
+            # sharded-vs-unsharded check)
+            same_shape = got["vertices"].shape == unsharded["vertices"].shape
+            diff = float(np.abs(got["vertices"] - unsharded["vertices"]).max()) if same_shape else None
+            finite = bool(np.isfinite(got["vertices"]).all())
+            row = {"layout": layout(mesh), "seconds": got["seconds"],
+                   "generation_seconds": got["generation_seconds"], "launches": got["launches"],
+                   "max_abs_diff_vs_unsharded": diff, "vertices_shape": list(got["vertices"].shape),
+                   "unsharded_vertices_shape": list(unsharded["vertices"].shape), "finite": finite}
+            log(f"distributed world {world} layout {name}: turbo request {got['seconds']:.2f} s "
+                f"(unsharded {unsharded['seconds']:.2f} s), max abs diff vs unsharded {diff}, vertices "
+                f"{row['vertices_shape']} (unsharded {row['unsharded_vertices_shape']}), launches "
+                f"{got['launches']} (unsharded path: flash_fwd {want_flash}, rms_rope {want_rope})")
+            if not (finite and got["n_frames"] == N_FRAMES and got["vertices"].shape[0] == N_FRAMES):
+                raise AssertionError(f"distributed {name}: {got['n_frames']} frames, finite {finite}")
+            if not (got["launches"]["flash_fwd"] and got["launches"]["fused_rms_rope"]):
+                raise AssertionError(f"distributed {name}: kernels A and B did not launch: {got['launches']}")
+            if world == 1:
+                # a mesh of one rank runs the unsharded arithmetic: equal bits, equal launches
+                if diff != 0.0 or (got["launches"]["flash_fwd"], got["launches"]["fused_rms_rope"]) != (
+                        want_flash, want_rope):
+                    raise AssertionError(f"distributed {name}: differs from the unsharded run ({diff})")
+            results["layouts"].append(row)
+        del pipe
+        torch.cuda.empty_cache()
+        if world > 1:
+            small = {}
+            for key, m in (("sharded", mesh), ("unsharded", None)):
+                if m is None and rank != 0:
+                    continue
+                pipe = ActionMeshPipeline(config_updates=dict(SMALL_UPDATES), device=device,
+                                          dtype=torch.float32, device_mesh=m,
+                                          image_encoder=ImageEncoder(device, torch.float32, SMALL_DINO))
+                inp = ActionMeshInput(frames=make_frames(), timesteps=np.arange(N_FRAMES, dtype=np.float32))
+                small[key] = np.stack([x.vertices for x in pipe(inp, seed=3)])
+                del pipe
+            if rank == 0:
+                err = float(np.abs(small["sharded"] - small["unsharded"]).max())
+                log(f"distributed world {world} layout {name}: small fp32 slice sharded vs unsharded "
+                    f"max abs err {err:.3e} (tol {DIST_SMALL_TOL:g})")
+                if not err <= DIST_SMALL_TOL:
+                    raise AssertionError(f"distributed {name}: small slice {err} > {DIST_SMALL_TOL}")
+                results["layouts"][-1]["small_fp32_max_abs_err"] = err
+    if rank == 0:
+        (work / "results.json").write_text(json.dumps(results))
+    torch.distributed.destroy_process_group()
+
+
+def phase_distributed() -> dict:
+    """The device mesh (``parallel/mesh.py``): the ring merge on this card
+    (``phase_ring_merge``), then one NCCL rank per visible card, at most 4,
+    spawned (``distributed_rank``): each rank runs the turbo request at full
+    width through the server's worker path on its world's layouts. A rank
+    that fails fails the run (``torch.multiprocessing.start_processes``
+    raises on any exit code but 0)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    ring = phase_ring_merge()
+    world = min(torch.cuda.device_count(), 4)
+    work = OUT_DIR / "distributed"
+    shutil.rmtree(work, ignore_errors=True)
+    write_frame_pairs(work / "frames", make_frames())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(distributed_rank, args=(world, port, str(work)), nprocs=world, join=True,
+                           start_method="spawn")
+        results = json.loads((work / "results.json").read_text())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log("distributed: " + json.dumps({
+        "world": world, "seconds": round(seconds, 2), "unsharded_turbo_s": round(results["unsharded_seconds"], 2),
+        "layouts": [{"layout": r["layout"], "turbo_s": round(r["seconds"], 2),
+                     "max_abs_diff_vs_unsharded": r["max_abs_diff_vs_unsharded"],
+                     **({"small_fp32_max_abs_err": r["small_fp32_max_abs_err"]}
+                        if "small_fp32_max_abs_err" in r else {})} for r in results["layouts"]],
+        "ring_merge_max_abs_err": {k: v["max_abs_err"] for k, v in ring.items()}}))
+    return {"world": world, "seconds": seconds, "ring_merge": ring, **results,
+            "launches": {k: sum(r["launches"][k] for r in results["layouts"]) for k in COUNTERS}}
+
+
 SHARE_MAX = 1.05  # bound_ms / ms; above 1 only by the timer's noise
 
 
@@ -3583,6 +3859,10 @@ def main() -> None:
     extraction = phase_extraction(fine_query, cubes_mesh)
     del fine_query, cubes_mesh
     torch.cuda.empty_cache()
+    dist = phase_distributed()
+    for name, key in (("stage1_self_ring_sp2", "sp2_bfloat16"), ("stage1_self_ring_sp4", "sp4_bfloat16"),
+                      ("stage1_self_tp2", "tp2_bf16")):  # the mesh rows: their error against unsharded A
+        next(r for r in flash if r["name"] == name)["unsharded_max_abs_err"] = dist["ring_merge"][key]["max_abs_err"]
 
     def summary(name, source, replaces, rows, launches):
         head = rows[0]
@@ -3610,15 +3890,15 @@ def main() -> None:
                 "cli_checkpoints": ckpt["launches"][name], "cli_video": ckpt["video"]["launches"][name],
                 "video_3d": v3d["launches"][name], "prepare_clips": prep["launches"][name],
                 "serve": served["launches"][name], "coarse_bf16": coarse["launches"][name],
-                "extraction": extraction["launches"][name]}
+                "extraction": extraction["launches"][name], "distributed": dist["launches"][name]}
 
     def cli_launches(name):  # the entry points' paths: CLIs, clip preparation, the server
         return (sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
                 + ckpt["launches"][name] + ckpt["video"]["launches"][name] + v3d["launches"][name]
                 + prep["launches"][name] + served["launches"][name])
 
-    def decode_launches(name):  # the bf16 coarse pass's decodes and the extraction variants
-        return coarse["launches"][name] + extraction["launches"][name]
+    def decode_launches(name):  # the bf16 coarse pass's decodes, the extraction variants, the mesh
+        return coarse["launches"][name] + extraction["launches"][name] + dist["launches"][name]
 
     def bwd_summary(name, replaces, key):
         rows = [{"name": r["name"], "shape": r["shape"], "dtype": r["dtype"],
@@ -3698,7 +3978,7 @@ def main() -> None:
                       "train_fp32": tr32, "train_decoder": dec, "distill": distill,
                       "train_stage0_dit": dit, "train_vae": vae, "prepare_clips": prep,
                       "closed_loop": loop, "serve": served, "coarse_bf16": coarse,
-                      "extraction": extraction,
+                      "extraction": extraction, "distributed": dist,
                       "actionbench": ab,
                       "card": info["nvidia_smi"]}),
           flush=True)
@@ -3732,8 +4012,25 @@ def main_cli_runs(specs: list[str]) -> None:
         raise SystemExit(f"chip_smoke.py --cli: {len(failed)} of {len(out)} runs failed: {failed}")
 
 
+def main_distributed() -> None:
+    """``chip_smoke.py --distributed``: only the device mesh's phase (the ring
+    merge on one card, then one rank per card, at most 4, on its world's
+    layouts), checked as in the full run; prints its results, then the
+    device line."""
+    logging.basicConfig(level=logging.WARNING)
+    info = phase_device()
+    phase_build()
+    dist = phase_distributed()
+    print(json.dumps({"distributed": dist, "card": info["nvidia_smi"]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli"]:
         main_cli_runs(sys.argv[2:])
+    elif sys.argv[1:] == ["--distributed"]:
+        main_distributed()
     else:
         main()

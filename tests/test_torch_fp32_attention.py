@@ -227,7 +227,8 @@ TINY_DINO = dict(hidden_size=32, num_layers=2, num_heads=2, patch_size=14, image
 DECODE = dict(dense_octree_depth=4, hierarchical_octree_depth=5, prefilter_octree_depth=3)
 
 
-def _split_attention(q, k, v, scale=None, kv_mask=None, trainable=False):
+def _split_attention(q, k, v, scale=None, kv_mask=None, trainable=False, mesh=None,
+                     sequence_parallel=False):
     return split_precision_attention_reference(q, k, v, scale=scale, kv_mask=kv_mask)
 
 

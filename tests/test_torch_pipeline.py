@@ -10,6 +10,8 @@ the same bits).
 import ast
 import dataclasses
 import json
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -271,8 +273,13 @@ def test_port_runtime_dependencies():
     yaml in config.py's _load_yaml_preset (config_dir), imageio in
     render/utils.py's write_mp4. Nor do chip_smoke.py and the checkpoint
     writer it imports, which run on that host too, but for cv2 in the smoke
-    run's write_video (the video its CLI phase decodes)."""
-    banned = {"pandas", "skimage", "safetensors", "transformers", "huggingface_hub"}
+    run's write_video (the video its CLI phase decodes). The device mesh
+    (parallel/) runs on torch.distributed alone: no module imports
+    deepspeed, apex, megatron or fairscale, the parallel package's modules
+    import only torch and the standard library, and importing it loads
+    neither jax nor the JAX package."""
+    banned = {"pandas", "skimage", "safetensors", "transformers", "huggingface_hub",
+              "deepspeed", "apex", "megatron", "fairscale"}
     lazy = {
         "PIL": {("actionmesh_tpu_torch/io/video_input.py", "_read_rgba")},
         "cv2": {("actionmesh_tpu_torch/io/video_input.py", "load_from_video"),
@@ -307,3 +314,12 @@ def test_port_runtime_dependencies():
                 if root in lazy:
                     where = (path.relative_to(REPO).as_posix(), writer.get(id(node)))
                     assert where in lazy[root], f"{path}: imports {name}"
+                if path.parent == port / "parallel":
+                    assert root in {"__future__", "math", "os", "typing", "torch"}, f"{path}: {name}"
+    assert sorted(p.name for p in (port / "parallel").glob("*.py")) == ["__init__.py", "mesh.py"]
+    loaded = subprocess.run(
+        [sys.executable, "-c", "import sys, actionmesh_tpu_torch.parallel.mesh; "
+         "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'actionmesh_tpu'}))"],
+        cwd=REPO, capture_output=True, text=True, check=True,
+    )
+    assert loaded.stdout.strip() == "[]", loaded.stdout + loaded.stderr

@@ -4,9 +4,11 @@ Every case of tests/test_serve_hardening.py against the port's server on a
 fake pipeline of the port's own meshes (400, 404, field types, a crash then
 recovery, the lock serialising, per-request output directories, an internal
 assertion as 500), the health keys of the JAX server, ``--prewarm`` and
-``--device``, and one request through the port's server on a tiny port
+``--device``, one request through the port's server on a tiny port
 pipeline against JAX's ``ActionMeshServer.handle`` on the JAX tiny pipeline
-with the same weights.
+with the same weights, and a request's overrides holding for it alone (JAX's
+pipeline keeps them for the requests after; the port does not). The server
+at world 2 is in tests/test_torch_parallel.py.
 """
 
 import json
@@ -304,3 +306,40 @@ def test_request_matches_the_jax_server(tmp_path, monkeypatch):
     np.testing.assert_array_equal(tf, jf)
     np.testing.assert_allclose(tv, jv, atol=1e-5)
     assert np.abs(tv[1:] - tv[0]).max() > 0
+
+
+def test_request_overrides_hold_for_that_request_only(tmp_path, monkeypatch):
+    """A request with ``stage_1_steps`` (and ``guidance_scales``) runs with
+    them; the next request without them runs at the preset's values, as
+    does one after a request that failed mid-run with overrides."""
+    pipe = tpipeline_mod.ActionMeshPipeline(
+        config_name="actionmesh", weights_dir=None, device=CPU, dtype=torch.float32,
+        config_updates=dict(TINY_UPDATES),
+        image_encoder=TImageEncoder(CPU, torch.float32, TDinoCfg(**TINY_DINO)),
+        image_to_3d=lambda image, **_: (torch.zeros(1, 16, 8), make_uv_sphere(n_lat=8, n_lon=16)),
+    )
+    seen = []
+    real = tpipeline_mod.denoise_window
+
+    def recording(params, dcfg, guidance, *args, **kwargs):
+        seen.append((len(args[5]), guidance.guidance_scales))  # distances: one per step
+        return real(params, dcfg, guidance, *args, **kwargs)
+
+    monkeypatch.setattr(tpipeline_mod, "denoise_window", recording)
+    preset = (pipe.cfg.scheduler.num_inference_steps, tuple(pipe.cfg.cf_guidance.guidance_scales))
+    assert preset == (2, (7.5,))
+    frames = write_frames(tmp_path / "frames", make_frames())
+    url, httpd = start(serve.ActionMeshServer(pipe))
+    try:
+        body = {"input": frames, "output_dir": str(tmp_path / "out")}
+        assert _post(f"{url}/v1/video_to_4d", {**body, "stage_1_steps": 1, "guidance_scales": [3.0]})[0] == 200
+        assert _post(f"{url}/v1/video_to_4d", body)[0] == 200
+        monkeypatch.setattr(pipe, "generate_mesh_animation", lambda *a: (_ for _ in ()).throw(
+            RuntimeError("failed after Stage I")))
+        status, reply = _post(f"{url}/v1/video_to_4d", {**body, "stage_1_steps": 3})
+        assert status == 500 and "failed after Stage I" in reply["error"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert seen == [(1, (3.0,)), (2, (7.5,)), (3, (7.5,))]
+    assert (pipe.cfg.scheduler.num_inference_steps, tuple(pipe.cfg.cf_guidance.guidance_scales)) == preset
