@@ -41,7 +41,7 @@ from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.ops.tensor_ops import merge_batch_time, merge_time_tokens
 from actionmesh_tpu_torch.parallel.mesh import (
     axis_size,
-    gather_shards,
+    gather_from,
     local_shard,
     split_axes,
 )
@@ -163,7 +163,13 @@ def autoencoder_forward(
     last target to a multiple of dp, as in JAX, and the copies dropped), the
     [T*N | T] sequence over sp when sp divides it (the self-attention as the
     ring), the heads over tp. The final block's vertex queries split over sp
-    (V padded to a multiple of sp) against the gathered KV sequence.
+    (V padded to a multiple of sp) against the gathered KV sequence. Under
+    gradients the gathers differentiate (``gather_from``): the KV's backward
+    sums the sp ranks' parts (each rank's vertex queries attend to all of
+    it) and gives each rank its own rows; the output's gives each rank its
+    own block. dp and sp always split the target batch and the vertices
+    (both are padded), so the ranks' parameter gradients summed over dp and
+    sp are the unsharded ones.
     """
     if target_alphas.ndim != 2 or source_alpha.ndim != 1:
         raise ValueError("target_alphas must be (B, T_out), source_alpha (B,)")
@@ -231,7 +237,7 @@ def autoencoder_forward(
             x = block(x, cos_b, sin_b, block_params)
 
     # Final cross-attention with vertex queries (fp32 island)
-    kv_cache = gather_shards(x.float(), 1, mesh, s_axes)
+    kv_cache = gather_from(x.float(), 1, mesh, s_axes, reduce=True)
     queries = linear(params["proj_query"], embed_queries(cfg, query))  # (B, V, W)
     queries_b = queries[:, None].expand(B, T_out, V, cfg.width).reshape(
         B * T_out, V, cfg.width
@@ -249,6 +255,6 @@ def autoencoder_forward(
     logits = logits * -1.0  # sign flip (reference temporal_autoencoder.py:160)
     displacement = 2.0 * torch.sigmoid(logits) - 1.0
     if mesh is not None:
-        displacement = gather_shards(gather_shards(displacement, 1, mesh, v_axes)[:, :V], 0, mesh, t_axes)
+        displacement = gather_from(gather_from(displacement, 1, mesh, v_axes)[:, :V], 0, mesh, t_axes)
     out = displacement.reshape(B, T_out, V, cfg.out_dim)
     return out[:, :T_out_real] if pad_t else out

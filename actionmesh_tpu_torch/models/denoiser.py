@@ -39,8 +39,10 @@ from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.ops.tensor_ops import merge_batch_time, split_batch_time
 from actionmesh_tpu_torch.parallel.mesh import (
     axis_size,
-    gather_shards,
+    copy_to_tp,
+    gather_from,
     local_shard,
+    share_grad,
     split_axes,
 )
 
@@ -156,7 +158,12 @@ def denoiser_forward(
     rows (dp) and its block of frames (sp), with the RoPE table rows of
     those frames, and every rank returns the whole, gathered prediction. An
     axis that does not divide B or T runs them all; ``uncond_batch`` is
-    not used (the skip is off-mesh only).
+    not used (the skip is off-mesh only). Under gradients (training) the
+    gather's backward gives each rank the gradient of its own block, and a
+    prediction that the ranks of an axis each computed whole passes a share
+    of its gradient to each (``share_grad``), so that the parameter
+    gradients summed over dp and sp (``sync_grads``) are the unsharded
+    ones.
     """
     B, T, N, _ = hidden_states.shape
     if freqs_rot is None:
@@ -187,7 +194,7 @@ def denoiser_forward(
         dt, cfg.width, flip_sin_to_cos=False, downscale_freq_shift=0.0
     ).to(compute_dtype)
     # erf GELU here whatever gelu_approx says (actionmesh_tpu denoiser.py:210-212)
-    dt_hidden = F.gelu(linear(params["time_proj"]["linear_1"], dt_emb))
+    dt_hidden = F.gelu(linear(params["time_proj"]["linear_1"], copy_to_tp(dt_emb, mesh)))
     if axis_size(mesh, "tp") > 1:
         dt_emb = row_parallel_linear(params["time_proj"]["linear_2"], dt_hidden, mesh)
     else:
@@ -230,5 +237,6 @@ def denoiser_forward(
     x = linear(params["proj_out"], x[:, -N:])  # drop the time token
     out = split_batch_time(x, T)
     if mesh is not None:
-        out = gather_shards(gather_shards(out, 1, mesh, f_axes), 0, mesh, b_axes)
+        out = gather_from(gather_from(out, 1, mesh, f_axes), 0, mesh, b_axes)
+        out = share_grad(out, mesh, b_axes + f_axes)
     return out

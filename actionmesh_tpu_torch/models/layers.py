@@ -15,7 +15,10 @@ local shard: activations whole over tp, the rank's batch rows and frames;
 parameters cut by ``shard_params``. Column-parallel q/k/v and ``net_0`` give
 the rank's heads and inner columns; row-parallel ``to_out`` and ``net_2``
 are summed over tp (``row_parallel_linear``). A self-attention whose
-sequence is split over sp (``sequence_parallel``) runs the ring.
+sequence is split over sp (``sequence_parallel``) runs the ring. Under
+gradients the column-parallel inputs go through ``copy_to_tp`` and the sums
+through ``reduce_from_tp`` (``parallel/mesh.py``), so the backward sums
+over tp what the forward split.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ from actionmesh_tpu_torch.ops.tensor_ops import (
     flat_seq_to_flat_batch,
 )
 from actionmesh_tpu_torch.parallel.mesh import (
-    all_reduce_sum,
     axis_size,
+    copy_to_tp,
+    reduce_from_tp,
     tp_splits_heads,
 )
 
@@ -182,7 +186,7 @@ def row_parallel_linear(params: Params, x: torch.Tensor, mesh) -> torch.Tensor:
     """A linear whose weight holds this rank's input columns: the partial
     products summed over tp, then the bias, added once."""
     w = params["weight"]
-    y = all_reduce_sum(F.linear(x.to(w.dtype), w), mesh, "tp")
+    y = reduce_from_tp(F.linear(x.to(w.dtype), w), mesh)
     b = params.get("bias")
     return y if b is None else y + b
 
@@ -195,7 +199,7 @@ def feed_forward(
     ``mesh`` with tp > 1: ``net_0`` holds this rank's inner columns and
     ``net_2`` its rows (``shard_params``), summed over tp."""
     h = F.gelu(
-        linear(params["net_0"], x), approximate="tanh" if gelu_approx else "none"
+        linear(params["net_0"], copy_to_tp(x, mesh)), approximate="tanh" if gelu_approx else "none"
     )
     if axis_size(mesh, "tp") > 1:
         return row_parallel_linear(params["net_2"], h, mesh)
@@ -231,13 +235,10 @@ def attention(
     with tp splitting the heads (``tp_splits_heads``) the rank runs
     ``heads / tp`` of them and ``to_out`` is summed over tp.
     ``sequence_parallel``: a self-attention whose (B, S) rows are this
-    rank's S of the sp-split sequence, run as the ring over sp.
+    rank's S of the sp-split sequence, run as the ring over sp (trainable:
+    its backward the ring over kernels C and D).
     """
     B, S, _ = hidden_states.shape
-    if mesh is not None and trainable:
-        raise NotImplementedError(
-            "attention(trainable=True, mesh=...): sharded training is not ported yet"
-        )
     if (
         mesh is None
         and encoder_hidden_states is not None
@@ -266,11 +267,14 @@ def attention(
     if encoder_hidden_states is not None and "norm_cross" in params:
         kv_src = layer_norm(params["norm_cross"], kv_src)
 
+    split_heads = tp_splits_heads(heads, axis_size(mesh, "tp"))
+    if split_heads:
+        hidden_states = copy_to_tp(hidden_states, mesh)
+        kv_src = hidden_states if encoder_hidden_states is None else copy_to_tp(kv_src, mesh)
     q = linear(params["to_q"], hidden_states)
     k = linear(params["to_k"], kv_src)
     v = linear(params["to_v"], kv_src)
 
-    split_heads = tp_splits_heads(heads, axis_size(mesh, "tp"))
     if split_heads:
         heads //= axis_size(mesh, "tp")
     dim_head = q.shape[-1] // heads
@@ -282,8 +286,15 @@ def attention(
     has_norm = "norm_q" in params
     if has_norm or freqs_rot is not None:
         cos, sin = freqs_rot if freqs_rot is not None else (None, None)
-        q = fused_rms_rope(q, params["norm_q"]["scale"] if has_norm else None, cos, sin)
-        k = fused_rms_rope(k, params["norm_k"]["scale"] if has_norm else None, cos, sin)
+        scale_q = scale_k = None
+        if has_norm:
+            scale_q, scale_k = params["norm_q"]["scale"], params["norm_k"]["scale"]
+        if has_norm and split_heads:
+            # one scale serves every head: under a head split each tp rank's
+            # gradient of it is of its own heads, summed by copy_to_tp
+            scale_q, scale_k = copy_to_tp(scale_q, mesh), copy_to_tp(scale_k, mesh)
+        q = fused_rms_rope(q, scale_q, cos, sin)
+        k = fused_rms_rope(k, scale_k, cos, sin)
 
     out = dot_product_attention(q, k, v, kv_mask=kv_mask, trainable=trainable, mesh=mesh,
                                 sequence_parallel=sequence_parallel)

@@ -13,7 +13,10 @@ materialised fp32 score matrix there would be 2 x 16 x 32,784^2 x 4 bytes
 Under a device mesh (``parallel/mesh.py``), ``dot_product_attention(mesh=)``
 runs the kernel on the rank's (batch, head, sequence) shard; a sequence
 split over ``sp`` runs ``ring_attention_local``, which merges the kernel's
-per-shard partials by their online-softmax statistics (``merge_partials``).
+per-shard partials by their online-softmax statistics (``merge_partials``),
+or, for training, ``ring_attention_trainable``, whose backward runs kernels
+C and D on each KV shard as it goes round the ring with the whole
+sequence's row statistics.
 """
 
 from __future__ import annotations
@@ -113,8 +116,16 @@ def attention_bwd_reference(
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    Sq, Sk = q.shape[2], k.shape[2]
     lse, delta = bwd_row_stats(o, m, l, do)
+    return attention_bwd_stats_reference(q, k, v, lse, delta, do, scale, q_chunk, k_chunk)
+
+
+def attention_bwd_stats_reference(q, k, v, lse, delta, do, scale: float, q_chunk: int = 2048,
+                                  k_chunk: int = 1024):
+    """``attention_bwd_reference`` from the row statistics L and delta
+    (``bwd_row_stats``), which need not be those of these keys alone: the
+    plain version of kernels C and D on one KV shard of the ring."""
+    Sq, Sk = q.shape[2], k.shape[2]
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
@@ -164,7 +175,7 @@ def chunked_attention_trainable(
     return _ChunkedAttentionTrainable.apply(q, k, v, scale)
 
 
-def merge_partials(partials: Sequence, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def merge_partials(partials: Sequence, dtype: Optional[torch.dtype] = None, return_stats: bool = False):
     """Attention over the union of KV shards from each shard's partial.
 
     ``partials``: (out, (m, l)) per KV shard, as ``flash_attention(...,
@@ -178,7 +189,8 @@ def merge_partials(partials: Sequence, dtype: Optional[torch.dtype] = None) -> t
     m = -1e30 and weighs exp(-1e30 - M) = 0 beside any shard with a valid
     key; when every shard masks the row, the result is the mean of v over
     all keys, as one unsharded call gives. Returns ``dtype`` (the first
-    out's by default).
+    out's by default); ``return_stats`` also gives the merged (M, L), the
+    statistics of one call over all the keys.
     """
     m = torch.stack([p[1][0] for p in partials]).amax(dim=0)
     num = l = None
@@ -187,7 +199,56 @@ def merge_partials(partials: Sequence, dtype: Optional[torch.dtype] = None) -> t
         term = out_i.float() * w[..., None]
         num = term if num is None else num + term
         l = w if l is None else l + w
-    return (num / torch.clamp(l, min=1e-30)[..., None]).to(dtype or partials[0][0].dtype)
+    out = (num / torch.clamp(l, min=1e-30)[..., None]).to(dtype or partials[0][0].dtype)
+    return (out, (m, l)) if return_stats else out
+
+
+def _ring_peers(group) -> tuple[int, int, int]:
+    """(size, next rank, previous rank) of the ring over ``group``, as
+    global ranks."""
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    return n, dist.get_global_rank(group, (rank + 1) % n), dist.get_global_rank(group, (rank - 1) % n)
+
+
+def _pass_on(tensors, group, nxt: int, prv: int):
+    """Send ``tensors`` to the next rank and receive their like from the
+    previous one: (incoming buffers, requests to wait on)."""
+    incoming = [torch.empty_like(t) for t in tensors]
+    reqs = dist.batch_isend_irecv(
+        [dist.P2POp(dist.isend, t, nxt, group) for t in tensors]
+        + [dist.P2POp(dist.irecv, t, prv, group) for t in incoming]
+    )
+    return incoming, reqs
+
+
+def _wait(reqs) -> None:
+    for req in reqs:
+        req.wait()
+
+
+def _ring_partials(q, k, v, scale, kv_mask, group) -> list:
+    """Kernel A's (out, (m, l)) of ``q`` against each KV shard of the ring,
+    this rank's first; the next shard's transfer runs while the current
+    one's partial is computed."""
+    from actionmesh_tpu_torch.ops.flash_attention import flash_attention
+
+    n, nxt, prv = _ring_peers(group)
+    cur = [k.contiguous(), v.contiguous()]
+    if kv_mask is not None:
+        cur.append(kv_mask.to(torch.int32).contiguous())
+    partials = []
+    for step in range(n):
+        reqs = ()
+        if step < n - 1:
+            incoming, reqs = _pass_on(cur, group, nxt, prv)
+        partials.append(flash_attention(
+            q, cur[0], cur[1], scale=scale,
+            kv_mask=cur[2] if kv_mask is not None else None, return_stats=True,
+        ))
+        _wait(reqs)  # the buffers are read or replaced only after this
+        if reqs:
+            cur = incoming
+    return partials
 
 
 def ring_attention_local(
@@ -212,33 +273,88 @@ def ring_attention_local(
     """
     from actionmesh_tpu_torch.ops.flash_attention import flash_attention
 
-    n = dist.get_world_size(group)
-    if n == 1:
+    if dist.get_world_size(group) == 1:
         return flash_attention(q, k, v, scale=scale, kv_mask=kv_mask)
-    rank = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (rank + 1) % n)
-    prv = dist.get_global_rank(group, (rank - 1) % n)
-    cur = [k.contiguous(), v.contiguous()]
-    if kv_mask is not None:
-        cur.append(kv_mask.to(torch.int32).contiguous())
-    partials = []
-    for step in range(n):
-        reqs = ()
-        if step < n - 1:
-            incoming = [torch.empty_like(t) for t in cur]
-            reqs = dist.batch_isend_irecv(
-                [dist.P2POp(dist.isend, t, nxt, group) for t in cur]
-                + [dist.P2POp(dist.irecv, t, prv, group) for t in incoming]
-            )
-        partials.append(flash_attention(
-            q, cur[0], cur[1], scale=scale,
-            kv_mask=cur[2] if kv_mask is not None else None, return_stats=True,
-        ))
-        for req in reqs:  # the buffers are read or replaced only after this
-            req.wait()
-        if reqs:
-            cur = incoming
-    return merge_partials(partials, q.dtype)
+    return merge_partials(_ring_partials(q, k, v, scale, kv_mask, group), q.dtype)
+
+
+def attention_bwd_from_stats(q, k, v, do, lse, delta, scale: float):
+    """(dq, dk, dv) of one KV shard from the row statistics of the whole
+    sequence: kernels C and D on CUDA tensors (they raise on what they do
+    not take), the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_stats_reference(q, k, v, lse, delta, do, scale)
+    from actionmesh_tpu_torch.ops.flash_attention import flash_attention_bwd_from_stats
+
+    return flash_attention_bwd_from_stats(q, k, v, do, lse, delta, scale)
+
+
+class _RingAttentionTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, group):
+        out, (m, l) = merge_partials(_ring_partials(q, k, v, scale, None, group), q.dtype,
+                                     return_stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.scale, ctx.group = scale, group
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from actionmesh_tpu_torch.ops.flash_attention import kernel_takes_layout
+
+        q, k, v, o, m, l = ctx.saved_tensors
+        group = ctx.group
+        n, nxt, prv = _ring_peers(group)
+        do = do.to(q.dtype)
+        if not kernel_takes_layout(do):
+            do = do.contiguous()
+        lse, delta = (x.contiguous() for x in bwd_row_stats(o, m, l, do))
+        cur = [k.contiguous(), v.contiguous()]
+        dq = acc = None
+        acc_reqs = ()
+        for step in range(n):
+            kv_reqs = ()
+            if step < n - 1:
+                incoming, kv_reqs = _pass_on(cur, group, nxt, prv)
+            dq_i, dk_i, dv_i = attention_bwd_from_stats(q, cur[0], cur[1], do, lse, delta, ctx.scale)
+            dq = dq_i.float() if dq is None else dq + dq_i.float()
+            dk_i, dv_i = dk_i.float(), dv_i.float()
+            if acc is not None:  # the sums so far of the shard held now
+                _wait(acc_reqs)
+                dk_i, dv_i = acc[0] + dk_i, acc[1] + dv_i
+            # the sums travel on with their shard; after the last step
+            # they reach the shard's owner
+            acc, acc_reqs = _pass_on([dk_i, dv_i], group, nxt, prv)
+            _wait(kv_reqs)
+            if kv_reqs:
+                cur = incoming
+        _wait(acc_reqs)
+        return dq.to(q.dtype), acc[0].to(k.dtype), acc[1].to(v.dtype), None, None
+
+
+def ring_attention_trainable(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float], group
+) -> torch.Tensor:
+    """Sequence-parallel attention with the O(S)-memory backward (no kv
+    mask), on this rank's shards as ``ring_attention_local`` takes them.
+
+    Forward: ``ring_attention_local``'s partials and merge, keeping the
+    merged (M, L) of the whole sequence. Backward: delta = rowsum(dO*O)
+    once, then for each KV shard round the ring kernel D's dQ of that shard
+    (added into an fp32 sum) and kernel C's dK and dV, both from the global
+    log-sum-exp M + log L and delta, so each shard's terms are those of one
+    unsharded call. The fp32 dK/dV sums travel with their K/V shard (sent
+    on after each step, while the next step's kernels run) and reach the
+    owner after the full circle; every sum is taken in ring order, so two
+    calls give the same bits. The plain version per shard on CPU tensors.
+    """
+    from actionmesh_tpu_torch.ops.flash_attention import flash_attention_trainable
+
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if dist.get_world_size(group) == 1:
+        return flash_attention_trainable(q, k, v, scale=scale)
+    return _RingAttentionTrainable.apply(q, k, v, scale, group)
 
 
 def dot_product_attention(
@@ -260,25 +376,24 @@ def dot_product_attention(
 
     ``mesh``: q, k, v (and the mask) are this rank's shards, as the layers
     hold them. A (batch, head) shard needs no communication and runs the
-    local kernel. With ``sequence_parallel`` they hold the rank's S/sp rows
-    of a self-attention whose sequence is split over the mesh's sp axis,
-    and it runs as the ring over sp (``ring_attention_local``). The
-    trainable path under a mesh waits for multi-GPU training and raises.
+    local kernel (trainable: kernels A, C and D on the rank's heads and
+    rows). With ``sequence_parallel`` they hold the rank's S/sp rows of a
+    self-attention whose sequence is split over the mesh's sp axis, and it
+    runs as the ring over sp (``ring_attention_local``; trainable,
+    ``ring_attention_trainable``).
     """
     from actionmesh_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_trainable,
     )
 
+    ring = sequence_parallel and axis_size(mesh, "sp") > 1
     if trainable:
-        if mesh is not None:
-            raise NotImplementedError(
-                "dot_product_attention(trainable=True, mesh=...): sharded training "
-                "attention is not ported yet"
-            )
         if kv_mask is not None:
             raise ValueError("trainable attention takes no kv_mask")
+        if ring:
+            return ring_attention_trainable(q, k, v, scale, mesh.get_group("sp"))
         return flash_attention_trainable(q, k, v, scale=scale)
-    if sequence_parallel and axis_size(mesh, "sp") > 1:
+    if ring:
         return ring_attention_local(q, k, v, scale, kv_mask, mesh.get_group("sp"))
     return flash_attention(q, k, v, scale=scale, kv_mask=kv_mask)

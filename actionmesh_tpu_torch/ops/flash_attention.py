@@ -483,9 +483,6 @@ def flash_attention_bwd(
             *(pad_head_dim(x, width) for x in (q, k, v, o)), m, l, pad_head_dim(do, width), scale,
         )
         return tuple(g[..., :D] for g in grads)
-    _check(q, k, v, None)
-    if q.dtype == torch.float16:
-        raise ValueError("flash_attention_bwd: kernels C and D take bf16 or fp32, not fp16")
     B, H, Sq, _ = q.shape
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
@@ -493,15 +490,38 @@ def flash_attention_bwd(
                 f"flash_attention_bwd: {name} {tuple(x.shape)} {x.dtype} must match "
                 f"q {tuple(q.shape)} {q.dtype} on {q.device}"
             )
-    if not kernel_takes_layout(do):
-        raise ValueError(
-            f"flash_attention_bwd: do (strides {do.stride()}) needs a contiguous "
-            "last axis and 16-byte aligned strides and address"
-        )
     for name, x in (("m", m), ("l", l)):
         if x.shape != (B, H, Sq) or x.dtype != torch.float32 or x.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} must be (B, H, Sq) fp32")
     lse, delta = (x.contiguous() for x in bwd_row_stats(o, m, l, do))
+    return flash_attention_bwd_from_stats(q, k, v, do, lse, delta, scale)
+
+
+def flash_attention_bwd_from_stats(q, k, v, do, lse, delta, scale: float):
+    """Kernels C (dk, dv) and D (dq) from given row statistics: the
+    log-sum-exp L and delta = sum_d dO*O, (B, H, Sq) fp32, which may be
+    those of a longer key sequence than ``k`` (one KV shard of the ring
+    backward, ``ops/attention.py:ring_attention_trainable``). The same
+    checks, padding and gradient dtypes as ``flash_attention_bwd``."""
+    width = _needs_padding(q)
+    if width is not None and all(x.shape[-1] == q.shape[-1] for x in (k, v, do)):
+        D = q.shape[-1]
+        grads = flash_attention_bwd_from_stats(
+            *(pad_head_dim(x, width) for x in (q, k, v, do)), lse, delta, scale,
+        )
+        return tuple(g[..., :D] for g in grads)
+    _check(q, k, v, None)
+    if q.dtype == torch.float16:
+        raise ValueError("flash_attention_bwd: kernels C and D take bf16 or fp32, not fp16")
+    if do.shape != q.shape or do.dtype != q.dtype or not kernel_takes_layout(do):
+        raise ValueError(
+            f"flash_attention_bwd: do {tuple(do.shape)} {do.dtype} (strides {do.stride()}) must "
+            f"match q {tuple(q.shape)} {q.dtype}, with a contiguous last axis and 16-byte "
+            "aligned strides and address"
+        )
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != q.shape[:3] or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be (B, H, Sq) fp32 contiguous")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     launch_bwd_kernels(q, k, v, do, lse, delta, dq, dk, dv, scale)
     return dq, dk, dv

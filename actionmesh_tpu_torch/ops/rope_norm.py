@@ -16,11 +16,9 @@ launches the kernels or raises. Where a gradient is needed the op is a
 the saved inputs, as the JAX custom VJP does
 (``actionmesh_tpu/ops/rope_norm.py:_fused_bwd``). ``fused_rms_rope.launches``
 counts forward launches, ``fused_rms_rope.bwd_launches`` backward calls (a
-call launches the backward kernel and its fixed-order sums).
-``fused_rms_rope(mesh=)`` runs the kernel on each rank's shard of a whole
-tensor, the tables sliced to the shard's batch and sequence rows, and
-gathers the result (``parallel/mesh.py``); the layers, which hold local
-shards, call it without a mesh.
+call launches the backward kernel and its fixed-order sums). Under a device
+mesh the layers call it on the rank's local shard, with the tables the
+model-level functions cut to the shard's rows.
 """
 
 from __future__ import annotations
@@ -299,40 +297,12 @@ class _RmsRope(torch.autograd.Function):
                 dcos if need[2] else None, dsin if need[3] else None, None)
 
 
-def _sharded_rms_rope(x, scale, cos, sin, eps, mesh):
-    """Whole x in, whole output out; each rank runs the kernel on its
-    (batch, head, sequence) shard, as JAX's ``_fused_sharded`` maps it."""
-    from actionmesh_tpu_torch.parallel.mesh import attention_split, gather_shards, local_shard
-
-    B, H, S, _ = x.shape
-    b_axes, heads, seq = attention_split(mesh, B, H, S, S, ring=False)
-    s_axes = ("sp",) if seq else ()
-    x = local_shard(x, 0, mesh, b_axes)
-    x = local_shard(x, 1, mesh, ("tp",) if heads else ())
-    x = local_shard(x, 2, mesh, s_axes)
-    if cos is not None:
-        if cos.ndim == 3 and cos.shape[0] not in (1, B):  # table b % cb: one per entry
-            cos, sin = _batch_tables(cos, B)[:, 0], _batch_tables(sin, B)[:, 0]
-
-        def rows(t):
-            if t.ndim == 3 and t.shape[0] == B:
-                t = local_shard(t, 0, mesh, b_axes)
-            return local_shard(t, t.ndim - 2, mesh, s_axes).contiguous()
-
-        cos, sin = rows(cos), rows(sin)
-    out = fused_rms_rope(x, scale, cos, sin, eps)
-    out = gather_shards(out, 2, mesh, s_axes)
-    out = gather_shards(out, 1, mesh, ("tp",) if heads else ())
-    return gather_shards(out, 0, mesh, b_axes)
-
-
 def fused_rms_rope(
     x: torch.Tensor,
     scale: Optional[torch.Tensor],
     cos: Optional[torch.Tensor],
     sin: Optional[torch.Tensor],
     eps: float = 1e-6,
-    mesh=None,
 ) -> torch.Tensor:
     """rms_norm(x) then half-layout RoPE, fused; either step optional.
 
@@ -340,20 +310,9 @@ def fused_rms_rope(
     fp32 or None; cos/sin fp32 (S, D) or (cb, S, D), table b % cb serving
     batch entry b, or None. Returns x.dtype with x's strides.
     Differentiable in x, scale, cos and sin.
-
-    ``mesh``: x is the whole tensor, the same on every rank, as JAX's
-    ``fused_rms_rope(mesh=)`` takes it; each rank runs the kernel on its
-    shard (batch over dp, heads over tp, the sequence over sp, each where it
-    divides; ``parallel/mesh.py:attention_split``), the tables cut to the
-    shard's rows, and every rank returns the whole, gathered output. The
-    port's layers hold local shards already, with the tables the
-    model-level functions cut, and call it without ``mesh``; this form is
-    for a caller holding whole tensors (the parity tests against JAX).
     """
     if scale is None and cos is None:
         return x
-    if mesh is not None:
-        return _sharded_rms_rope(x, scale, cos, sin, eps, mesh)
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, scale, cos, sin)
     ):

@@ -14,14 +14,25 @@ running the same code on its own shard. The mesh has up to three axes:
     runs a ring over ``sp`` (``ops/attention.py:ring_attention_local``).
 
 Functions that take ``mesh`` at the model level (``denoise_window``,
-``denoiser_forward``, ``autoencoder_forward``, ``flow_sample``,
-``dot_product_attention``, ``fused_rms_rope``) take and return whole
-tensors, the same on every rank, as their JAX counterparts take and return
-global arrays; inside, each rank computes its shard (``local_shard``) and the
-results are gathered back (``gather_shards``). The layers below them
-(``models/layers.py``) work on the rank's local shard. An axis that does not
-divide the dimension it would split leaves that dimension whole on every
-rank of the axis (the same work on each), as in JAX.
+``denoiser_forward``, ``autoencoder_forward``, ``flow_sample`` and the
+trainers' losses) take and return whole tensors, the same on every rank, as
+their JAX counterparts take and return global arrays; inside, each rank
+computes its shard (``local_shard``) and the results are gathered back
+(``gather_shards``). The layers below them (``models/layers.py``) and
+``dot_product_attention(mesh=)`` work on the rank's local shard. An axis
+that does not divide the dimension it would split leaves that dimension
+whole on every rank of the axis (the same work on each), as in JAX.
+
+Training differentiates through the mesh with the collectives of the
+Megatron recipe, written as ``torch.autograd.Function``s: ``copy_to_tp``
+(identity, its gradient summed over tp) on the input of every
+column-parallel linear, ``reduce_from_tp`` (summed over tp, the gradient
+passed through) after every row-parallel one, and ``gather_from`` for the
+gathers (the backward takes the rank's own block, or sums the blocks first
+where the ranks' gradients differ). The loss is then the same scalar on
+every rank, each rank's parameter gradients hold the part of its own
+(batch, frame) shard, and ``sync_grads`` sums them over dp and sp, never
+over tp. Without gradients the in-place collectives run, as at inference.
 
 Parameters are the JAX package's trees with torch tensors; a spec tree
 (``denoiser_param_shardings``, ``autoencoder_param_shardings``) gives for
@@ -34,7 +45,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -165,31 +176,159 @@ def split_axes(n: int, mesh, axes: Sequence[str]) -> tuple[str, ...]:
     return axes if axes and n % shard_count(mesh, axes) == 0 else ()
 
 
-def attention_split(mesh, B: int, H: int, Sq: int, Sk: int, ring: bool = True):
-    """How a whole (B, H, Sq|Sk, D) attention operand splits over the mesh:
-    (batch axes, heads over tp, sequence over sp). JAX
-    ``_sharded_attention``'s rule: batch over dp, heads over tp, the
-    sequence over sp when Sq == Sk and sp divides it (``ring``; JAX
-    ``_fused_sharded`` asks only that sp divide S); without the sequence
-    split, the batch over (dp, sp) or sp when they divide it (per-frame
-    attention). An axis that does not divide leaves its dimension whole."""
-    dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
-    b_axes = split_axes(B, mesh, ("dp",))
-    heads = bool(split_axes(H, mesh, ("tp",)))
-    seq = sp > 1 and Sq % sp == 0 and Sk % sp == 0 and (Sq == Sk or not ring)
-    if not seq and sp > 1:
-        if b_axes and B % (dp * sp) == 0:
-            b_axes = ("dp", "sp")
-        elif not b_axes and B % sp == 0:
-            b_axes = ("sp",)
-    return b_axes, heads, seq
-
-
 def all_reduce_sum(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
     """Sum ``x`` (in place) over axis ``name``; returns it."""
     if axis_size(mesh, name) > 1:
         dist.all_reduce(x, group=mesh.get_group(name))
     return x
+
+
+# ---------------------------------------------------------------------------
+# Collectives that autograd differentiates
+# ---------------------------------------------------------------------------
+
+def _summed(g: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """A contiguous copy of ``g`` summed over ``axes`` (autograd may hand
+    the same gradient buffer to several functions, so it is not reduced in
+    place)."""
+    g = g.clone(memory_format=torch.contiguous_format)
+    for a in axes:
+        all_reduce_sum(g, mesh, a)
+    return g
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh, ("tp",)), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _summed(x, mesh, ("tp",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes, reduce):
+        ctx.dim, ctx.mesh, ctx.axes, ctx.reduce = dim, mesh, axes, reduce
+        return gather_shards(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            g = _summed(g, ctx.mesh, ctx.axes)
+        return local_shard(g, ctx.dim, ctx.mesh, ctx.axes), None, None, None, None
+
+
+class _ShareGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The input of a column-parallel linear: ``x`` as it is, its gradient
+    (the sum of the rank's heads' or columns' parts) summed over tp."""
+    if axis_size(mesh, "tp") > 1 and _differentiated(x):
+        return _CopyToTP.apply(x, mesh)
+    return x
+
+
+def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel linear's partial products summed over tp (in place
+    without gradients, as at inference); the gradient passes through."""
+    if axis_size(mesh, "tp") == 1:
+        return x
+    if _differentiated(x):
+        return _ReduceFromTP.apply(x, mesh)
+    return all_reduce_sum(x, mesh, "tp")
+
+
+def gather_from(x: torch.Tensor, dim: int, mesh, axes: Sequence[str], reduce: bool = False) -> torch.Tensor:
+    """``gather_shards`` that autograd differentiates. The backward gives
+    the rank its own block of the gradient: as it arrives where every rank
+    computes the same from the gathered tensor (the loss), or summed over
+    ``axes`` first with ``reduce`` (a reduce-scatter), where the ranks use
+    it differently (Stage II's KV, attended by each rank's vertex
+    queries)."""
+    axes = tuple(a for a in axes if axis_size(mesh, a) > 1)
+    if axes and _differentiated(x):
+        return _GatherFrom.apply(x, dim, mesh, axes, reduce)
+    return gather_shards(x, dim, mesh, axes)
+
+
+def share_grad(x: torch.Tensor, mesh, split: Sequence[str]) -> torch.Tensor:
+    """A model's gathered output, computed whole by every rank of each dp
+    or sp axis not in ``split`` (one that does not divide what it would
+    split): its gradient is divided by their sizes, so that ``sync_grads``'
+    sum over dp and sp counts that work once."""
+    copies = math.prod(axis_size(mesh, a) for a in ("dp", "sp") if a not in split)
+    if copies > 1 and _differentiated(x):
+        return _ShareGrad.apply(x, 1.0 / copies)
+    return x
+
+
+def sync_grads(grads: Sequence[torch.Tensor], mesh) -> list:
+    """Sum each rank's parameter gradients over the dp and sp axes (in
+    place, dp first), never over tp: a tp rank's gradient is of its own
+    slices, or of a replicated leaf that every tp rank computed whole."""
+    grads = list(grads)
+    for a in ("dp", "sp"):
+        if axis_size(mesh, a) > 1:
+            group = mesh.get_group(a)
+            works = [dist.all_reduce(g, group=group, async_op=True) for g in grads]
+            for w in works:
+                w.wait()
+    return grads
+
+
+def global_grad_norm(grads: Sequence[torch.Tensor], mesh=None, split: Optional[Sequence[bool]] = None):
+    """The l2 norm of the whole model's gradient: the squares of the
+    leaves that ``split`` marks (cut over tp, ``tp_split_leaves``) summed
+    over tp, the replicated leaves counted once. Off a tp mesh, the sum in
+    leaf order."""
+    if split is None or axis_size(mesh, "tp") == 1:
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    sq = [g.float().square().sum() for g in grads]
+    zero = sq[0].new_zeros(())
+    cut = sum((s for s, c in zip(sq, split) if c), zero)
+    whole = sum((s for s, c in zip(sq, split) if not c), zero)
+    return torch.sqrt(whole + all_reduce_sum(cut, mesh, "tp"))
+
+
+def is_writer() -> bool:
+    """Whether this process writes a run's files and prints its messages:
+    rank 0 of the process group, or the one process where there is none."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def on_writer(fn: Callable[[], None]) -> None:
+    """``fn()`` (files the other ranks may then read) on the writer; every
+    rank of the group calls it and waits until the writer is done."""
+    if is_writer():
+        fn()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def broadcast_object(obj, src: int = 0):
@@ -300,6 +439,38 @@ def autoencoder_param_shardings(params: dict, mesh, heads: int) -> dict:
         _check_inner(block["ff"], "net_0", tp)
     spec = {"blocks": [_block_spec(heads % tp == 0)] * len(params["blocks"])}
     return _prune_to(spec, params)
+
+
+def _spec_leaves(tree):
+    """The leaves of a spec tree in the params tree's leaf order (dict keys
+    in insertion order, as ``utils/tree.py`` walks them)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _spec_leaves(t)
+    else:
+        yield tree
+
+
+def tp_split_leaves(shardings, mesh) -> list:
+    """Per leaf of a spec tree, in leaf order: whether ``shard_params``
+    cut it over tp (the spec functions give a dim only where tp divides
+    it)."""
+    tp = axis_size(mesh, "tp")
+    return [tp > 1 and s is not None for s in _spec_leaves(shardings)]
+
+
+def gather_params(local, shardings, mesh):
+    """The inverse of ``shard_params``: the full tree on every rank, each
+    cut leaf gathered over tp (a collective: every rank calls it)."""
+    if isinstance(local, dict):
+        return {k: gather_params(v, shardings[k], mesh) for k, v in local.items()}
+    if isinstance(local, list):
+        return [gather_params(p, s, mesh) for p, s in zip(local, shardings)]
+    if shardings is None or axis_size(mesh, "tp") == 1:
+        return local
+    return gather_shards(local.detach(), shardings, mesh, ("tp",))
 
 
 def shard_params(params, shardings, mesh):

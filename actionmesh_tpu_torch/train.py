@@ -8,9 +8,11 @@
     python -m actionmesh_tpu_torch.train --stage distill --distill-mode progressive \\
         --teacher CKPT_DIR --data-dir /data/clips --size production
     python -m actionmesh_tpu_torch.train --model stage0 --data-dir /data/anchors
+    torchrun --nproc-per-node 4 -m actionmesh_tpu_torch.train --synthetic \
+        --size production --window 16 --batch 2 --mesh dp=2,tp=2 --compute-dtype bfloat16
 
-The twin of ``scripts/train.py``, with its flags and defaults (less
-``--mesh``): ``--stage flow`` (rectified flow) trains the Stage-I denoiser,
+The twin of ``scripts/train.py``, with its flags and defaults: ``--stage
+flow`` (rectified flow) trains the Stage-I denoiser,
 or with ``--model stage0`` the Stage-0 TripoSG DiT on single-frame windows
 with no conditioning frames; ``--stage decoder`` trains the Stage-II
 decoder on clips paired with tracked vertex surfaces (``--tracks-dir``,
@@ -28,20 +30,43 @@ CPU. Synthetic clips are written under ``--out``; at ``--size
 production`` their context has DINOv2-L's 257 tokens. Synthetic decoder
 batches take their latent shape from the model config (at ``--size
 tiny`` JAX's values: T 4, N 8, C 4, 3 targets, 16 vertices).
+
+``--mesh dp=2,tp=2[,sp=2]`` trains on a device mesh (``parallel/mesh.py``):
+run it under ``torchrun`` with one process per card (NCCL; ``--device cpu``
+runs gloo ranks on the CPU). Each rank joins the process group that
+torchrun describes, holds its tp slices of the params and moments and its
+dp share of every batch; rank 0 writes the log and full-tree checkpoints
+and exports. Without a process group ``--mesh`` raises; it never trains
+unsharded in its place.
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import os
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from actionmesh_tpu_torch.models.autoencoder import AutoencoderConfig
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig
+from actionmesh_tpu_torch.parallel.mesh import is_writer, on_writer
+
+
+def parse_mesh(spec: str) -> dict:
+    """'dp=2,tp=4[,sp=2]' -> make_mesh kwargs (``scripts/train.py``'s rules
+    and error text)."""
+    kwargs = {}
+    for part in spec.split(","):
+        axis, _, size = part.partition("=")
+        if axis not in ("dp", "tp", "sp") or not size.isdigit():
+            raise argparse.ArgumentTypeError(f"bad mesh spec {spec!r}; expected e.g. dp=2,tp=4")
+        kwargs[axis] = int(size)
+    return kwargs
 
 
 def build_args() -> argparse.ArgumentParser:
@@ -96,6 +121,9 @@ def build_args() -> argparse.ArgumentParser:
                    help="after training, export the (EMA) params for inference under DIR")
     p.add_argument("--time-phases", action="store_true",
                    help="log synchronised forward/backward/update seconds per step")
+    p.add_argument("--mesh", type=parse_mesh, default=None,
+                   help="shard over a device mesh, e.g. dp=2,tp=4 (omit: single device); "
+                        "one rank per card under torchrun")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda, which raises without a card; "
                         "cpu runs on the CPU)")
@@ -187,6 +215,14 @@ def run(args: argparse.Namespace):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available (use --device cpu)")
+    mesh = None
+    if args.mesh:
+        from actionmesh_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+        if "RANK" not in os.environ and not dist.is_initialized():
+            raise RuntimeError("--mesh needs a process group: run under torchrun, one rank per card")
+        device = init_distributed(device.type)
+        mesh = make_mesh(**args.mesh)
 
     profile_steps = None
     if args.profile_steps:
@@ -212,20 +248,20 @@ def run(args: argparse.Namespace):
         time_phases=args.time_phases,
     )
     if args.stage == "decoder":
-        state, history = _run_decoder(args, loop_cfg, device)
         stage_name = "decoder"
     else:
-        state, history = _run_flow_or_distill(args, loop_cfg, device)
         stage_name = "stage0_dit" if args.model == "stage0" else "flow"
-    if args.export_inference:
-        from actionmesh_tpu_torch.training.checkpoint import export_for_inference
+    export = (stage_name, args.export_inference) if args.export_inference else None
+    run_stage = _run_decoder if args.stage == "decoder" else _run_flow_or_distill
+    state, history = run_stage(args, loop_cfg, device, mesh, export)
+    if export:
+        from actionmesh_tpu_torch.training.checkpoint import EXPORT_NAMES
 
-        out = export_for_inference(state, args.export_inference, stage=stage_name)
-        print(f"exported inference checkpoint: {out}")
+        say(f"exported inference checkpoint: {Path(args.export_inference) / EXPORT_NAMES[stage_name]}")
     return state, history, loop_cfg
 
 
-def _run_flow_or_distill(args: argparse.Namespace, loop_cfg, device: torch.device):
+def _run_flow_or_distill(args: argparse.Namespace, loop_cfg, device: torch.device, mesh=None, export=None):
     from actionmesh_tpu_torch.training.data import (
         ClipWindowDataset,
         flow_batches,
@@ -244,8 +280,9 @@ def _run_flow_or_distill(args: argparse.Namespace, loop_cfg, device: torch.devic
     n_cond = 0 if args.model == "stage0" else ((1, args.window - 1) if args.window > 2 else 1)
     n_cond_eval = 0 if args.model == "stage0" else 1
     if args.synthetic:
-        data_dir = synthesize_clip_dir(
-            Path(args.out) / "synthetic_clips",
+        data_dir = Path(args.out) / "synthetic_clips"
+        on_writer(lambda: synthesize_clip_dir(
+            data_dir,
             n_clips=max(4, args.batch * 2),
             frames=max(args.window, 8),
             tokens=model_cfg.num_tokens_nominal,
@@ -253,7 +290,7 @@ def _run_flow_or_distill(args: argparse.Namespace, loop_cfg, device: torch.devic
             context_tokens=257 if args.size == "production" else 3,
             context_dim=model_cfg.cross_attention_dim,
             seed=args.seed,
-        )
+        ))
     else:
         data_dir = Path(args.data_dir)
     dataset = ClipWindowDataset(data_dir, window=args.window)
@@ -265,17 +302,18 @@ def _run_flow_or_distill(args: argparse.Namespace, loop_cfg, device: torch.devic
                          n_cond_frames=n_cond_eval),
             args.eval_batches,
         ))
-    print(
+    say(
         f"{args.stage} training of the {args.model} on {device}: {len(dataset)} windows "
         f"({dataset.skipped_clips} clips too short), batch {args.batch}, "
         f"{args.steps} steps -> {args.out}"
-        + (f", eval on {len(eval_set)} held-out batches" if eval_set else ""),
-        flush=True,
+        + (f", eval on {len(eval_set)} held-out batches" if eval_set else "")
+        + (f", mesh {dict(args.mesh)}" if mesh is not None else "")
     )
     batches = flow_batches(dataset, args.batch, seed=args.seed, n_cond_frames=n_cond)
     if args.stage == "flow":
         return run_flow_training(
             model_cfg, batches, loop_cfg, device=device, on_log=echo, eval_batches=eval_set,
+            mesh=mesh, export=export,
         )
     if args.teacher:
         from actionmesh_tpu_torch.utils.weights import load_npz
@@ -286,28 +324,27 @@ def _run_flow_or_distill(args: argparse.Namespace, loop_cfg, device: torch.devic
         from actionmesh_tpu_torch.models.denoiser import init_denoiser
 
         teacher = init_denoiser(torch.Generator(device).manual_seed(args.seed + 7), model_cfg, device=device)
-    print(
+    say(
         f"distillation ({args.distill_mode}): "
         + (f"CFG scale {args.guidance_scale} -> single forward" if args.distill_mode == "guidance"
-           else f"{args.teacher_steps} -> {args.teacher_steps // 2} steps"),
-        flush=True,
+           else f"{args.teacher_steps} -> {args.teacher_steps // 2} steps")
     )
     return run_distillation(
         model_cfg, teacher, batches, loop_cfg, mode=args.distill_mode,
         guidance_scale=args.guidance_scale, num_teacher_steps=args.teacher_steps,
-        device=device, on_log=echo, eval_batches=eval_set,
+        device=device, on_log=echo, eval_batches=eval_set, mesh=mesh, export=export,
     )
 
 
-def _run_decoder(args: argparse.Namespace, loop_cfg, device: torch.device):
+def _run_decoder(args: argparse.Namespace, loop_cfg, device: torch.device, mesh=None, export=None):
     from actionmesh_tpu_torch.training.data import DecoderTrackDataset, decoder_batches, split_windows
     from actionmesh_tpu_torch.training.loop import run_decoder_training
 
     model_cfg = decoder_model_config(args.size)
     eval_set = None
     if args.synthetic:
-        print(f"decoder training (synthetic) on {device}: batch {args.batch}, {args.steps} steps "
-              f"-> {args.out}", flush=True)
+        say(f"decoder training (synthetic) on {device}: batch {args.batch}, {args.steps} steps "
+            f"-> {args.out}")
         batches = synthetic_decoder_batches(args.batch, args.seed,
                                             **synthetic_decoder_shapes(args, model_cfg))
     else:
@@ -319,15 +356,22 @@ def _run_decoder(args: argparse.Namespace, loop_cfg, device: torch.device):
                                 vertex_bucket=args.vertex_bucket, seed=0, epochs=1),
                 args.eval_batches,
             ))
-        print(
+        say(
             f"decoder training on {device}: {len(dataset)} windows ({dataset.skipped_clips} "
             f"clips too short), batch {args.batch}, bucket {args.vertex_bucket}, "
-            f"{args.steps} steps -> {args.out}", flush=True,
+            f"{args.steps} steps -> {args.out}"
         )
         batches = decoder_batches(dataset, args.batch, vertex_bucket=args.vertex_bucket, seed=args.seed)
     return run_decoder_training(
-        model_cfg, batches, loop_cfg, device=device, on_log=echo, eval_batches=eval_set,
+        model_cfg, batches, loop_cfg, device=device, on_log=echo, eval_batches=eval_set, mesh=mesh,
+        export=export,
     )
+
+
+def say(text: str) -> None:
+    """Print once: on the writer (rank 0 when a process group is up)."""
+    if is_writer():
+        print(text, flush=True)
 
 
 def echo(rec: dict) -> None:
@@ -345,7 +389,7 @@ def echo(rec: dict) -> None:
 def main(argv=None) -> int:
     state, history, _ = run(build_args().parse_args(argv))
     losses = [h["loss"] for h in history if "loss" in h]
-    print(f"done: step {state['step']}, final loss {losses[-1] if losses else float('nan'):.6f}")
+    say(f"done: step {state['step']}, final loss {losses[-1] if losses else float('nan'):.6f}")
     return 0
 
 

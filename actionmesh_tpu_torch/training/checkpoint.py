@@ -13,6 +13,12 @@ same way (``init_train_state``) in place, checking names and shapes.
 ``dit.npz`` or ``vae.npz`` (JAX's four stage names) in the JAX
 ``save_params`` layout (``utils/weights.save_npz``), so the JAX package's
 ``load_params`` and the port's ``load_npz`` both read it.
+
+On a device mesh (``mesh`` with the ``shardings`` spec tree the params were
+cut by) the rank's tp slices of the params, moments, accumulator and EMA
+are gathered leaf by leaf and rank 0 writes the full tree, the same file
+an unsharded run writes; restore reads the full tree on every rank and
+keeps the rank's slices, so a run resumes at any layout.
 """
 
 from __future__ import annotations
@@ -25,6 +31,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from actionmesh_tpu_torch.parallel.mesh import (
+    axis_index,
+    axis_size,
+    gather_params,
+    gather_shards,
+    is_writer,
+    on_writer,
+)
 from actionmesh_tpu_torch.utils.tree import named_leaves
 
 
@@ -36,27 +50,67 @@ def _state_leaves(state: dict):
         yield name, leaf
 
 
-def save_train_state(state: dict, path: str | Path) -> Path:
-    """Atomically write every leaf of ``state`` to the npz at ``path``."""
+def _tp_dims(state: dict, shardings, mesh) -> dict:
+    """{state leaf name: the dim it is cut along over tp} on a tp mesh: every
+    sub-tree of the state shaped as the params tree (the params, the EMA,
+    and whatever the optimizer keeps per param) is cut as ``shardings``
+    says, as JAX's ``optimizer_state_shardings`` lays the state out."""
+    if shardings is None or axis_size(mesh, "tp") == 1:
+        return {}
+    specs = list(named_leaves(shardings))
+    names = [n for n, _ in specs]
+    dims = {}
+
+    def visit(tree, prefix: str) -> None:
+        if [n for n, _ in named_leaves(tree)] == names:
+            dims.update({prefix + n: d for n, d in specs if d is not None})
+        elif isinstance(tree, dict):
+            for key, sub in tree.items():
+                visit(sub, f"{prefix}{key}.")
+
+    visit(state, "")
+    return dims
+
+
+def save_train_state(state: dict, path: str | Path, mesh=None, shardings=None) -> Path:
+    """Atomically write every leaf of ``state`` to the npz at ``path``.
+
+    On a mesh every rank calls it (the tp gathers are collectives) and
+    rank 0 writes the full tree; the others wait until the file is in
+    place."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
+    dims = _tp_dims(state, shardings, mesh)
+    writes = is_writer()
     tmp = path.with_name(f".{path.name}.tmp")
-    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+    zf = None
+    if writes:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        zf = zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED, allowZip64=True)
+    try:
         for name, leaf in _state_leaves(state):
             if isinstance(leaf, torch.Tensor):
-                arr = leaf.detach().cpu().numpy()
+                if name in dims:
+                    leaf = gather_shards(leaf.detach(), dims[name], mesh, ("tp",))
+                arr = leaf.detach().cpu().numpy() if writes else None
             else:
                 arr = np.asarray(leaf, dtype=np.int64)
-            with zf.open(f"{name}.npy", "w", force_zip64=True) as fh:
-                np.lib.format.write_array(fh, arr, allow_pickle=False)
-    os.replace(tmp, path)
+            if writes:
+                with zf.open(f"{name}.npy", "w", force_zip64=True) as fh:
+                    np.lib.format.write_array(fh, arr, allow_pickle=False)
+    finally:
+        if zf is not None:
+            zf.close()
+    on_writer(lambda: os.replace(tmp, path))
     return path
 
 
-def restore_train_state(path: str | Path, template: dict) -> dict:
+def restore_train_state(path: str | Path, template: dict, mesh=None, shardings=None) -> dict:
     """Fill ``template`` (a state of the same model and optimizer) in place
     from ``save_train_state`` output; raise on a missing, extra or
-    mis-shaped leaf."""
+    mis-shaped leaf. On a mesh each rank reads the full tree and keeps its
+    tp slices of the leaves ``shardings`` cuts."""
+    dims = _tp_dims(template, shardings, mesh)
+    tp, r = axis_size(mesh, "tp"), axis_index(mesh, "tp")
     with np.load(path) as archive:
         stored = set(archive.files)
         wanted = dict(_state_leaves(template))
@@ -70,12 +124,15 @@ def restore_train_state(path: str | Path, template: dict) -> dict:
             if not isinstance(leaf, torch.Tensor):
                 _set_path(template, name, int(arr))
                 continue
+            if name in dims and arr.shape[dims[name]] == leaf.shape[dims[name]] * tp:
+                n = leaf.shape[dims[name]]
+                arr = arr[(slice(None),) * dims[name] + (slice(r * n, (r + 1) * n),)]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(
                     f"{name}: checkpoint shape {tuple(arr.shape)} != state shape {tuple(leaf.shape)}"
                 )
             with torch.no_grad():
-                leaf.copy_(torch.from_numpy(arr))
+                leaf.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
     return template
 
 
@@ -101,20 +158,29 @@ def export_for_inference(
     *,
     stage: str = "flow",
     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+    mesh=None,
+    shardings=None,
 ) -> Path:
     """Write the params of ``stage`` as ``path/<EXPORT_NAMES[stage]>`` for
     inference: the EMA shadow where kept, matmul weights cast to
-    ``compute_dtype``, norm leaves left fp32."""
+    ``compute_dtype``, norm leaves left fp32. On a mesh the full tree
+    (gathered over tp; every rank calls it), written by rank 0."""
     from actionmesh_tpu_torch.training.flow_train import cast_params_for_compute
     from actionmesh_tpu_torch.utils.weights import save_npz
 
     if stage not in EXPORT_NAMES:
         raise ValueError(f"stage must be one of {sorted(EXPORT_NAMES)}, got {stage!r}")
     params = state.get("ema_params", state["params"])
+    if mesh is not None and shardings is not None:
+        params = gather_params(params, shardings, mesh)
     if compute_dtype is not None:
         params = cast_params_for_compute(params, compute_dtype)
     out_dir = Path(path)
-    out_dir.mkdir(parents=True, exist_ok=True)
     out = out_dir / EXPORT_NAMES[stage]
-    save_npz(params, out)
+
+    def write() -> None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        save_npz(params, out)
+
+    on_writer(write)
     return out

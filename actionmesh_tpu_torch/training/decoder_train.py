@@ -9,6 +9,8 @@ backward (kernels C and D on the card), clip and AdamW, and no EMA.
 
 Vertex counts vary per mesh, so queries pad to a bucket and padded rows
 carry mask 0: they are left out of the loss and of the chamfer metrics.
+``mesh=`` shards the decode as ``autoencoder_forward(mesh=)`` does (whole
+batch in, whole prediction out, ``shard_params`` weights), as JAX's.
 """
 
 from __future__ import annotations
@@ -82,14 +84,14 @@ def chamfer_eval_metrics(
     return {"eval_cd": eval_cd, "eval_motion": eval_motion}
 
 
-def _decode(params, cfg, batch, compute_dtype, train: bool) -> torch.Tensor:
+def _decode(params, cfg, batch, compute_dtype, train: bool, mesh=None) -> torch.Tensor:
     """The forward on the batch: ``train`` takes the trainable attention and
     remat (the same values as without)."""
     fwd_params = params if compute_dtype is None else cast_params_for_compute(params, compute_dtype)
     return autoencoder_forward(
         fwd_params, cfg, batch["latents"], batch["framestep"], batch["source_alpha"],
         batch["target_alphas"], batch["query"], compute_dtype=compute_dtype or torch.float32,
-        trainable=train, remat=train,
+        trainable=train, remat=train, mesh=mesh,
     )
 
 
@@ -99,6 +101,7 @@ def decoder_loss(
     batch: dict,
     *,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Masked position MSE for one batch.
 
@@ -108,7 +111,7 @@ def decoder_loss(
     optional ``vertex_mask`` (B,V). Attention is the trainable one (JAX's
     ``auto_train``), each self-attention block rematerialised.
     """
-    pred = _decode(params, cfg, batch, compute_dtype, train=True)
+    pred = _decode(params, cfg, batch, compute_dtype, train=True, mesh=mesh)
     return masked_position_mse(pred, batch["positions"], batch.get("vertex_mask"))
 
 
@@ -120,11 +123,12 @@ def decoder_eval_metrics(
     *,
     compute_dtype: Optional[torch.dtype] = None,
     with_chamfer: bool = False,
+    mesh=None,
 ) -> dict:
     """One forward -> {eval_loss[, eval_cd, eval_motion]} as floats; the
     MSE and the chamfer metrics share it. No gradient, so the inference
     attention and no remat (the same values)."""
-    pred = _decode(params, cfg, batch, compute_dtype, train=False)
+    pred = _decode(params, cfg, batch, compute_dtype, train=False, mesh=mesh)
     mask = batch.get("vertex_mask")
     out = {"eval_loss": masked_position_mse(pred, batch["positions"], mask)}
     if with_chamfer:
@@ -138,12 +142,14 @@ def make_decoder_train_step(
     *,
     compute_dtype: Optional[torch.dtype] = None,
     time_phases: bool = False,
+    mesh=None,
+    shardings=None,
 ):
     """The decoder's train step, ``(state, batch, gen) -> (state, loss)``
     (``gen`` unused: the loss draws nothing); the state has no EMA, as in
-    JAX."""
+    JAX. ``mesh`` and ``shardings``: ``make_step``'s."""
 
     def loss_fn(params, batch, _gen):
-        return decoder_loss(params, cfg, batch, compute_dtype=compute_dtype)
+        return decoder_loss(params, cfg, batch, compute_dtype=compute_dtype, mesh=mesh)
 
-    return make_step(loss_fn, optimizer, time_phases=time_phases)
+    return make_step(loss_fn, optimizer, time_phases=time_phases, mesh=mesh, shardings=shardings)

@@ -18,7 +18,9 @@ The teacher runs without gradient (``torch.no_grad``) with the inference
 attention (kernel A, as JAX's ``teacher_attn_impl="auto"``); only the
 student takes the trainable attention and remat. Random draws come from an
 explicit CPU ``torch.Generator``; the ``*_from_draws`` functions take them
-as tensors, so a test can pass JAX's own.
+as tensors, so a test can pass JAX's own. ``mesh=`` runs teacher and
+student on the device mesh (``shard_params`` trees, whole batches and
+draws on every rank, as ``training/flow_train.py`` does).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def teacher_velocity(
     mask: Optional[torch.Tensor],
     *,
     guidance_scale: Optional[float],
+    mesh=None,
 ) -> torch.Tensor:
     """The teacher's velocity (fp32), without gradient.
 
@@ -72,7 +75,7 @@ def teacher_velocity(
     if guidance_scale is None:
         v = denoiser_forward(
             teacher_params, cfg, x_t.to(in_dtype), context.to(in_dtype), framestep,
-            diffusion_time, mask,
+            diffusion_time, mask, mesh=mesh,
         )
         return v.float()
     B = x_t.shape[0]
@@ -85,6 +88,7 @@ def teacher_velocity(
         torch.cat([diffusion_time, diffusion_time]),
         None if mask is None else torch.cat([mask, mask]),
         uncond_batch=B,
+        mesh=mesh,
     ).float()
     uncond, cond = pred[:B], pred[B:]
     return uncond + guidance_scale * (cond - uncond)
@@ -112,6 +116,7 @@ def guidance_targets(
     noise: torch.Tensor,
     *,
     guidance_scale: float = 7.5,
+    mesh=None,
 ) -> dict:
     """The student's input and target for guidance distillation: x_t at
     sigma (conditioning frames clean), its diffusion time and the teacher's
@@ -123,7 +128,7 @@ def guidance_targets(
     t = sigma * NUM_TRAIN_TIMESTEPS
     v = teacher_velocity(
         teacher_params, cfg, x_t, batch["context"], batch["framestep"], t, mask,
-        guidance_scale=guidance_scale,
+        guidance_scale=guidance_scale, mesh=mesh,
     )
     return {"x_t": x_t, "t": t, "v": v}
 
@@ -138,6 +143,7 @@ def progressive_targets(
     num_teacher_steps: int = 30,
     teacher_guidance_scale: Optional[float] = None,
     shift: float = 3.0,
+    mesh=None,
 ) -> dict:
     """The student's input and target for progressive distillation: x_t at
     ``ts[j]``, two teacher Euler steps from it, and their secant."""
@@ -155,7 +161,7 @@ def progressive_targets(
 
     sigma = (t_j / NUM_TRAIN_TIMESTEPS)[:, None, None, None]
     x_t = _freeze_conditioning((1.0 - sigma) * x0 + sigma * noise, x0, mask)
-    kw = dict(guidance_scale=teacher_guidance_scale)
+    kw = dict(guidance_scale=teacher_guidance_scale, mesh=mesh)
     v1 = teacher_velocity(teacher_params, cfg, x_t, batch["context"], batch["framestep"], t_j, mask, **kw)
     x1 = _freeze_conditioning(x_t + d_j * v1, x0, mask)
     v2 = teacher_velocity(teacher_params, cfg, x1, batch["context"], batch["framestep"], t_j1, mask, **kw)
@@ -171,6 +177,7 @@ def student_loss(
     *,
     remat: bool = True,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """MSE between the student's velocity at (x_t, t) and the target, over
     the non-conditioning frames."""
@@ -179,6 +186,7 @@ def student_loss(
     v_s = denoiser_forward(
         fwd, cfg, targets["x_t"].to(in_dtype), batch["context"].to(in_dtype),
         batch["framestep"], targets["t"], batch.get("mask"), trainable=True, remat=remat,
+        mesh=mesh,
     )
     return masked_velocity_mse(v_s, targets["v"], batch.get("mask"))
 
@@ -186,50 +194,55 @@ def student_loss(
 def guidance_distill_loss_from_draws(
     student_params, teacher_params, cfg: DenoiserConfig, batch: dict,
     sigma: torch.Tensor, noise: torch.Tensor, *,
-    guidance_scale: float = 7.5, compute_dtype: Optional[torch.dtype] = None,
+    guidance_scale: float = 7.5, compute_dtype: Optional[torch.dtype] = None, mesh=None,
 ) -> torch.Tensor:
     """Guidance distillation's loss with the draws given (sigma (B,),
     noise like the latents)."""
     targets = guidance_targets(
         _cast(teacher_params, compute_dtype), cfg, batch, sigma, noise, guidance_scale=guidance_scale,
+        mesh=mesh,
     )
-    return student_loss(student_params, cfg, batch, targets, compute_dtype=compute_dtype)
+    return student_loss(student_params, cfg, batch, targets, compute_dtype=compute_dtype, mesh=mesh)
 
 
 def progressive_distill_loss_from_draws(
     student_params, teacher_params, cfg: DenoiserConfig, batch: dict,
     j: torch.Tensor, noise: torch.Tensor, *,
     num_teacher_steps: int = 30, teacher_guidance_scale: Optional[float] = None,
-    shift: float = 3.0, compute_dtype: Optional[torch.dtype] = None,
+    shift: float = 3.0, compute_dtype: Optional[torch.dtype] = None, mesh=None,
 ) -> torch.Tensor:
     """Progressive distillation's loss with the draws given (even schedule
     indices j (B,), noise like the latents)."""
     targets = progressive_targets(
         _cast(teacher_params, compute_dtype), cfg, batch, j, noise,
         num_teacher_steps=num_teacher_steps, teacher_guidance_scale=teacher_guidance_scale,
-        shift=shift,
+        shift=shift, mesh=mesh,
     )
-    return student_loss(student_params, cfg, batch, targets, compute_dtype=compute_dtype)
+    return student_loss(student_params, cfg, batch, targets, compute_dtype=compute_dtype, mesh=mesh)
 
 
 def guidance_distill_loss(
     student_params, teacher_params, cfg: DenoiserConfig, batch: dict, gen: torch.Generator, *,
-    compute_dtype: Optional[torch.dtype] = None, **kwargs,
+    compute_dtype: Optional[torch.dtype] = None, mesh=None, **kwargs,
 ) -> torch.Tensor:
     """Guidance distillation's loss with sigma and noise drawn from the CPU
     generator ``gen`` (``kwargs``: ``distill_targets_fn``'s)."""
-    targets = distill_targets_fn(cfg, _cast(teacher_params, compute_dtype), mode="guidance", **kwargs)
-    return student_loss(student_params, cfg, batch, targets(batch, gen), compute_dtype=compute_dtype)
+    targets = distill_targets_fn(cfg, _cast(teacher_params, compute_dtype), mode="guidance",
+                                 mesh=mesh, **kwargs)
+    return student_loss(student_params, cfg, batch, targets(batch, gen), compute_dtype=compute_dtype,
+                        mesh=mesh)
 
 
 def progressive_distill_loss(
     student_params, teacher_params, cfg: DenoiserConfig, batch: dict, gen: torch.Generator, *,
-    compute_dtype: Optional[torch.dtype] = None, **kwargs,
+    compute_dtype: Optional[torch.dtype] = None, mesh=None, **kwargs,
 ) -> torch.Tensor:
     """Progressive distillation's loss with j and noise drawn from the CPU
     generator ``gen`` (``kwargs``: ``distill_targets_fn``'s)."""
-    targets = distill_targets_fn(cfg, _cast(teacher_params, compute_dtype), mode="progressive", **kwargs)
-    return student_loss(student_params, cfg, batch, targets(batch, gen), compute_dtype=compute_dtype)
+    targets = distill_targets_fn(cfg, _cast(teacher_params, compute_dtype), mode="progressive",
+                                 mesh=mesh, **kwargs)
+    return student_loss(student_params, cfg, batch, targets(batch, gen), compute_dtype=compute_dtype,
+                        mesh=mesh)
 
 
 def distill_targets_fn(
@@ -241,6 +254,7 @@ def distill_targets_fn(
     num_teacher_steps: int = 30,
     teacher_guidance_scale: Optional[float] = None,
     shift: float = 3.0,
+    mesh=None,
 ):
     """``(batch, gen) -> targets`` of ``mode``, drawing from ``gen``, with
     the teacher tree as given (already cast for compute)."""
@@ -250,7 +264,7 @@ def distill_targets_fn(
             device = batch["latents"].device
             d = draw_guidance_noise(gen, batch["latents"].shape, shift)
             return guidance_targets(teacher_params, cfg, batch, d["sigma"].to(device),
-                                    d["noise"].to(device), guidance_scale=guidance_scale)
+                                    d["noise"].to(device), guidance_scale=guidance_scale, mesh=mesh)
 
     elif mode == "progressive":
         if num_teacher_steps % 2 != 0:
@@ -261,7 +275,7 @@ def distill_targets_fn(
             return progressive_targets(
                 teacher_params, cfg, batch, d["j"], d["noise"].to(batch["latents"].device),
                 num_teacher_steps=num_teacher_steps, teacher_guidance_scale=teacher_guidance_scale,
-                shift=shift,
+                shift=shift, mesh=mesh,
             )
 
     else:
@@ -282,18 +296,23 @@ def make_distill_step(
     compute_dtype: Optional[torch.dtype] = None,
     ema_decay: Optional[float] = None,
     time_phases: bool = False,
+    mesh=None,
+    shardings=None,
 ):
     """The distillation step, ``(state, batch, gen) -> (state, loss)``
     (``make_step`` with the teacher's targets as its gradient-free phase,
     ``teacher_s`` when timed). The teacher is cast to ``compute_dtype``
-    once, here, not every step (the same numbers)."""
+    once, here, not every step (the same numbers). ``mesh`` and
+    ``shardings``: ``make_step``'s; the teacher is a ``shard_params`` tree
+    of the same layout."""
     targets = distill_targets_fn(
         cfg, _cast(teacher_params, compute_dtype), mode=mode, guidance_scale=guidance_scale,
         num_teacher_steps=num_teacher_steps, teacher_guidance_scale=teacher_guidance_scale,
-        shift=shift,
+        shift=shift, mesh=mesh,
     )
 
     def loss_fn(params, batch, t):
-        return student_loss(params, cfg, batch, t, compute_dtype=compute_dtype)
+        return student_loss(params, cfg, batch, t, compute_dtype=compute_dtype, mesh=mesh)
 
-    return make_step(loss_fn, optimizer, prepare=targets, ema_decay=ema_decay, time_phases=time_phases)
+    return make_step(loss_fn, optimizer, prepare=targets, ema_decay=ema_decay, time_phases=time_phases,
+                     mesh=mesh, shardings=shardings)

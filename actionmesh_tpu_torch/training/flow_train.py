@@ -16,6 +16,14 @@ Random draws (sigma, noise, context dropout) come from an explicit CPU
 CPU see the same numbers. They cannot be the numbers ``jax.random`` draws:
 ``flow_matching_loss_from_draws`` takes them as tensors, so a test can pass
 JAX's own.
+
+On a device mesh (``mesh=``) the params and the optimizer state are the
+rank's ``shard_params`` slices. Every rank draws for the whole batch from
+the same generator and passes whole tensors to ``denoiser_forward``, which
+runs the rank's (batch, frame) shard and gathers the prediction, so the
+sharded step sees the draws of the unsharded one (as JAX's GSPMD step
+does) and every rank computes the same loss. ``make_step`` sums the
+gradients over dp and sp (``sync_grads``) before the optimizer.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Optional
 import torch
 
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, denoiser_forward
+from actionmesh_tpu_torch.parallel.mesh import sync_grads, tp_split_leaves
 from actionmesh_tpu_torch.utils.tree import leaves, map_with_path, tree_map
 
 NUM_TRAIN_TIMESTEPS = 1000.0  # the sampler's diffusion-time scale
@@ -83,6 +92,7 @@ def flow_matching_loss_from_draws(
     *,
     remat: bool = True,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Rectified-flow MSE for one batch with the random draws given.
 
@@ -90,6 +100,8 @@ def flow_matching_loss_from_draws(
     (B,T), optional ``mask`` (B,T). sigma (B,), noise like latents, drop (B,)
     bool or None (no context dropout). Attention is the trainable one
     (JAX's ``auto_train``); ``remat`` recomputes each block in the backward.
+    ``mesh``: whole batch and draws, ``shard_params`` params (see the
+    module's note).
     """
     x0 = batch["latents"].float()
     mask = batch.get("mask")
@@ -108,7 +120,7 @@ def flow_matching_loss_from_draws(
     in_dtype = fwd_params["proj_in"]["weight"].dtype
     v_pred = denoiser_forward(
         fwd_params, cfg, x_t.to(in_dtype), context.to(in_dtype), batch["framestep"],
-        sigma * NUM_TRAIN_TIMESTEPS, mask, trainable=True, remat=remat,
+        sigma * NUM_TRAIN_TIMESTEPS, mask, trainable=True, remat=remat, mesh=mesh,
     )
     return masked_velocity_mse(v_pred, v_target, mask)
 
@@ -139,7 +151,10 @@ def flow_matching_loss(
 def init_train_state(params, optimizer, ema_decay: Optional[float] = None) -> dict:
     """{'params', 'opt_state', 'step'[, 'ema_params']}. The params are
     copied to fp32 leaves that require grad; ``ema_decay`` adds an EMA
-    shadow of them (pass the same value to ``make_train_step``)."""
+    shadow of them (pass the same value to ``make_train_step``). On a mesh
+    pass the rank's ``shard_params`` slices: the moments, the accumulator
+    and the EMA then take the same slices, as JAX's
+    ``optimizer_state_shardings`` lays them out."""
     params = tree_map(lambda p: p.detach().to(torch.float32, copy=True).requires_grad_(True), params)
     state = {"params": params, "opt_state": optimizer.init(params), "step": 0}
     if ema_decay is not None:
@@ -154,6 +169,8 @@ def make_step(
     prepare=None,
     ema_decay: Optional[float] = None,
     time_phases: bool = False,
+    mesh=None,
+    shardings=None,
 ):
     """The train step of every stage: ``(state, batch, gen) -> (state, loss)``.
 
@@ -164,8 +181,12 @@ def make_step(
     donates the state; here the buffers are reused). ``time_phases``
     synchronises the device around each phase and leaves their host-clock
     seconds in ``step.last_timing`` (``teacher_s`` for ``prepare``,
-    ``forward_s``, ``backward_s``, ``update_s``).
+    ``forward_s``, ``backward_s``, ``update_s``). ``mesh`` with
+    ``shardings`` (the spec tree the params were cut by): the gradients are
+    summed over dp and sp before the optimizer, whose clip takes the whole
+    model's norm.
     """
+    split = None if mesh is None else tp_split_leaves(shardings, mesh)
 
     def clock(device) -> float:
         if time_phases and device.type == "cuda":
@@ -186,9 +207,11 @@ def make_step(
         loss = loss_fn(state["params"], batch, aux)
         t1 = clock(device)
         grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            grads = sync_grads(grads, mesh)
         t2 = clock(device)
         with torch.no_grad():
-            optimizer.update(grads, state["opt_state"], params)
+            optimizer.update(grads, state["opt_state"], params, mesh=mesh, split=split)
             if ema_decay is not None:
                 for e, p in zip(leaves(state["ema_params"]), params):
                     e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
@@ -211,14 +234,18 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     ema_decay: Optional[float] = None,
     time_phases: bool = False,
+    mesh=None,
+    shardings=None,
 ):
     """The Stage-I train step (``make_step``): the rectified-flow loss with
     remat of the fp32 masters, cast for compute to ``compute_dtype``, then
-    clip, AdamW and the EMA."""
+    clip, AdamW and the EMA. ``mesh`` and ``shardings``: ``make_step``'s."""
 
     def loss_fn(params, batch, gen):
         return flow_matching_loss(
             params, cfg, batch, gen, p_uncond=p_uncond, shift=shift, compute_dtype=compute_dtype,
+            mesh=mesh,
         )
 
-    return make_step(loss_fn, optimizer, ema_decay=ema_decay, time_phases=time_phases)
+    return make_step(loss_fn, optimizer, ema_decay=ema_decay, time_phases=time_phases,
+                     mesh=mesh, shardings=shardings)

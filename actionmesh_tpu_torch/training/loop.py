@@ -12,6 +12,15 @@ resume from it, held-out eval (``keep_best_eval`` also keeps
 ``best_eval.json``), and a profiler trace over ``profile_steps``
 (``torch.profiler`` in place of ``jax.profiler``). Losses are fetched from
 the device only at log boundaries.
+
+``mesh=`` (``parallel/mesh.py:make_mesh``; every rank runs the same call)
+trains on a device mesh, as JAX's loop: the params, moments, accumulator
+and EMA are the rank's ``shard_params`` slices (``denoiser_param_shardings``
+or ``autoencoder_param_shardings``), every rank reads the same batches and
+the model-level functions split them over dp (and the frames over sp),
+and rank 0 alone writes ``log.jsonl``, the eval record and the
+checkpoints, each a full tree (``training/checkpoint.py``). The eval runs
+on the mesh. ``run_vae_training`` takes no mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +38,17 @@ import torch
 
 from actionmesh_tpu_torch.models.autoencoder import AutoencoderConfig, init_autoencoder
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
-from actionmesh_tpu_torch.training.checkpoint import restore_train_state, save_train_state
+from actionmesh_tpu_torch.parallel.mesh import (
+    autoencoder_param_shardings,
+    denoiser_param_shardings,
+    is_writer,
+    shard_params,
+)
+from actionmesh_tpu_torch.training.checkpoint import (
+    export_for_inference,
+    restore_train_state,
+    save_train_state,
+)
 from actionmesh_tpu_torch.training.data import DevicePrefetcher, to_device
 from actionmesh_tpu_torch.training.flow_train import (
     cast_params_for_compute,
@@ -126,13 +145,23 @@ def _run_loop(
     cfg: TrainLoopConfig,
     device: torch.device,
     *,
+    mesh=None,
+    shardings=None,
     on_log: Optional[Callable[[dict], None]] = None,
     eval_fn: Optional[Callable[[dict], "float | dict"]] = None,
+    export: Optional[tuple[str, "str | Path"]] = None,
 ) -> tuple[dict, list[dict]]:
     """Prefetch, step, log JSONL, checkpoint; resumes from ``state['step']``.
-    ``eval_fn(state)`` gives the eval loss or a dict of eval metrics."""
+    ``eval_fn(state)`` gives the eval loss or a dict of eval metrics.
+    ``export`` (stage, directory) writes the inference checkpoint of the
+    final state (``export_for_inference``, compute dtype bf16) after the
+    last train checkpoint. On a mesh every rank keeps the history and takes
+    the same decisions (the losses and eval records are the same on every
+    rank); rank 0 writes the files and calls ``on_log``."""
     out_dir = Path(cfg.out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    writes = is_writer()
+    if writes:
+        out_dir.mkdir(parents=True, exist_ok=True)
     log_path = out_dir / "log.jsonl"
     start = int(state["step"])
     history: list[dict] = []
@@ -141,11 +170,16 @@ def _run_loop(
     t0 = time.perf_counter()
 
     def write(rec: dict) -> None:
+        history.append(rec)
+        if not writes:
+            return
         with log_path.open("a") as fh:
             fh.write(json.dumps(rec) + "\n")
-        history.append(rec)
         if on_log is not None:
             on_log(rec)
+
+    def save(name: str) -> None:
+        save_train_state(state, out_dir / name, mesh, shardings)
 
     def flush() -> None:
         nonlocal t0
@@ -185,10 +219,11 @@ def _run_loop(
             for key, name in selectors:
                 if key in rec and rec[key] < best_eval.get(key, float("inf")):
                     best_eval[key] = rec[key]
-                    save_train_state(state, out_dir / name)
-                    tmp = out_dir / ".best_eval.json"
-                    tmp.write_text(json.dumps(best_eval))
-                    os.replace(tmp, best_path)
+                    save(name)
+                    if writes:
+                        tmp = out_dir / ".best_eval.json"
+                        tmp.write_text(json.dumps(best_eval))
+                        os.replace(tmp, best_path)
                     if key == cfg.best_metric:
                         rec["best"] = True
         write(rec)
@@ -217,7 +252,7 @@ def _run_loop(
                 run_eval(step + 1)
             if cfg.ckpt_every and (step + 1) % cfg.ckpt_every == 0:
                 flush()
-                save_train_state(state, out_dir / "ckpt_latest.npz")
+                save("ckpt_latest.npz")
     finally:
         if profiler is not None:
             _stop_profiler(profiler, out_dir, device)
@@ -225,7 +260,9 @@ def _run_loop(
     flush()
     if eval_fn is not None and cfg.eval_every:
         run_eval(int(state["step"]))
-    save_train_state(state, out_dir / "ckpt_latest.npz")
+    save("ckpt_latest.npz")
+    if export is not None:
+        export_for_inference(state, export[1], stage=export[0], mesh=mesh, shardings=shardings)
     return state, history
 
 
@@ -233,6 +270,8 @@ def _stop_profiler(profiler, out_dir: Path, device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     profiler.__exit__(None, None, None)
+    if not is_writer():
+        return
     trace_dir = out_dir / "profile"
     trace_dir.mkdir(parents=True, exist_ok=True)
     profiler.export_chrome_trace(str(trace_dir / "trace.json"))
@@ -247,15 +286,25 @@ def _train_device(device, who: str) -> torch.device:
     return torch.device(device)
 
 
-def _initial_state(params, optimizer, cfg: TrainLoopConfig, ema_decay: Optional[float]) -> dict:
+def _initial_state(params, optimizer, cfg: TrainLoopConfig, ema_decay: Optional[float],
+                   mesh=None, shardings=None) -> dict:
     """A fresh train state of ``params``, or ``out_dir/ckpt_latest.npz``
-    restored into it when resuming."""
+    restored into it when resuming (re-cut to this mesh's slices)."""
     state = init_train_state(params, optimizer, ema_decay=ema_decay)
     ckpt = Path(cfg.out_dir) / "ckpt_latest.npz"
     if cfg.resume and ckpt.exists():
-        state = restore_train_state(ckpt, state)
+        state = restore_train_state(ckpt, state, mesh, shardings)
         logger.info("resumed from %s at step %d", ckpt, state["step"])
     return state
+
+
+def _sharded(params, mesh, shardings_fn, heads: int):
+    """(the rank's slices of ``params``, their spec tree) on ``mesh``;
+    (params, None) without one."""
+    if mesh is None:
+        return params, None
+    shardings = shardings_fn(params, mesh, heads)
+    return shard_params(params, shardings, mesh), shardings
 
 
 def run_flow_training(
@@ -267,6 +316,8 @@ def run_flow_training(
     params=None,
     on_log: Optional[Callable[[dict], None]] = None,
     eval_batches: Optional[list[dict]] = None,
+    mesh=None,
+    export: Optional[tuple[str, "str | Path"]] = None,
 ) -> tuple[dict, list[dict]]:
     """Train the Stage-I denoiser with the rectified-flow objective.
 
@@ -276,14 +327,18 @@ def run_flow_training(
     ``eval_batches`` (held-out numpy batches) adds ``eval_loss`` records
     every ``cfg.eval_every`` steps: the loss of the EMA weights (when kept)
     with fixed draws and no context dropout. Runs on the card unless
-    ``device`` says otherwise, and raises where there is none. Returns
-    (final state, log).
+    ``device`` says otherwise, and raises where there is none. ``mesh``:
+    see the module's note (the full params are drawn or given alike on
+    every rank, then cut). ``export`` (stage, directory): the final state's
+    inference checkpoint, written after the last train checkpoint while the
+    spec tree is in hand (``_run_loop``). Returns (final state, log).
     """
     device = _train_device(device, "run_flow_training")
     if params is None:
         params = init_denoiser(torch.Generator(device).manual_seed(cfg.seed), model_cfg, device=device)
+    params, shardings = _sharded(params, mesh, denoiser_param_shardings, model_cfg.num_attention_heads)
     optimizer = make_optimizer(cfg)
-    state = _initial_state(params, optimizer, cfg, cfg.ema_decay)
+    state = _initial_state(params, optimizer, cfg, cfg.ema_decay, mesh, shardings)
     del params
     step_fn = make_train_step(
         model_cfg,
@@ -293,6 +348,8 @@ def run_flow_training(
         compute_dtype=compute_dtype(cfg),
         ema_decay=loop_ema_decay(cfg),
         time_phases=cfg.time_phases,
+        mesh=mesh,
+        shardings=shardings,
     )
 
     eval_fn = None
@@ -306,13 +363,14 @@ def run_flow_training(
                 flow_matching_loss(
                     eval_params, model_cfg, b, step_generator(cfg.seed + 1, i),
                     p_uncond=0.0, shift=cfg.shift, remat=False,
-                    compute_dtype=compute_dtype(cfg),
+                    compute_dtype=compute_dtype(cfg), mesh=mesh,
                 )
                 for i, b in enumerate(held_out)
             ]
             return float(sum(float(l) for l in losses) / len(losses))
 
-    return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)
+    return _run_loop(state, step_fn, batches, cfg, device, mesh=mesh, shardings=shardings,
+                     on_log=on_log, eval_fn=eval_fn, export=export)
 
 
 def run_decoder_training(
@@ -325,6 +383,8 @@ def run_decoder_training(
     on_log: Optional[Callable[[dict], None]] = None,
     eval_batches: Optional[list[dict]] = None,
     eval_chamfer: bool = False,
+    mesh=None,
+    export: Optional[tuple[str, "str | Path"]] = None,
 ) -> tuple[dict, list[dict]]:
     """Train the Stage-II decoder with the masked position MSE (the loop
     contract of ``run_flow_training``; batches in the
@@ -335,7 +395,8 @@ def run_decoder_training(
     and CD-M weigh equally on the reference's leaderboard); with
     ``cfg.best_metric="eval_score"`` they select ``ckpt_best.npz``. Runs on
     the card unless ``device`` says otherwise, and raises where there is
-    none.
+    none. ``mesh``: ``run_flow_training``'s, with
+    ``autoencoder_param_shardings``.
     """
     from actionmesh_tpu_torch.training.decoder_train import (
         decoder_eval_metrics,
@@ -345,11 +406,13 @@ def run_decoder_training(
     device = _train_device(device, "run_decoder_training")
     if params is None:
         params = init_autoencoder(torch.Generator(device).manual_seed(cfg.seed), model_cfg, device=device)
+    params, shardings = _sharded(params, mesh, autoencoder_param_shardings, model_cfg.num_attention_heads)
     optimizer = make_optimizer(cfg)
-    state = _initial_state(params, optimizer, cfg, None)
+    state = _initial_state(params, optimizer, cfg, None, mesh, shardings)
     del params
     step_fn = make_decoder_train_step(
         model_cfg, optimizer, compute_dtype=compute_dtype(cfg), time_phases=cfg.time_phases,
+        mesh=mesh, shardings=shardings,
     )
 
     eval_fn = None
@@ -358,8 +421,8 @@ def run_decoder_training(
 
         def eval_fn(current: dict) -> dict:
             per_batch = [
-                decoder_eval_metrics(current["params"], model_cfg, b,
-                                     compute_dtype=compute_dtype(cfg), with_chamfer=eval_chamfer)
+                decoder_eval_metrics(current["params"], model_cfg, b, compute_dtype=compute_dtype(cfg),
+                                     with_chamfer=eval_chamfer, mesh=mesh)
                 for b in held_out
             ]
             out = {k: sum(m[k] for m in per_batch) / len(per_batch) for k in per_batch[0]}
@@ -367,7 +430,8 @@ def run_decoder_training(
                 out["eval_score"] = out["eval_cd"] + out["eval_motion"]
             return out
 
-    return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)
+    return _run_loop(state, step_fn, batches, cfg, device, mesh=mesh, shardings=shardings,
+                     on_log=on_log, eval_fn=eval_fn, export=export)
 
 
 def run_vae_training(
@@ -433,6 +497,8 @@ def run_distillation(
     student_params=None,
     on_log: Optional[Callable[[dict], None]] = None,
     eval_batches: Optional[list[dict]] = None,
+    mesh=None,
+    export: Optional[tuple[str, "str | Path"]] = None,
 ) -> tuple[dict, list[dict]]:
     """Distill a Stage-I (or Stage-0 DiT) teacher into a cheaper student
     (``training/distill.py``).
@@ -444,6 +510,8 @@ def run_distillation(
     ``eval_batches`` reports the same loss on held-out batches with fixed
     draws. The loop contract is ``run_flow_training``'s; runs on the card
     unless ``device`` says otherwise, and raises where there is none.
+    ``mesh``: teacher and student are cut alike and the teacher runs on the
+    mesh without gradients.
     """
     from actionmesh_tpu_torch.training.distill import (
         distill_targets_fn,
@@ -453,19 +521,24 @@ def run_distillation(
 
     device = _train_device(device, "run_distillation")
     teacher_params = tree_map(lambda p: p.detach().to(device), teacher_params)
+    heads = model_cfg.num_attention_heads
+    teacher_params, shardings = _sharded(teacher_params, mesh, denoiser_param_shardings, heads)
+    if student_params is not None:
+        student_params = _sharded(student_params, mesh, denoiser_param_shardings, heads)[0]
     optimizer = make_optimizer(cfg)
     state = _initial_state(
         teacher_params if student_params is None else student_params, optimizer, cfg, cfg.ema_decay,
+        mesh, shardings,
     )
     del student_params
     # the teacher cast for compute once; the step's own cast of it is then a no-op
     if compute_dtype(cfg) is not None:
         teacher_params = cast_params_for_compute(teacher_params, compute_dtype(cfg))
     kw = dict(mode=mode, guidance_scale=guidance_scale, num_teacher_steps=num_teacher_steps,
-              teacher_guidance_scale=teacher_guidance_scale, shift=cfg.shift)
+              teacher_guidance_scale=teacher_guidance_scale, shift=cfg.shift, mesh=mesh)
     step_fn = make_distill_step(
         model_cfg, optimizer, teacher_params, compute_dtype=compute_dtype(cfg),
-        ema_decay=loop_ema_decay(cfg), time_phases=cfg.time_phases, **kw,
+        ema_decay=loop_ema_decay(cfg), time_phases=cfg.time_phases, shardings=shardings, **kw,
     )
 
     eval_fn = None
@@ -478,9 +551,10 @@ def run_distillation(
             eval_params = current.get("ema_params", current["params"])
             losses = [
                 student_loss(eval_params, model_cfg, b, targets(b, step_generator(cfg.seed + 1, i)),
-                             remat=False, compute_dtype=compute_dtype(cfg))
+                             remat=False, compute_dtype=compute_dtype(cfg), mesh=mesh)
                 for i, b in enumerate(held_out)
             ]
             return float(sum(float(l) for l in losses) / len(losses))
 
-    return _run_loop(state, step_fn, batches, cfg, device, on_log=on_log, eval_fn=eval_fn)
+    return _run_loop(state, step_fn, batches, cfg, device, mesh=mesh, shardings=shardings,
+                     on_log=on_log, eval_fn=eval_fn, export=export)

@@ -15,6 +15,11 @@ differ:
     rate (decoupled, every leaf decayed), bias corrections as optax;
   * gradient accumulation averages micro-batch gradients by Welford's
     update and applies one update every ``grad_accum`` micro-steps.
+
+On a device mesh the params, moments and accumulator are the rank's
+``shard_params`` slices and the gradients are summed over dp and sp
+already (``parallel/mesh.py:sync_grads``); only the clip's global norm
+needs the other ranks: it is the whole model's (``global_grad_norm``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from actionmesh_tpu_torch.parallel.mesh import global_grad_norm
 from actionmesh_tpu_torch.utils.tree import leaves, tree_map
 
 # optax.adamw's defaults, which the JAX loop uses
@@ -62,7 +68,9 @@ class AdamW:
 
     ``init(params)`` gives the state tree; ``update(grads, state, params)``
     takes lists of tensors in the params tree's leaf order and updates the
-    params and the state in place.
+    params and the state in place. On a mesh, ``split`` marks the leaves
+    cut over tp (``parallel/mesh.py:tp_split_leaves``), whose squares the
+    global norm sums over tp.
     """
 
     def __init__(
@@ -87,7 +95,7 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def update(self, grads, state: dict, params) -> None:
+    def update(self, grads, state: dict, params, mesh=None, split=None) -> None:
         if self.grad_accum > 1:
             n = state["mini_step"]
             acc = leaves(state["acc_grads"])
@@ -99,7 +107,7 @@ class AdamW:
             grads = acc
             state["gradient_step"] += 1
 
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        gnorm = global_grad_norm(grads, mesh, split)
         if gnorm >= self.clip_norm:
             grads = [g / gnorm * self.clip_norm for g in grads]
         lr = self.schedule(state["count"])

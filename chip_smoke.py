@@ -34,7 +34,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. the command line: ``python -m actionmesh_tpu_torch.inference.
      video_to_animated_mesh``'s ``main`` in process on the 16 synthetic
      frames written as NN_image.png + NN_mask.png pairs, at the default
-     preset (full width, Stage I cut to 10 of its 30 steps) and at --turbo; checks 16
+     preset (full width, Stage I cut to 4 of its 30 steps) and at --turbo; checks 16
      mesh_XX.glb files that load back with the anchor's topology, the
      deformation arrays, an animated GLB with 16 morph targets, a non-blank
      preview and launch counts equal to what each preset's path implies;
@@ -117,7 +117,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      RMBG-1.4 at full size) loaded on both: TripoSG's Stage 0 and the slice
      from one anchor within 1e-4, RMBG at 1024^2 in fp32 (TF32 off) within
      1e-4 of its logits' range, one matte level, 0.5% of the alpha;
- 10. small train reference: 3 fp32 train steps of a small denoiser on the
+ 10. small train reference: 2 fp32 train steps of a small denoiser on the
      card and on the CPU, same weights, batches and draws, agree; kernel B's
      backward runs 4 L times a step and the plain backward never on the
      card;
@@ -126,14 +126,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      synthetic clips of production size), 1 step with bf16 compute and 1
      with the entry point's default fp32 (kernels A, C and D on their fp32
      paths); checks finite losses, moved params, launch counts equal to
-     what the path implies, and (bf16) a checkpoint that restores; prints
+     what the path implies, and (bf16) the checkpoint's entries (names and
+     shapes of all, values of every 16th leaf) against the state; prints
      each step's forward, backward and update seconds and the peak memory;
      then the other trainers at full width, each checked for finite
      losses, moved params and launch counts as its path implies: Stage-II
      decoder training (``run_decoder_training``, production
      AutoencoderConfig, fp32, window 8, batch 2, bucket 4096, synthetic
      clips + tracks through DecoderTrackDataset and decoder_batches, 1
-     step and one held-out eval with the chamfer metrics, an
+     step and one held-out eval with the chamfer metrics, the train
+     checkpoint restored whole with every leaf equal, an
      autoencoder.npz export that reloads); distillation (``train.py
      --stage distill``, production DenoiserConfig, window 16, batch 2,
      bf16, a random teacher) in guidance and progressive mode (30 teacher
@@ -209,8 +211,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      at world 1 (mesh (dp 1, tp 1)) the vertices are bit-equal to the
      unsharded run's and the launches equal the path's; at 4 cards the
      layouts (dp 2, tp 2), (dp 2, sp 2), (dp 1, sp 4), each also on a small
-     fp32 slice within 1e-4 of unsharded; prints the world, each layout's
-     seconds and its largest difference from the unsharded run. A rank
+     fp32 slice within 1e-4 of unsharded, each layout warmed by one request
+     before the timed one, whose pipeline and Stage-0 phase seconds every
+     rank reports; prints the world, each layout's seconds and its largest
+     difference from the unsharded run. The ring backward on this card:
+     for sp 2 and 4 and bf16, fp32, one rank's S/sp queries against each
+     KV shard through kernels C and D with the whole sequence's log-sum-exp
+     and delta, each shard's dQ part, dK and dV within C and D's
+     tolerances of the plain version on that shard's inputs, the dQ parts
+     summed in fp32 and the dK, dV of each shard within them of one
+     unsharded C and D call for those queries, each ring step timed beside its bound and SDPA's backward at
+     its shape. Training on the mesh: full-width Stage-I train steps
+     (bf16, EMA on; one at world 1, two beyond, the second timed) on the
+     rank's mesh against the same steps on one card:
+     at world 1 (mesh (dp 1, tp 1)) bit-equal (the loss and every param)
+     with the launches the path implies; at 4 cards (dp 2, tp 2) in bf16 and
+     fp32 and (dp 1, tp 2, sp 2) in bf16 (the ring backward), with each
+     step's seconds, every rank's peak GiB, the loss and the params
+     against the one-card step's (max |dparam| within AdamW's bound for
+     flipped signs, few elements off by more than lr); then, at 4 cards,
+     ``train.py --mesh dp=2,tp=2`` under ``torchrun`` (one rank a card)
+     for two full-width bf16 steps with a checkpoint, resumed with
+     ``--steps 2`` (no step; the restored state written back must equal
+     the checkpoint bit for bit), then resumed for a third step. A rank
      that fails fails the run.
 Kernel A is also checked (5) in bf16 at the device mesh's shapes of the
 Stage-I self-attention: a ring step at sp 2 and sp 4 with its stats, and
@@ -261,6 +284,7 @@ import threading
 import time
 import traceback
 import warnings
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -294,6 +318,7 @@ from actionmesh_tpu_torch.ops.attention import (
     dot_product_attention,
     merge_partials,
 )
+from actionmesh_tpu_torch.ops import attention as attn_ops
 from actionmesh_tpu_torch.ops import isosurface
 from actionmesh_tpu_torch.ops.chunking import chunk_from
 from actionmesh_tpu_torch.models import layers as model_layers
@@ -302,6 +327,7 @@ from actionmesh_tpu_torch.models.triposg import vae as triposg_vae
 from actionmesh_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_from_stats,
     flash_attention_fused,
     flash_attention_trainable,
     flash_attention_fused_reference,
@@ -344,12 +370,11 @@ from actionmesh_tpu_torch.models.triposg.vae import (
 from actionmesh_tpu_torch.ops.rotary import compute_rotary_embeddings
 from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
 from actionmesh_tpu_torch.preprocessing import background
-from actionmesh_tpu_torch.training.checkpoint import restore_train_state
 from actionmesh_tpu_torch.training.flow_train import init_train_state, make_train_step
-from actionmesh_tpu_torch.training.loop import TrainLoopConfig, make_optimizer, step_generator
+from actionmesh_tpu_torch.training.loop import TrainLoopConfig, loop_ema_decay, make_optimizer, step_generator
 from actionmesh_tpu_torch.utils import cuda_build, native, weights
 from actionmesh_tpu_torch.utils.profiling import profile_to
-from actionmesh_tpu_torch.utils.tree import leaves, named_leaves, tree_map
+from actionmesh_tpu_torch.utils.tree import leaves, named_leaves
 from synthetic_checkpoints import brightness_rmbg, reference_state_dict, shape_vae_sdf, write_checkpoint
 
 STAGE1_STEPS = 2
@@ -377,6 +402,7 @@ NN_YARDSTICK = "nn_argmin_cuda_core"
 # time limit. The DiT and the VAE, whose steps take about a second, take two.
 TRAIN_STEPS = 1      # the bf16 train phase's steps
 TRAIN_STEPS_F32 = 1  # the fp32 (the entry point's default dtype) train phase's steps
+CKPT_SAMPLE = 16     # the bf16 train phase checks every 16th checkpoint leaf's values
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"  # git-ignored; removed at the end
 
 
@@ -1666,11 +1692,11 @@ SMALL_DENOISER = DenoiserConfig(
 
 
 def phase_small_train() -> dict:
-    """3 fp32 train steps of a small denoiser (head dim 64) on the card
+    """2 fp32 train steps of a small denoiser (head dim 64) on the card
     (kernels A, B, C, D) and on the CPU (plain versions): same initial
     weights, batches and draws; losses and final params agree."""
     torch.backends.cudnn.allow_tf32 = False
-    cfg = TrainLoopConfig(total_steps=3, warmup_steps=1, peak_lr=1e-5, ema_decay=0.9)
+    cfg = TrainLoopConfig(total_steps=2, warmup_steps=1, peak_lr=1e-5, ema_decay=0.9)
     rng = np.random.default_rng(5)
     B, T, N = 2, 4, SMALL_DENOISER.num_tokens_nominal
     batches = [{
@@ -1733,7 +1759,8 @@ def no_plain_backward_on_card():
     handed a CUDA tensor (the autograd.Functions must launch the backward
     kernels there)."""
     plains = ((rope_norm, "rms_rope_backward_reference", "kernel B's"),
-              (flash_ops, "attention_bwd_reference", "kernels C and D's"))
+              (flash_ops, "attention_bwd_reference", "kernels C and D's"),
+              (attn_ops, "attention_bwd_stats_reference", "the ring backward's kernels C and D's"))
 
     def guard(plain, what):
         def guarded(x, *args, **kw):
@@ -2024,7 +2051,7 @@ def run_cli(name: str, flags: list[str], frames_dir: Path, out_dir: Path) -> dic
 
 # the CLI phase's presets: the default, its Stage I cut from 30 steps to
 # 10 (the slice phase derives the clip at the preset's 30), and turbo
-CLI_PRESETS = {"default": ["--stage_1_steps", "10"], "turbo": ["--turbo"]}
+CLI_PRESETS = {"default": ["--stage_1_steps", "4"], "turbo": ["--turbo"]}
 
 
 def phase_cli(presets: dict) -> dict:
@@ -2106,7 +2133,7 @@ def phase_sdf_chunk(fine_query: dict) -> dict:
 def phase_train(compute_dtype: str | None = "bfloat16") -> dict:
     """Full-width Stage-I training through the entry point's code path:
     ``--compute-dtype bfloat16`` for TRAIN_STEPS steps, then the written
-    checkpoint is restored and compared; or, with ``compute_dtype`` None,
+    checkpoint is compared with the state; or, with ``compute_dtype`` None,
     the entry point's default fp32 for TRAIN_STEPS_F32 steps (kernels A, C
     and D on their fp32 paths, B on fp32 q and k)."""
     steps = TRAIN_STEPS if compute_dtype else TRAIN_STEPS_F32
@@ -2162,22 +2189,34 @@ def phase_train(compute_dtype: str | None = "bfloat16") -> dict:
            "step_seconds": step_s,
            "phase_seconds": [{k: h[k] for k in ("forward_s", "backward_s", "update_s")} for h in recs],
            "peak_gib": peak_gib, "params": n_params, "run_seconds": run_s}
-    if compute_dtype is not None:  # the checkpoint round trip, checked once
+    if compute_dtype is not None:  # the checkpoint, checked once
+        # every entry's name and shape, and the values of every CKPT_SAMPLE-th
+        # leaf and the counters (reading all 23 GB back cost 32-47 s; the CPU
+        # tests restore whole checkpoints, the four-card run resumes one)
         ckpt = OUT_DIR / "ckpt_latest.npz"
         t0 = time.perf_counter()
-        template = tree_map(lambda t: torch.empty_like(t) if isinstance(t, torch.Tensor) else -1, state)
-        restored = restore_train_state(ckpt, template)
-        same = all(
-            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-            for (_, a), (_, b) in zip(named_leaves(restored), named_leaves(state))
-        )
-        out["restore_seconds"] = time.perf_counter() - t0
+        want = dict(named_leaves(state))
+        sample = sorted(want)[::CKPT_SAMPLE] + ["step", "opt_state.count"]
+        with zipfile.ZipFile(ckpt) as zf:
+            shapes = {}
+            for name in zf.namelist():
+                with zf.open(name) as fh:
+                    read_header = (np.lib.format.read_array_header_1_0 if np.lib.format.read_magic(fh) == (1, 0)
+                                   else np.lib.format.read_array_header_2_0)
+                    shapes[name[:-4]] = read_header(fh)[0]
+            same = shapes == {n: tuple(t.shape) if isinstance(t, torch.Tensor) else () for n, t in want.items()}
+            for name in sample:
+                with zf.open(f"{name}.npy") as fh:
+                    arr = np.lib.format.read_array(fh)
+                leaf = want[name]
+                same = same and (np.array_equal(arr, leaf.detach().cpu().numpy()) if isinstance(leaf, torch.Tensor)
+                                 else int(arr) == leaf)
+        out["check_seconds"] = time.perf_counter() - t0
         out["checkpoint_gb"] = ckpt.stat().st_size / 1e9
-        log(f"{label}: checkpoint {out['checkpoint_gb']:.2f} GB restored in "
-            f"{out['restore_seconds']:.1f} s, equal to the state: {same}")
+        log(f"{label}: checkpoint {out['checkpoint_gb']:.2f} GB: {len(shapes)} entries' names and shapes, "
+            f"{len(sample)} leaves' values equal to the state: {same} ({out['check_seconds']:.1f} s)")
         if not same:
-            raise AssertionError("the restored checkpoint differs from the train state")
-        del template, restored
+            raise AssertionError("the checkpoint differs from the train state")
     del state
     shutil.rmtree(OUT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2236,11 +2275,13 @@ def phase_train_decoder() -> dict:
     through DecoderTrackDataset, split_windows and decoder_batches, then one
     held-out eval with the chamfer metrics (``run_decoder_training`` with
     ``eval_chamfer``, keeping ckpt_best.npz by eval_score); checks finite
-    losses and metrics, moved params, the launch counts, and an
-    autoencoder.npz export that reloads."""
+    losses and metrics, moved params, the launch counts, the train
+    checkpoint restored whole (``restore_train_state``) into a fresh state
+    with every leaf equal to the run's, and an autoencoder.npz export that
+    reloads."""
     from actionmesh_tpu_torch.models.autoencoder import init_autoencoder
     from actionmesh_tpu_torch.training import decoder_train
-    from actionmesh_tpu_torch.training.checkpoint import export_for_inference
+    from actionmesh_tpu_torch.training.checkpoint import export_for_inference, restore_train_state
     from actionmesh_tpu_torch.training.data import (
         DecoderTrackDataset,
         decoder_batches,
@@ -2291,7 +2332,18 @@ def phase_train_decoder() -> dict:
         raise AssertionError(f"{label}: no ckpt_best.npz")
     init = init_autoencoder(torch.Generator("cuda").manual_seed(loop_cfg.seed), cfg, device=torch.device("cuda"))
     check_moved(label, state["params"], init)
-    del init
+    ckpt = work / "run" / "ckpt_latest.npz"
+    t0 = time.perf_counter()
+    restored = restore_train_state(ckpt, init_train_state(init, make_optimizer(loop_cfg)))
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(named_leaves(restored), named_leaves(state)))
+    restored_equal = all(na == nb and (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                         for (na, a), (nb, b) in pairs) and len(pairs) == len(list(named_leaves(state)))
+    log(f"{label}: checkpoint {ckpt.stat().st_size / 1e9:.2f} GB restored whole in {restore_s:.1f} s, "
+        f"{len(pairs)} leaves equal to the state: {restored_equal}")
+    if not restored_equal:
+        raise AssertionError(f"{label}: the restored checkpoint differs from the train state")
+    del init, restored, pairs
     path = export_for_inference(state, work / "export", stage="decoder")
     reloaded = load_npz(path, device=torch.device("cuda"))
     exported = named_leaves(reloaded)
@@ -2309,6 +2361,7 @@ def phase_train_decoder() -> dict:
     return {"dtype": "float32", "params": n_params, "launches": launches, "expected_launches": want,
             "losses": losses, "step_seconds": step_s, "phase_seconds": phases, "eval": evals[0],
             "eval_seconds": eval_s, "peak_gib": peak_gib, "run_seconds": run_s, "data_seconds": data_s,
+            "restore_seconds": restore_s,
             "shape": {"window": DECODER_WINDOW, "batch": DECODER_BATCH, "bucket": DECODER_BUCKET}}
 
 
@@ -3113,7 +3166,7 @@ def phase_prepare_clips() -> dict:
 CLOSED_LOOP_SPEC = dict(image_size=96, surface_samples=256, track_points=128, gt_points=2000, n_lat=12,
                         n_lon=16, denoiser_width=64, denoiser_layers=2, denoiser_heads=2,
                         decoder_width=64, decoder_layers=2, decoder_heads=2, num_inference_steps=2)
-CLOSED_LOOP_STEPS = {"vae": 200, "dit": 50, "flow": 20, "decoder": 20, "distill": 4}
+CLOSED_LOOP_STEPS = {"vae": 100, "dit": 25, "flow": 20, "decoder": 20, "distill": 4}
 CLOSED_LOOP_VARIANTS = ("random", "trained", "oracle", "video")
 
 
@@ -3616,6 +3669,287 @@ def phase_ring_merge() -> dict:
     return out
 
 
+def check_ring_bwd(gen, sp: int, dtype) -> dict:
+    """The ring backward's kernel work on one card: rank 0's S/sp queries of
+    the Stage-I self-attention (RING_SHAPE) and their dO, the log-sum-exp
+    and delta of the whole sequence (kernel A's stats over all keys), then
+    kernels C and D on each of the sp KV shards (``flash_attention_bwd_
+    from_stats``, as ``ring_attention_trainable``'s backward calls them):
+    each shard's dQ part, dK and dV held against the plain version on that
+    shard's inputs (``attention_bwd_stats_reference``), and the dQ parts
+    summed in fp32 with the shards' dK, dV concatenated held against one
+    unsharded C and D call for those queries; both within C and D's
+    tolerances (2e-2 of max|ref| in bf16, 1e-4 in fp32). Each ring step
+    (one shard's C, then D) is timed on what the step hands the kernels,
+    beside its bound (10 B H (S/sp)^2 D split 6:4), the plain version at
+    the step's shape and SDPA's backward there. The row has
+    ``check_flash_bwd``'s keys, its ``max_abs_err`` and ``tol`` those
+    against the plain version (the worst shard)."""
+    B, H, S, D = RING_SHAPE
+    n = S // sp
+    f32 = dtype == torch.float32
+    reps = 1 if f32 else 2
+    q, k, v, do = (heads_view(gen, B, S, H, D, dtype) for _ in range(4))
+    q0, do0 = q[:, :, :n], do[:, :, :n]  # rank 0's rows
+    o0, (m, l) = flash_attention(q0, k, v, return_stats=True)
+    lse, delta = (x.contiguous() for x in bwd_row_stats(o0, m, l, do0))
+    del o0, m, l
+    scale = D ** -0.5
+    ref = flash_attention_bwd_from_stats(q0, k, v, do0, lse, delta, scale)
+    shards = [(k[:, :, j * n:(j + 1) * n], v[:, :, j * n:(j + 1) * n]) for j in range(sp)]
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    grads = ("dq", "dk", "dv")
+    dq, dks, dvs = None, [], []
+    plain_errs, plain_tols = [], []  # per shard, against the plain version
+    for kj, vj in shards:
+        parts = flash_attention_bwd_from_stats(q0, kj, vj, do0, lse, delta, scale)
+        plain = attn_ops.attention_bwd_stats_reference(q0, kj, vj, lse, delta, do0, scale)
+        plain_errs.append({g: (a.float() - b.float()).abs().max().item() for g, a, b in zip(grads, parts, plain)})
+        plain_tols.append({g: rel * b.float().abs().max().item() for g, b in zip(grads, plain)})
+        del plain
+        dq_j, dk_j, dv_j = parts
+        dq = dq_j.float() if dq is None else dq + dq_j.float()
+        dks.append(dk_j)
+        dvs.append(dv_j)
+        del parts, dq_j
+    got = (dq.to(dtype), torch.cat(dks, dim=2), torch.cat(dvs, dim=2))
+    del dq, dks, dvs
+    errs, tols = {}, {}  # the ring's sums against one unsharded call
+    for name, a, b in zip(grads, got, ref):
+        errs[name] = (a.float() - b.float()).abs().max().item()
+        tols[name] = rel * b.float().abs().max().item()
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del got, ref
+    # the shard nearest its tolerance, for each gradient and over all three
+    by_grad = {g: max(range(sp), key=lambda j: plain_errs[j][g] / plain_tols[j][g]) for g in grads}
+    worst = max(range(sp), key=lambda j: max(plain_errs[j][g] / plain_tols[j][g] for g in grads))
+    buffers = [torch.empty_like(x) for x in (q0, shards[0][0], shards[0][1])]
+    steps_c, steps_d = [], []
+    for kj, vj in shards:  # every ring step, each on its own shard's memory
+        kc, vc = kj.contiguous(), vj.contiguous()
+        steps_c.append(cuda_ms(lambda: launch_bwd_kernels(q0, kc, vc, do0, lse, delta, *buffers, scale,
+                                                          ("dkv",)), reps))
+        steps_d.append(cuda_ms(lambda: launch_bwd_kernels(q0, kc, vc, do0, lse, delta, *buffers, scale,
+                                                          ("dq",)), reps))
+        del kc, vc
+    ms_c, ms_d = statistics.median(steps_c), statistics.median(steps_d)
+    k0, v0 = (x.contiguous() for x in shards[0])
+    plain_ms = cuda_ms(lambda: attn_ops.attention_bwd_stats_reference(q0, k0, v0, lse, delta, do0, scale), 1)
+
+    def sdpa_fwd_bwd():
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q0, k0, v0))
+        return torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), do0)
+
+    library_ms = library_time(sdpa_fwd_bwd, reps, f"ring bwd sp{sp}")
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q0, k0, v0))
+    out = sdpa(qg, kg, vg)
+    library_bwd_ms = library_time(lambda: torch.autograd.grad(out, (qg, kg, vg), do0, retain_graph=True),
+                                  reps, f"ring bwd sp{sp} (backward alone)")
+    del qg, kg, vg, out, q, k, v, do, shards, buffers, k0, v0
+    torch.cuda.empty_cache()
+    work = B * H * n * n * D
+    size, rate = torch.finfo(dtype).bits // 8, product_rate(dtype)
+    qb = B * H * n * D * size
+    bnd_c, bnd_d = bound(6 * work, rate, 6 * qb), bound(4 * work, rate, 5 * qb)
+    tf_c, tf_d = 6 * work / (ms_c * 1e-3) / 1e12, 4 * work / (ms_d * 1e-3) / 1e12
+    vs_bwd = (ms_c + ms_d) / library_bwd_ms if library_bwd_ms else None
+    name = f"stage1_self_ring_sp{sp}" + ("_f32" if f32 else "")
+    log(f"ring bwd {name} q{(B, H, n, D)} x {sp} KV shards of {n} keys, {str(dtype)[6:]}: each shard "
+        f"against the plain version, worst shard {worst}: "
+        + ", ".join(f"{g} {plain_errs[worst][g]:.3e} (tol {plain_tols[worst][g]:.3e})" for g in grads)
+        + " | the sums against one unsharded C and D call: "
+        + ", ".join(f"{g} {errs[g]:.3e} (tol {tols[g]:.3e})" for g in errs)
+        + f", finite {finite} | a ring step: kernel C {ms_c:.3f} ms (steps {[round(t, 3) for t in steps_c]}; "
+        f"{tf_c:.1f} TFLOP/s, bound {bnd_c['bound_ms']:.3f}), kernel D {ms_d:.3f} ms (steps "
+        f"{[round(t, 3) for t in steps_d]}; {tf_d:.1f} TFLOP/s, bound {bnd_d['bound_ms']:.3f}) | plain "
+        f"{plain_ms:.3f} ms | sdpa forward + backward {library_ms} ms, backward alone {library_bwd_ms} ms")
+    bad = [g for g in errs if not errs[g] <= tols[g]]
+    bad_plain = [(j, g) for j in range(sp) for g in grads if not plain_errs[j][g] <= plain_tols[j][g]]
+    if bad or bad_plain or not finite:
+        raise AssertionError(f"ring bwd {name}: above tolerance against unsharded {bad} ({errs} vs {tols}), "
+                             f"against the plain version (shard, grad) {bad_plain} ({plain_errs} vs "
+                             f"{plain_tols}), or not finite")
+    return {"name": name, "shape": [B, H, n, n, D], "dtype": str(dtype)[6:], "sp": sp,
+            "max_abs_err": {g: plain_errs[by_grad[g]][g] for g in grads},
+            "tol": {g: plain_tols[by_grad[g]][g] for g in grads},
+            "plain_errs_per_shard": plain_errs, "plain_tols_per_shard": plain_tols,
+            "unsharded_max_abs_err": errs, "unsharded_tol": tols, "ms_dkv": ms_c, "ms_dq": ms_d,
+            "ring_steps_ms_dkv": steps_c, "ring_steps_ms_dq": steps_d,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_bwd_ms": library_bwd_ms,
+            "deterministic": None, "forward_stats_err": None, "tflops_dkv": tf_c, "tflops_dq": tf_d,
+            "bound_dkv": bnd_c, "bound_dq": bnd_d, "bound_share_dkv": bnd_c["bound_ms"] / ms_c,
+            "bound_share_dq": bnd_d["bound_ms"] / ms_d, "vs_library_bwd": vs_bwd,
+            "against": "the plain version per shard; the ring's sums also against unsharded C and D"}
+
+
+def phase_ring_backward() -> list:
+    """``check_ring_bwd`` for sp 2 and 4, bf16 and fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    rows = [check_ring_bwd(gen, sp, dtype) for dtype in (torch.bfloat16, torch.float32) for sp in (2, 4)]
+    torch.cuda.empty_cache()
+    return rows
+
+
+# One full-width Stage-I train step on the mesh, per world: (layout, compute
+# dtype); each against the same step on one card
+MESH_TRAIN = {1: ((dict(dp=1, tp=1), "bfloat16"),),
+              4: ((dict(dp=2, tp=2), "bfloat16"), (dict(dp=2, tp=2), None),
+                  (dict(dp=1, tp=2, sp=2), "bfloat16"))}
+
+
+def mesh_train_batch(cfg: DenoiserConfig, device) -> dict:
+    """A Stage-I batch at the production shapes (2 clips of the window, 257
+    context tokens), drawn on the CPU from a fixed seed: the same on every
+    rank."""
+    gen = torch.Generator().manual_seed(7)
+    B, T = 2, cfg.temporal_context_size
+    batch = {"latents": torch.randn((B, T, cfg.num_tokens_nominal, cfg.in_channels), generator=gen),
+             "context": torch.randn((B, T, 257, cfg.cross_attention_dim), generator=gen),
+             "framestep": torch.arange(T, dtype=torch.float32).repeat(B, 1),
+             "mask": (torch.arange(T)[None] < torch.tensor([[1], [3]])).float()}
+    return {k: x.to(device) for k, x in batch.items()}
+
+
+def expected_mesh_train_launches(cfg: DenoiserConfig, sp: int) -> dict:
+    """A rank's launches in one train step: ``expected_train_launches``'
+    with each self-attention a ring of sp steps (A sp times a forward, C
+    and D sp times a backward)."""
+    L = cfg.num_layers
+    return dict(zip(COUNTERS, (2 * (sp + 1) * L, 8 * L, (sp + 1) * L, (sp + 1) * L, 0, 4 * L)))
+
+
+def mesh_train_step(cfg: DenoiserConfig, mesh, dtype_name, device, steps: int = 1):
+    """``steps`` Stage-I steps of fresh weights (seed 0; EMA on, AdamW at
+    the loop's defaults, no warmup) on ``mesh`` (None: one card), each on
+    the same batch with its step's draws, ``dtype_name`` the compute dtype
+    (None: fp32), through ``make_train_step`` with no plain version allowed
+    on the card. Returns the last step's loss, seconds and launches, every
+    step's seconds, the peak GiB, and the full params after the steps
+    (gathered over tp, a collective)."""
+    from actionmesh_tpu_torch.parallel.mesh import denoiser_param_shardings, gather_params, shard_params
+
+    params = init_denoiser(torch.Generator(device).manual_seed(0), cfg, device=device)
+    shardings = None
+    if mesh is not None:
+        shardings = denoiser_param_shardings(params, mesh, cfg.num_attention_heads)
+        params = shard_params(params, shardings, mesh)
+    loop_cfg = TrainLoopConfig(total_steps=steps + 1, warmup_steps=0, compute_dtype=dtype_name)
+    opt = make_optimizer(loop_cfg)
+    state = init_train_state(params, opt, ema_decay=loop_ema_decay(loop_cfg))
+    del params
+    step = make_train_step(cfg, opt, compute_dtype=getattr(torch, dtype_name) if dtype_name else None,
+                           ema_decay=loop_ema_decay(loop_cfg), mesh=mesh, shardings=shardings)
+    batch = mesh_train_batch(cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    with no_plain_version_on_card():
+        for i in range(steps):
+            reset_counters()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch, step_generator(0, i))
+            loss = loss.item()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    out = {"loss": loss, "seconds": seconds[-1], "step_seconds": seconds,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": read_counters()}
+    params = state["params"] if mesh is None else gather_params(state["params"], shardings, mesh)
+    del state, batch
+    return out, params
+
+
+# A sharded step's params against one card's: AdamW moves an element by at
+# most about lr a step (|m|/sqrt(v) <= 1 after bias correction, 1.0014 at
+# the second step), so a sign that the other order of the sums flips (a
+# gradient near 0) costs at most 2 lr a step; a wrong gradient flips about
+# half the elements, a correct one those near 0 only.
+MESH_PARAM_LR_STEPS = 2.0  # max |dparam| <= this * lr * steps
+MESH_FLIP_SHARE = 0.05     # the share of elements off by more than lr
+
+
+def train_on_mesh(rank: int, world: int, device) -> list:
+    """MESH_TRAIN's steps of this world: rank 0 first takes each dtype's
+    steps on its card alone (the others wait), then every rank the mesh's;
+    rank 0 holds the gathered params against the one-card steps' (bit for
+    bit at world 1; beyond, within MESH_PARAM_LR_STEPS and MESH_FLIP_SHARE)
+    and the launches of a step against the path's. At world 1 one step;
+    beyond, two, the second timed warm (the first pays for the groups'
+    NCCL set-up and first launches). Returns rank 0's rows ([] on the
+    others)."""
+    from actionmesh_tpu_torch.parallel.mesh import axis_size, layout, make_mesh
+
+    specs = MESH_TRAIN.get(world, ())
+    steps = 1 if world == 1 else 2
+    cfg = DenoiserConfig()
+    refs, rows = {}, []
+    if rank == 0:
+        for dt in dict.fromkeys(d for _, d in specs):
+            ref, params = mesh_train_step(cfg, None, dt, device, steps)
+            # world 1 keeps them on the card for the bitwise check; beside a
+            # mesh's shards the host holds them
+            refs[dt] = (ref, [p.detach() if world == 1 else p.detach().cpu() for p in leaves(params)])
+            del params
+            torch.cuda.empty_cache()
+            log(f"train on one card ({dt or 'float32'}): loss {ref['loss']:.6f}, s/step "
+                f"{[round(t, 2) for t in ref['step_seconds']]}, peak {ref['peak_gib']:.2f} GiB")
+    torch.distributed.barrier()
+    for lay, dt in specs:
+        mesh = make_mesh(**lay)
+        name = "x".join(f"{a}{n}" for a, n in layout(mesh).items())
+        got, params = mesh_train_step(cfg, mesh, dt, device, steps)
+        per_rank = [None] * world
+        torch.distributed.all_gather_object(per_rank, {k: got[k] for k in ("seconds", "peak_gib")})
+        if rank == 0:
+            ref, ref_leaves = refs[dt]
+            lr = TrainLoopConfig().peak_lr
+            diffs, over, elements = [], 0, 0
+            for p, r in zip(leaves(params), ref_leaves):
+                d = (p.detach() - r.to(p.device)).abs()
+                diffs.append(d.max().item())
+                over += int((d > lr).sum())
+                elements += d.numel()
+                del d
+            bit_equal = got["loss"] == ref["loss"] and all(
+                torch.equal(p.detach(), r.to(p.device)) for p, r in zip(leaves(params), ref_leaves))
+            want = expected_mesh_train_launches(cfg, axis_size(mesh, "sp"))
+            row = {"layout": layout(mesh), "dtype": dt or "float32", "loss": got["loss"],
+                   "one_card_loss": ref["loss"], "loss_rel_diff": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                   "max_abs_param_diff": max(diffs), "leaves_differing": sum(d > 0 for d in diffs),
+                   "param_tol": MESH_PARAM_LR_STEPS * lr * steps, "share_over_lr": over / elements,
+                   "leaves": len(diffs), "bit_equal": bit_equal, "seconds": got["seconds"],
+                   "seconds_per_rank": [r["seconds"] for r in per_rank],
+                   "peak_gib_per_rank": [r["peak_gib"] for r in per_rank],
+                   "one_card_seconds": ref["seconds"], "one_card_peak_gib": ref["peak_gib"],
+                   "step_seconds": got["step_seconds"], "one_card_step_seconds": ref["step_seconds"],
+                   "launches": got["launches"], "expected_launches": want}
+            log(f"train on mesh {name} ({row['dtype']}): loss {got['loss']:.6f} (one card "
+                f"{ref['loss']:.6f}, rel diff {row['loss_rel_diff']:.2e}), max |dparam| vs one card "
+                f"{row['max_abs_param_diff']:.3e} (tol {row['param_tol']:.1e}; {row['leaves_differing']}/"
+                f"{row['leaves']} leaves differ, {row['share_over_lr']:.2e} of elements by more than lr "
+                f"{lr:.0e}, tol {MESH_FLIP_SHARE}), "
+                f"bit-equal {bit_equal} | after {steps} step(s): s/step of the last per rank "
+                f"{[round(t, 2) for t in row['seconds_per_rank']]} (one card {ref['seconds']:.2f}; rank 0's "
+                f"steps {[round(t, 2) for t in got['step_seconds']]}) | peak GiB per rank "
+                f"{[round(g, 2) for g in row['peak_gib_per_rank']]} (one card {ref['peak_gib']:.2f}) | "
+                f"launches {got['launches']} (expected {want})")
+            if got["launches"] != want:
+                raise AssertionError(f"train on mesh {name}: launches {got['launches']} != {want}")
+            if world == 1 and not bit_equal:
+                raise AssertionError(f"train on mesh {name}: differs from the one-card step")
+            # bf16: the sums over tp and the ring round in another order
+            tol = 2e-2 if dt else 1e-4
+            if not (math.isfinite(got["loss"]) and row["loss_rel_diff"] <= tol):
+                raise AssertionError(f"train on mesh {name}: loss {got['loss']} vs {ref['loss']}")
+            if not (row["max_abs_param_diff"] <= row["param_tol"] and row["share_over_lr"] <= MESH_FLIP_SHARE):
+                raise AssertionError(f"train on mesh {name}: params off one card's: max {row['max_abs_param_diff']} "
+                                     f"(tol {row['param_tol']}), {row['share_over_lr']} of elements by > lr")
+            rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    return rows
+
+
 # The layouts each world runs ({}: make_mesh()'s default, dp 2 when the
 # world is even, the rest tp)
 DIST_LAYOUTS = {1: ({},), 2: ({},), 3: ({},), 4: ({}, {"dp": 2, "tp": 1, "sp": 2}, {"dp": 1, "tp": 1, "sp": 4})}
@@ -3647,23 +3981,38 @@ def distributed_rank(rank: int, world: int, port: int, work: str) -> None:
     frames = str(work / "frames")
     results = {"world": world, "layouts": []}
 
-    def serve_once(pipe, out_dir: Path, distributed: bool) -> dict:
+    def serve_once(pipe, out_dir: Path, distributed: bool, warm: bool = False) -> dict:
+        """The request through the server's path (``warm``: one more before
+        it, untimed); every rank's pipeline and Stage-0 phase seconds of the
+        timed one on rank 0 (``phases``)."""
         server = ActionMeshServer(pipe, distributed=distributed)
         if rank != 0:
             failed = worker_loop(pipe)
             if failed:
                 raise AssertionError(f"rank {rank}: {failed} worker call(s) raised")
             return {}
-        reset_counters()
-        t0 = time.perf_counter()
+        body = {"input": frames, "output_dir": str(out_dir), "seed": 44}
         try:
-            reply = server.handle({"input": frames, "output_dir": str(out_dir), "seed": 44})
+            if warm:
+                server.handle(body)
+            reset_counters()
+            t0 = time.perf_counter()
+            reply = server.handle(body)
         finally:
             server.stop_workers()
         torch.cuda.synchronize()
         return {"seconds": time.perf_counter() - t0, "generation_seconds": reply["generation_seconds"],
                 "launches": read_counters(), "n_frames": reply["n_frames"],
                 "vertices": np.load(reply["artifacts"]["deformation_vertices"])}
+
+    def phases_per_rank(pipe) -> list:
+        mine = {"phase_seconds": dict(getattr(pipe, "phase_seconds", None) or {}),
+                "stage0_seconds": dict(getattr(pipe, "stage0_seconds", None) or {})}
+        if world == 1:
+            return [mine]
+        every = [None] * world
+        torch.distributed.all_gather_object(every, mine)
+        return every
 
     def turbo(mesh):
         return ActionMeshPipeline(config_name="actionmesh_turbo", weights_dir=str(work / "no_weights"),
@@ -3672,15 +4021,18 @@ def distributed_rank(rank: int, world: int, port: int, work: str) -> None:
     unsharded = None
     if rank == 0:
         pipe = turbo(None)
-        unsharded = serve_once(pipe, work / "unsharded", distributed=False)
+        unsharded = serve_once(pipe, work / "unsharded", distributed=False, warm=world > 1)
+        unsharded["phases"] = {"phase_seconds": dict(pipe.phase_seconds), "stage0_seconds": dict(pipe.stage0_seconds)}
         results["unsharded_seconds"] = unsharded["seconds"]
+        results["unsharded_phases"] = unsharded["phases"]
         del pipe
         torch.cuda.empty_cache()
     for lay in DIST_LAYOUTS[world]:
         mesh = make_mesh(**lay)
         name = "x".join(f"{a}{n}" for a, n in layout(mesh).items())
         pipe = turbo(mesh)
-        got = serve_once(pipe, work / name, distributed=True)
+        got = serve_once(pipe, work / name, distributed=True, warm=world > 1)
+        phases = phases_per_rank(pipe)
         if rank == 0:
             want_flash, want_rope = expected_launches(pipe, N_FRAMES)
             # at world > 1 the bf16 sums over tp and the ring round in
@@ -3693,7 +4045,11 @@ def distributed_rank(rank: int, world: int, port: int, work: str) -> None:
             row = {"layout": layout(mesh), "seconds": got["seconds"],
                    "generation_seconds": got["generation_seconds"], "launches": got["launches"],
                    "max_abs_diff_vs_unsharded": diff, "vertices_shape": list(got["vertices"].shape),
-                   "unsharded_vertices_shape": list(unsharded["vertices"].shape), "finite": finite}
+                   "unsharded_vertices_shape": list(unsharded["vertices"].shape), "finite": finite,
+                   "warmed": world > 1, "phases_per_rank": phases,
+                   "unsharded_phases": unsharded["phases"]}
+            log(f"distributed world {world} layout {name}: per-rank phase seconds " + json.dumps(
+                [{k: {n: round(t, 2) for n, t in v.items()} for k, v in r.items()} for r in phases]))
             log(f"distributed world {world} layout {name}: turbo request {got['seconds']:.2f} s "
                 f"(unsharded {unsharded['seconds']:.2f} s), max abs diff vs unsharded {diff}, vertices "
                 f"{row['vertices_shape']} (unsharded {row['unsharded_vertices_shape']}), launches "
@@ -3728,6 +4084,7 @@ def distributed_rank(rank: int, world: int, port: int, work: str) -> None:
                 if not err <= DIST_SMALL_TOL:
                     raise AssertionError(f"distributed {name}: small slice {err} > {DIST_SMALL_TOL}")
                 results["layouts"][-1]["small_fp32_max_abs_err"] = err
+    results["train"] = train_on_mesh(rank, world, device)
     if rank == 0:
         (work / "results.json").write_text(json.dumps(results))
     torch.distributed.destroy_process_group()
@@ -3745,6 +4102,7 @@ def phase_distributed() -> dict:
     import torch.multiprocessing as mp
 
     ring = phase_ring_merge()
+    ring_bwd = phase_ring_backward()
     world = min(torch.cuda.device_count(), 4)
     work = OUT_DIR / "distributed"
     shutil.rmtree(work, ignore_errors=True)
@@ -3762,15 +4120,106 @@ def phase_distributed() -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t0
+    cli_run = train_cli_on_mesh(world) if world == 4 else None
     log("distributed: " + json.dumps({
         "world": world, "seconds": round(seconds, 2), "unsharded_turbo_s": round(results["unsharded_seconds"], 2),
         "layouts": [{"layout": r["layout"], "turbo_s": round(r["seconds"], 2),
                      "max_abs_diff_vs_unsharded": r["max_abs_diff_vs_unsharded"],
                      **({"small_fp32_max_abs_err": r["small_fp32_max_abs_err"]}
                         if "small_fp32_max_abs_err" in r else {})} for r in results["layouts"]],
-        "ring_merge_max_abs_err": {k: v["max_abs_err"] for k, v in ring.items()}}))
-    return {"world": world, "seconds": seconds, "ring_merge": ring, **results,
-            "launches": {k: sum(r["launches"][k] for r in results["layouts"]) for k in COUNTERS}}
+        "ring_merge_max_abs_err": {k: v["max_abs_err"] for k, v in ring.items()},
+        "train": [{k: r[k] for k in ("layout", "dtype", "seconds", "peak_gib_per_rank", "loss_rel_diff",
+                                     "max_abs_param_diff", "bit_equal")} for r in results["train"]]}))
+    return {"world": world, "seconds": seconds, "ring_merge": ring, "ring_backward": ring_bwd, **results,
+            "train_cli": cli_run,
+            "launches": {k: sum(r["launches"][k] for r in results["layouts"]) for k in COUNTERS},
+            "train_launches": {k: sum(r["launches"][k] for r in results["train"]) for k in COUNTERS}}
+
+
+# ``train.py`` under torchrun in the four-card run: full width, bf16, on
+# (dp 2, tp 2); the steps and the output directory are added per run
+TRAIN_CLI_MESH = ["--synthetic", "--size", "production", "--window", "16", "--batch", "2",
+                  "--compute-dtype", "bfloat16", "--warmup", "0", "--log-every", "1", "--ckpt-every", "0",
+                  "--mesh", "dp=2,tp=2", "--device", "cuda"]
+def differing_entries(a: Path, b: Path) -> list:
+    """The entries in which two npz files differ (name, dtype, shape or a
+    value), read side by side one entry at a time."""
+    with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+        names = za.namelist()
+        if names != zb.namelist():
+            return sorted(set(names) ^ set(zb.namelist())) or ["<entry order>"]
+        out = []
+        for name in names:
+            with za.open(name) as fa, zb.open(name) as fb:
+                x, y = np.lib.format.read_array(fa), np.lib.format.read_array(fb)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                out.append(name[:-4])
+        return out
+
+
+def train_cli_on_mesh(world: int, args: list = TRAIN_CLI_MESH) -> dict:
+    """``train.py ARGS`` under ``torchrun`` (``python -m
+    torch.distributed.run``, one rank a card, the rendezvous on this
+    host's loopback), three times in one directory: two steps and the
+    end's checkpoint (a full tree, rank 0 writes it); ``--steps 2`` again,
+    which resumes at step 2, takes no step and writes the restored state
+    back (each rank reads the full tree and keeps its slices, then the
+    slices are gathered and written), so the rewritten checkpoint must
+    equal the first in every entry, bit for bit; then ``--steps 3``
+    resumes for a third step. Checks the log's steps 1, 2, 3 and finite
+    losses. (As in JAX's loop, a resumed run's data stream starts again,
+    so its third step is not an uninterrupted run's.)"""
+    import os
+    import socket
+
+    out = OUT_DIR / "train_mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(Path(__file__).resolve().parent),
+                                                        os.environ.get("PYTHONPATH")])))
+    mesh_spec = args[args.index("--mesh") + 1]
+    ckpt, first = out / "ckpt_latest.npz", out / "ckpt_step2_written.npz"
+    runs = []
+    try:
+        for steps in (2, 2, 3):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            cmd = [sys.executable, "-m", "torch.distributed.run", f"--nproc-per-node={world}", "--nnodes=1",
+                   "--node-rank=0", "--master-addr=127.0.0.1", f"--master-port={port}",
+                   "-m", "actionmesh_tpu_torch.train", *args, "--steps", str(steps), "--out", str(out)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+                                  text=True, timeout=900)
+            seconds = time.perf_counter() - t0
+            tail = (proc.stdout + proc.stderr)[-3000:]
+            log(f"torchrun train.py --mesh {mesh_spec} --steps {steps}: rc {proc.returncode}, {seconds:.1f} s\n{tail}")
+            if proc.returncode != 0:
+                raise AssertionError(f"torchrun train.py --mesh --steps {steps}: rc {proc.returncode}")
+            recs = [json.loads(x) for x in (out / "log.jsonl").read_text().splitlines()]
+            runs.append({"steps": steps, "seconds": seconds, "log": recs, "checkpoint_gb": ckpt.stat().st_size / 1e9})
+            if len(runs) == 1:
+                os.link(ckpt, first)  # the rewrite replaces ckpt_latest.npz; the link keeps the first
+            elif len(runs) == 2:
+                t0 = time.perf_counter()
+                differ = differing_entries(first, ckpt)
+                compare_s = time.perf_counter() - t0
+                log(f"torchrun train.py --mesh {mesh_spec}: the checkpoint restored and written back "
+                    f"({runs[-1]['checkpoint_gb']:.2f} GB, compared in {compare_s:.1f} s) differs from the "
+                    f"written one in {len(differ)} entries {differ[:5]}")
+                if differ or [r["step"] for r in recs] != [1, 2]:
+                    raise AssertionError(f"torchrun train.py --mesh: the restored state written back differs in "
+                                         f"{differ[:5]}, or it took steps: {recs}")
+                first.unlink()
+        steps_logged = [r["step"] for r in runs[-1]["log"]]
+        losses = [r["loss"] for r in runs[-1]["log"]]
+        log(f"torchrun train.py --mesh: log steps {steps_logged}, losses {losses}, checkpoint "
+            f"{runs[-1]['checkpoint_gb']:.2f} GB")
+        if steps_logged != [1, 2, 3] or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"torchrun train.py --mesh: log steps {steps_logged}, losses {losses}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return {"runs": runs, "losses": losses, "rewrite_differs_in": differ, "compare_seconds": compare_s}
 
 
 SHARE_MAX = 1.05  # bound_ms / ms; above 1 only by the timer's noise
@@ -3860,6 +4309,7 @@ def main() -> None:
     del fine_query, cubes_mesh
     torch.cuda.empty_cache()
     dist = phase_distributed()
+    bwd = bwd + dist["ring_backward"]  # C and D's ring-step rows
     for name, key in (("stage1_self_ring_sp2", "sp2_bfloat16"), ("stage1_self_ring_sp4", "sp4_bfloat16"),
                       ("stage1_self_tp2", "tp2_bf16")):  # the mesh rows: their error against unsharded A
         next(r for r in flash if r["name"] == name)["unsharded_max_abs_err"] = dist["ring_merge"][key]["max_abs_err"]
@@ -3875,7 +4325,8 @@ def main() -> None:
 
     train_runs = {"training": tr, "training_fp32": tr32, "decoder_fp32": dec,
                   "distill_guidance": distill["guidance"], "distill_progressive": distill["progressive"],
-                  "stage0_dit_fp32": dit, "vae_fp32": vae, "closed_loop": loop}
+                  "stage0_dit_fp32": dit, "vae_fp32": vae, "closed_loop": loop,
+                  "train_mesh": {"launches": dist["train_launches"]}}
 
     def trained(name):  # every train phase: Stage I bf16 and fp32, decoder, distillation, DiT, VAE, closed loop
         return sum(run["launches"][name] for run in train_runs.values())

@@ -6,11 +6,13 @@ package runs the same cases sharded on the first four devices of its
 8-device virtual CPU mesh (``tests/conftest.py``), on the same numpy inputs
 and weights, for the layouts (dp 2, tp 2), (dp 2, sp 2), (dp 1, tp 2, sp 2)
 and (dp 1, tp 1, sp 4). The cases: attention with a kv mask (its sp = 4 ring
-sees a key shard that the mask empties for one row), kernel B per shard, a
-Stage-I denoise window, the Stage-II decode (T_out and V that dp and sp do
-not divide), Stage 0's sampler with and without guidance, and the tiny
-pipeline end to end. A second world of two ranks drives the server's
-``build_server`` under ``torchrun``'s environment.
+sees a key shard that the mask empties for one row), the attention layer
+with qk-norm and RoPE (kernel B on each rank's shard), a Stage-I denoise
+window, the Stage-II decode (T_out and V that dp and sp do not divide),
+Stage 0's sampler with and without guidance, and the tiny pipeline end to
+end, with the {video + 3D} pipeline at (dp 2, tp 2). A second world of
+two ranks drives the server's ``build_server`` under ``torchrun``'s
+environment.
 """
 
 import dataclasses
@@ -25,16 +27,20 @@ import torch
 from PIL import Image
 
 import actionmesh_tpu.pipeline as jpipeline_mod
+import actionmesh_tpu.pipeline_with_3d as jp3d
+from actionmesh_tpu.io.mesh import Mesh as JMesh
 from actionmesh_tpu.io.video_input import ActionMeshInput as JInput
 from actionmesh_tpu.models.autoencoder import AutoencoderConfig as JAECfg
 from actionmesh_tpu.models.autoencoder import autoencoder_forward as jae_forward
 from actionmesh_tpu.models.denoiser import DenoiserConfig as JDenCfg
 from actionmesh_tpu.models.dinov2 import DinoV2Config as JDinoCfg
 from actionmesh_tpu.models.image_encoder import ImageEncoder as JImageEncoder
+from actionmesh_tpu.models.layers import attention as jattention_layer
 from actionmesh_tpu.models.stage0 import make_uv_sphere as jsphere
+from actionmesh_tpu.models.triposg.pipeline import TripoSGPipeline as JTripoSG
 from actionmesh_tpu.models.triposg.pipeline import _flow_sample as jflow_sample
+from actionmesh_tpu.models.triposg.vae import TripoSGVAEConfig as JVAECfg
 from actionmesh_tpu.ops.attention import dot_product_attention as jattention
-from actionmesh_tpu.ops.rope_norm import fused_rms_rope as jrope
 from actionmesh_tpu.parallel import mesh as jmesh
 from actionmesh_tpu.sampling.denoise_loop import denoise_window as jdenoise_window
 from actionmesh_tpu.sampling.flow_schedule import get_schedule as jget_schedule
@@ -43,9 +49,13 @@ from actionmesh_tpu.utils.weights import load_params as jload_params
 from actionmesh_tpu_torch import pipeline as tpipeline_mod
 from actionmesh_tpu_torch.models.dinov2 import DinoV2Config as TDinoCfg
 from actionmesh_tpu_torch.models.image_encoder import ImageEncoder as TImageEncoder
+from actionmesh_tpu_torch.models.layers import init_attention
+from actionmesh_tpu_torch.models.triposg import vae as tvae
 from actionmesh_tpu_torch.ops.attention import chunked_attention, merge_partials
 from actionmesh_tpu_torch.parallel.mesh import mesh_shape
+from actionmesh_tpu_torch.utils.weights import params_to_jax
 from tests.test_torch_pipeline import TINY_DINO, TINY_UPDATES, make_frames
+from tests.test_torch_video_3d import TINY_VAE, jax_encode_draws
 from tests.torch_parallel_ranks import LAYOUTS, World, cases_rank, server_rank
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -104,7 +114,17 @@ def _inputs(tmp_path):
     # row 1 past the first is empty, and sp = 2 splits at 32
     attn = {"q": normal(B, H, S, D), "k": normal(B, H, S, D), "v": normal(B, H, S, D),
             "mask": np.arange(S)[None] < np.array([[40], [10]])}
-    rope = {"x": normal(B, H, S, D), "scale": normal(D), "cos": normal(B, S, D), "sin": normal(B, S, D)}
+    # the attention layer with qk-norm (random scales) and RoPE: kernel B's path
+    layer = params_to_jax(init_attention(torch.Generator().manual_seed(3), H * D, H, qk_norm=True, bias=True))
+    layer["norm_q"]["scale"], layer["norm_k"]["scale"] = normal(D), normal(D)
+    rope = {"params": layer, "heads": H, "x": normal(B, S, H * D), "cos": normal(B, S, D), "sin": normal(B, S, D)}
+    anchor = jsphere(n_lat=6, n_lon=8)
+    vae_cfg = tvae.TripoSGVAEConfig(**TINY_VAE)
+    p3d = {"vae_cfg": TINY_VAE, "surface_samples": 512,
+           "vae_params": params_to_jax(tvae.init_triposg_vae(torch.Generator().manual_seed(5), vae_cfg)),
+           "anchor": (np.asarray(anchor.vertices) * 2.0 + 5.0, np.asarray(anchor.faces)),
+           "draws": jax_encode_draws(3, 1, 512, tvae.presample_size(vae_cfg, 512),
+                                     (1, vae_cfg.num_tokens, vae_cfg.latent_channels))}
     ts, dist = (np.asarray(x, np.float32) for x in jget_schedule(2, shift=3.0))
     denoise = {
         "cfg": dataclasses.asdict(dcfg), "guidance": GUIDANCE,
@@ -122,7 +142,7 @@ def _inputs(tmp_path):
     }
     flow = {"noise": normal(1, 16, dcfg.in_channels), "context": normal(1, 5, dcfg.cross_attention_dim),
             "ts": ts, "dist": dist}
-    return {"attn": attn, "rope": rope, "denoise": denoise, "ae": ae, "flow": flow,
+    return {"attn": attn, "rope": rope, "denoise": denoise, "ae": ae, "flow": flow, "p3d": p3d,
             "pipeline": pl, "frames_dir": str(frames_dir), "out_dir": str(tmp_path / "served")}
 
 
@@ -132,12 +152,15 @@ def _jax_cases(inputs: dict, monkeypatch) -> dict:
     monkeypatch.setattr(jpipeline_mod, "get_noise", lambda key, shape, batch_size, n_timesteps, **_:
                         jnp.asarray(np.random.default_rng(2).standard_normal(
                             (batch_size, n_timesteps) + tuple(shape)).astype(np.float32)))
-    with ThreadPoolExecutor(len(LAYOUTS) + len(PIPELINE_LAYOUTS)) as ex:
+    with ThreadPoolExecutor(len(LAYOUTS) + 2 * len(PIPELINE_LAYOUTS)) as ex:
         pipelines = {name: ex.submit(_jax_pipeline_run, inputs["pipeline"], name)
                      for name in PIPELINE_LAYOUTS}
+        pipelines_3d = {name: ex.submit(_jax_pipeline_3d_run, inputs["pipeline"], inputs["p3d"], name)
+                        for name in PIPELINE_LAYOUTS}
         out = dict(zip(LAYOUTS, ex.map(lambda name: _jax_layout(inputs, name), LAYOUTS)))
         for name, future in pipelines.items():
             out[name]["pipeline"] = future.result()
+            out[name]["pipeline_3d"] = pipelines_3d[name].result()
     return out
 
 
@@ -150,6 +173,25 @@ def _jax_pipeline_run(pl: dict, name: str):
     return np.stack([m.vertices for m in meshes]), meshes[0].faces
 
 
+def _jax_pipeline_3d_run(pl: dict, p3d: dict, name: str):
+    """The tiny JAX {video + 3D} pipeline on layout ``name``'s mesh (JAX's
+    tests/test_parallel.py case): its VAE a tiny TripoSG of ``p3d``'s
+    weights; (vertices, faces)."""
+    pipe = jp3d.ActionMeshPipelineWithMeshInput(
+        config_name="actionmesh", weights_dir=None, dtype=jnp.float32,
+        config_updates=dict(pl["updates"], attn_impl="chunked", compute_dtype="float32"),
+        device_mesh=jmesh.make_mesh(4, **LAYOUTS[name]), surface_samples=p3d["surface_samples"],
+    ).load_native(pl["weights_dir"])
+    pipe.image_encoder = JImageEncoder(weights_dir=None, dtype=jnp.float32, config=JDinoCfg(**pl["dino_cfg"]))
+    pipe.image_encoder.params = jax.tree.map(jnp.asarray, pl["dino"])
+    pipe.vae = JTripoSG(None, jax.tree.map(jnp.asarray, p3d["vae_params"]), pipe.image_encoder,
+                        vae_cfg=JVAECfg(**p3d["vae_cfg"]), dtype=jnp.float32, attn_impl="naive")
+    frames = [Image.fromarray(f) for f in pl["frames"]]
+    anchor = JMesh(vertices=p3d["anchor"][0].copy(), faces=p3d["anchor"][1].copy())
+    meshes = pipe(JInput(frames=frames, timesteps=pl["timesteps"].copy()), anchor_mesh=anchor, seed=3)
+    return np.stack([m.vertices for m in meshes]), meshes[0].faces
+
+
 def _jax_layout(inputs: dict, name: str) -> dict:
     a, r, d, ae, fs = (inputs[k] for k in ("attn", "rope", "denoise", "ae", "flow"))
     dcfg, acfg = JDenCfg(**d["cfg"]), JAECfg(**ae["cfg"])
@@ -157,7 +199,10 @@ def _jax_layout(inputs: dict, name: str) -> dict:
     res = {"mesh": mesh.devices.shape}
     res["attn"] = np.asarray(jattention(
         *(jnp.asarray(a[k]) for k in "qkv"), kv_mask=jnp.asarray(a["mask"]), impl="chunked", mesh=mesh))
-    res["rope"] = np.asarray(jrope(*(jnp.asarray(r[k]) for k in ("x", "scale", "cos", "sin")), mesh=mesh))
+    res["rope"] = np.asarray(jattention_layer(
+        jax.tree.map(jnp.asarray, r["params"]), jnp.asarray(r["x"]), r["heads"],
+        freqs_rot=(jnp.asarray(r["cos"]), jnp.asarray(r["sin"])), attn_impl="chunked", rope_layout="half",
+        mesh=mesh))
     res["denoiser_spec"] = jmesh.denoiser_param_shardings(d["params"], mesh)
     sharded = jmesh.shard_params(d["params"], res["denoiser_spec"])
     res["denoise"] = np.asarray(jdenoise_window(
@@ -224,8 +269,25 @@ def test_attention_and_ring_match_jax(worlds, layout):
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_rms_rope_per_shard_matches_jax(worlds, layout):
+    """Kernel B on each rank's shard, on the layers' path: the attention
+    layer with qk rms-norm and half-layout RoPE run by the port on the
+    rank's (batch, sequence) rows and heads, gathered, within 1e-5 of
+    max|ref| of JAX's layer on whole tensors, which runs
+    ``fused_rms_rope(mesh=)``."""
     jax_out, port, _ = worlds
-    assert _rel(port[layout]["rope"], jax_out[layout]["rope"]) < 1e-6
+    assert _rel(port[layout]["rope"], jax_out[layout]["rope"]) < 1e-5
+
+
+def test_pipeline_with_3d_sharded_matches_jax(worlds):
+    """The {video + 3D} pipeline at (dp 2, tp 2), its anchor encoded by a
+    tiny TripoSG VAE with JAX's encode draws, against JAX's sharded run
+    (JAX's tests/test_parallel.py case): the input's faces, vertices
+    within 1e-5."""
+    jax_out, port, _ = worlds
+    (tv, tf), (jv, jf) = port["dp2_tp2"]["pipeline_3d"], jax_out["dp2_tp2"]["pipeline_3d"]
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-5)
+    assert np.abs(tv[1:] - tv[0]).max() > 0
 
 
 @pytest.mark.parametrize("case", ["denoise", "ae", "flow_7.5", "flow_None"])

@@ -136,3 +136,18 @@ def test_cli_mode_reports_every_run_then_fails_on_a_failure(monkeypatch, capsys,
     if failing:
         assert report["--bad"]["error"].startswith("AssertionError")
     assert report["--dtype float16"] == {"flags": ["--dtype", "float16"], "clip_seconds": 1.0}
+
+
+def test_train_cli_on_mesh_rewrites_the_restored_checkpoint(tmp_path, monkeypatch):
+    """The four-card run's ``train.py --mesh`` sequence on two gloo ranks
+    at tp 2, tiny size: two steps and a checkpoint; a ``--steps 2`` resume
+    that takes no step and writes the restored state back, equal to the
+    first checkpoint in every entry (re-cut over tp, then gathered); a
+    third step, logged as step 3."""
+    monkeypatch.setattr(smoke, "OUT_DIR", tmp_path)
+    args = ["--synthetic", "--size", "tiny", "--window", "4", "--batch", "2", "--warmup", "0",
+            "--log-every", "1", "--ckpt-every", "0", "--mesh", "tp=2", "--device", "cpu"]
+    out = smoke.train_cli_on_mesh(2, args)
+    assert out["rewrite_differs_in"] == []
+    assert [r["step"] for r in out["runs"][-1]["log"]] == [1, 2, 3]
+    assert [r["step"] for r in out["runs"][1]["log"]] == [1, 2]

@@ -107,12 +107,13 @@ def _spec_tree(tree):
 
 
 def cases_rank(rank, world, inputs):
-    """Every layout's cases: attention, kernel B, a denoise window, Stage II,
-    Stage 0's sampler, the tiny pipeline, the spec trees and the mesh."""
+    """Every layout's cases: attention, the attention layer with kernel B
+    (qk-norm and RoPE), a denoise window, Stage II, Stage 0's sampler, the
+    tiny pipeline, the spec trees and the mesh; at (dp 2, tp 2) also the
+    {video + 3D} pipeline."""
     from actionmesh_tpu_torch.models.autoencoder import AutoencoderConfig, autoencoder_forward
     from actionmesh_tpu_torch.models.denoiser import DenoiserConfig
     from actionmesh_tpu_torch.models.triposg.pipeline import flow_sample
-    from actionmesh_tpu_torch.ops.rope_norm import fused_rms_rope
     from actionmesh_tpu_torch.parallel.mesh import (
         autoencoder_param_shardings,
         denoiser_param_shardings,
@@ -139,8 +140,7 @@ def cases_rank(rank, world, inputs):
         mesh = make_mesh(**lay)
         res = out[name] = {"mesh": (mesh.mesh_dim_names, tuple(mesh.shape))}
         res["attn"] = _n(_attention_on_shards(a, mesh))
-        res["rope"] = _n(fused_rms_rope(
-            _t(r["x"]), _t(r["scale"]), _t(r["cos"]), _t(r["sin"]), mesh=mesh))
+        res["rope"] = _n(_attention_layer_on_shards(r, mesh))
         dspec = denoiser_param_shardings(den_params, mesh, dcfg.num_attention_heads)
         res["denoiser_spec"] = _spec_tree(dspec)
         den_local = shard_params(den_params, dspec, mesh)
@@ -162,7 +162,54 @@ def cases_rank(rank, world, inputs):
                 guidance_scale=scale, mesh=mesh,
             ))
         res["pipeline"] = _run_tiny_pipeline(pl, mesh)
+        if name == "dp2_tp2":
+            res["pipeline_3d"] = _run_tiny_pipeline_3d(pl, inputs["p3d"], mesh)
     return out
+
+
+def _attention_layer_on_shards(r: dict, mesh) -> torch.Tensor:
+    """``models/layers.attention`` (qk rms-norm and half-layout RoPE, kernel
+    B's path) as the denoiser runs it under ``mesh``: the rank's batch rows
+    (dp) and sequence rows (sp, the ring) with their RoPE table rows, the
+    heads over tp (``shard_params``); the output gathered."""
+    from actionmesh_tpu_torch.models.layers import attention
+    from actionmesh_tpu_torch.parallel.mesh import COL, ROW, gather_shards, local_shard, shard_params, split_axes
+    from actionmesh_tpu_torch.utils.weights import params_from_jax
+
+    params = params_from_jax(r["params"])
+    spec = {k: {n: None if k.startswith("norm") else (ROW if k == "to_out" else COL)[n] for n in v}
+            for k, v in params.items()}
+    x, cos, sin = _t(r["x"]), _t(r["cos"]), _t(r["sin"])
+    b_axes, s_axes = split_axes(x.shape[0], mesh, ("dp",)), split_axes(x.shape[1], mesh, ("sp",))
+
+    def shard(t):
+        return local_shard(local_shard(t, 0, mesh, b_axes), 1, mesh, s_axes).contiguous()
+
+    out = attention(shard_params(params, spec, mesh), shard(x), r["heads"], freqs_rot=(shard(cos), shard(sin)),
+                    mesh=mesh, sequence_parallel=bool(s_axes))
+    return gather_shards(gather_shards(out, 1, mesh, s_axes), 0, mesh, b_axes)
+
+
+def attention_split(mesh, B: int, H: int, Sq: int, Sk: int):
+    """How a whole (B, H, Sq|Sk, D) attention operand splits over the mesh:
+    (batch axes, heads over tp, sequence over sp). JAX
+    ``_sharded_attention``'s rule: batch over dp, heads over tp, the
+    sequence over sp (the ring) when Sq == Sk and sp divides it; without
+    the sequence split, the batch over (dp, sp) or sp when they divide it
+    (per-frame attention). An axis that does not divide leaves its
+    dimension whole."""
+    from actionmesh_tpu_torch.parallel.mesh import axis_size, split_axes
+
+    dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+    b_axes = split_axes(B, mesh, ("dp",))
+    heads = bool(split_axes(H, mesh, ("tp",)))
+    seq = sp > 1 and Sq == Sk and Sq % sp == 0
+    if not seq and sp > 1:
+        if b_axes and B % (dp * sp) == 0:
+            b_axes = ("dp", "sp")
+        elif not b_axes and B % sp == 0:
+            b_axes = ("sp",)
+    return b_axes, heads, seq
 
 
 def _attention_on_shards(a: dict, mesh) -> torch.Tensor:
@@ -172,7 +219,7 @@ def _attention_on_shards(a: dict, mesh) -> torch.Tensor:
     sequence_parallel=)`` on it (the ring when the sequence splits), and
     the shards are gathered back."""
     from actionmesh_tpu_torch.ops.attention import dot_product_attention
-    from actionmesh_tpu_torch.parallel.mesh import attention_split, gather_shards, local_shard
+    from actionmesh_tpu_torch.parallel.mesh import gather_shards, local_shard
 
     q, k, v, mask = (_t(a[key]) for key in ("q", "k", "v", "mask"))
     b_axes, heads, seq = attention_split(mesh, q.shape[0], q.shape[1], q.shape[2], k.shape[2])
@@ -186,9 +233,10 @@ def _attention_on_shards(a: dict, mesh) -> torch.Tensor:
     return gather_shards(gather_shards(gather_shards(out, 2, mesh, s_axes), 1, mesh, h_axes), 0, mesh, b_axes)
 
 
-def _tiny_pipeline(pl: dict, device_mesh, cls=None):
+def _tiny_pipeline(pl: dict, device_mesh, cls=None, **kw):
     """The tiny port pipeline of ``pl`` (its config, DINOv2 and Stage I/II
-    weights, a fixed Stage-0 latent and sphere, numpy Stage-I noise)."""
+    weights, a fixed Stage-0 latent and sphere, numpy Stage-I noise);
+    ``kw`` to ``cls``."""
     import actionmesh_tpu_torch.pipeline as tpipeline_mod
     from actionmesh_tpu_torch.models.dinov2 import DinoV2Config
     from actionmesh_tpu_torch.models.image_encoder import ImageEncoder
@@ -207,7 +255,7 @@ def _tiny_pipeline(pl: dict, device_mesh, cls=None):
         image_encoder=ImageEncoder(CPU, torch.float32, DinoV2Config(**pl["dino_cfg"]),
                                    params=params_from_jax(pl["dino"])),
         image_to_3d=lambda image, **_: (latent, make_uv_sphere(n_lat=8, n_lon=16)),
-        device_mesh=device_mesh,
+        device_mesh=device_mesh, **kw,
     )
     return pipe.load_native(pl["weights_dir"])
 
@@ -217,6 +265,27 @@ def _run_tiny_pipeline(pl: dict, mesh):
 
     pipe = _tiny_pipeline(pl, mesh)
     meshes = pipe(ActionMeshInput(frames=list(pl["frames"]), timesteps=pl["timesteps"].copy()), seed=44)
+    return np.stack([m.vertices for m in meshes]), meshes[0].faces
+
+
+def _run_tiny_pipeline_3d(pl: dict, p3d: dict, mesh):
+    """The tiny {video + 3D} pipeline on ``mesh``: its VAE a tiny TripoSG
+    of ``p3d``'s weights, whose seeded encode takes JAX's draws."""
+    import actionmesh_tpu_torch.models.triposg.pipeline as tripo_mod
+    from actionmesh_tpu_torch.io.mesh import Mesh
+    from actionmesh_tpu_torch.io.video_input import ActionMeshInput
+    from actionmesh_tpu_torch.models.triposg.vae import TripoSGVAEConfig
+    from actionmesh_tpu_torch.pipeline_with_3d import ActionMeshPipelineWithMeshInput
+    from actionmesh_tpu_torch.utils.weights import params_from_jax
+
+    tripo_mod.encode_draws = lambda *a, **k: p3d["draws"]  # this rank's process only
+    vae = tripo_mod.TripoSGPipeline(None, params_from_jax(p3d["vae_params"]), None,
+                                    vae_cfg=TripoSGVAEConfig(**p3d["vae_cfg"]), dtype=torch.float32, device=CPU)
+    pipe = _tiny_pipeline(pl, mesh, cls=ActionMeshPipelineWithMeshInput, vae=vae,
+                          surface_samples=p3d["surface_samples"])
+    anchor = Mesh(vertices=p3d["anchor"][0].copy(), faces=p3d["anchor"][1].copy())
+    meshes = pipe(ActionMeshInput(frames=list(pl["frames"]), timesteps=pl["timesteps"].copy()),
+                  anchor_mesh=anchor, seed=3)
     return np.stack([m.vertices for m in meshes]), meshes[0].faces
 
 
