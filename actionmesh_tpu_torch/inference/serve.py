@@ -20,9 +20,14 @@ request at a time into it: the device runs one program at a time.
 
 A request writes ``mesh_XX.glb`` per frame, ``deformations_{vertices,
 faces}.npy``, ``animated_mesh.glb`` and, with ``render``, the preview into
-its ``output_dir``. A malformed body or input (``ValueError``,
-``FileNotFoundError``) is answered 400, an unknown path 404, any other
-failure 500; the server keeps serving after each, with the lock released.
+its ``output_dir``. Its reply gives ``generation_seconds`` (the pipeline
+call, host clock) and the call's breakdown from its span tree
+(``utils/profiling.py``): ``call_id`` (the call's id in this process),
+``phase_seconds`` (preprocess, stage0, encode, stage1, stage2) and
+``stage0_seconds`` (``ActionMeshPipeline.stage0_seconds``). A malformed
+body or input (``ValueError``, ``FileNotFoundError``) is answered 400, an
+unknown path 404, any other failure 500; the server keeps serving after
+each, with the lock released.
 ``--prewarm`` runs the pipeline once on a frames directory before the
 server answers, so the CUDA kernels and the native library are built and
 the first request is warm.
@@ -134,6 +139,12 @@ class ActionMeshServer:
         with self.lock:  # one device program at a time
             meshes = self.run(inp, seed, overrides)
             self.requests_served += 1
+            call = getattr(self.pipeline, "last_call", None)
+            breakdown = {
+                "call_id": call.call if call is not None else None,
+                "phase_seconds": dict(getattr(self.pipeline, "phase_seconds", {})),
+                "stage0_seconds": dict(getattr(self.pipeline, "stage0_seconds", {})),
+            }
         gen_s = time.perf_counter() - t0
 
         save_meshes(meshes, output_dir=output_dir)
@@ -159,6 +170,7 @@ class ActionMeshServer:
             "status": "ok",
             "n_frames": len(meshes),
             "generation_seconds": round(gen_s, 2),
+            **breakdown,
             "artifacts": artifacts,
         }
 

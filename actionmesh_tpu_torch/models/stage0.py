@@ -108,10 +108,6 @@ class DevTripoSG:
             self._pipe.sdf_regularizer_torch = _dev_sdf_regularizer_torch
         return self._pipe
 
-    @property
-    def phase_seconds(self) -> dict[str, float]:
-        return self.pipeline.phase_seconds
-
     def __call__(self, image: np.ndarray, **kwargs) -> tuple[torch.Tensor, Mesh]:
         return self.pipeline(image, **kwargs)
 

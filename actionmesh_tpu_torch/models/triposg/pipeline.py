@@ -21,7 +21,6 @@ rank; the VAE stays whole on every rank.
 from __future__ import annotations
 
 import logging
-import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -50,6 +49,7 @@ from actionmesh_tpu_torch.models.triposg.vae import (
 )
 from actionmesh_tpu_torch.ops.isosurface import hierarchical_extract_geometry
 from actionmesh_tpu_torch.sampling.flow_schedule import get_schedule
+from actionmesh_tpu_torch.utils.profiling import Span, span
 from actionmesh_tpu_torch.utils.weights import check_config_keys, read_config
 
 logger = logging.getLogger(__name__)
@@ -81,6 +81,8 @@ def flow_sample(
     inputs the whole tensors, the same on every rank; the CFG pair splits
     over dp (the guidance-free batch of 1 runs whole on every dp rank),
     the heads over tp, and every rank's latents stay the same.
+
+    Each step runs in a ``dit_step`` span.
     """
     B = init_noise.shape[0]
     latents = init_noise
@@ -89,18 +91,19 @@ def flow_sample(
     if guidance_scale is not None:
         context = torch.cat([torch.zeros_like(context), context], dim=0)
     for t, dist in zip(ts.tolist(), ds.tolist()):
-        if guidance_scale is None:
-            dt = torch.full((B,), t, dtype=torch.float32, device=latents.device)
-            v = triposg_dit_forward(dit_params, dit_cfg, latents, context, dt, mesh=mesh).float()
-        else:
-            dt = torch.full((2 * B,), t, dtype=torch.float32, device=latents.device)
-            pred = triposg_dit_forward(
-                dit_params, dit_cfg, torch.cat([latents, latents], dim=0), context, dt,
-                uncond_batch=B, mesh=mesh,
-            ).float()
-            uncond, cond = pred[:B], pred[B:]
-            v = uncond + guidance_scale * (cond - uncond)
-        latents = (latents.float() + dist * v).to(latents.dtype)
+        with span("dit_step"):
+            if guidance_scale is None:
+                dt = torch.full((B,), t, dtype=torch.float32, device=latents.device)
+                v = triposg_dit_forward(dit_params, dit_cfg, latents, context, dt, mesh=mesh).float()
+            else:
+                dt = torch.full((2 * B,), t, dtype=torch.float32, device=latents.device)
+                pred = triposg_dit_forward(
+                    dit_params, dit_cfg, torch.cat([latents, latents], dim=0), context, dt,
+                    uncond_batch=B, mesh=mesh,
+                ).float()
+                uncond, cond = pred[:B], pred[B:]
+                v = uncond + guidance_scale * (cond - uncond)
+            latents = (latents.float() + dist * v).to(latents.dtype)
     return latents
 
 
@@ -193,6 +196,13 @@ class TripoSGPipeline:
     extraction; only the development Stage 0 sets them
     (``models/stage0.py:DevTripoSG``). Without a torch mirror a host
     regularizer forces the host-callback extraction.
+
+    A call runs in the spans ``encode``, ``dit_sample`` and ``decode``
+    (``utils/profiling.py``), each ending in a device synchronisation;
+    ``phase_seconds`` reads the last call's. A decode runs each latent's
+    ``decode_kv`` and ``extract`` spans, the field queries inside the
+    latter; ``extract_stats`` reads the last extraction's counters, the SDF
+    chunks each pass queried.
     """
 
     def __init__(
@@ -228,10 +238,19 @@ class TripoSGPipeline:
         self._shift = shift
         self.sdf_regularizer: Optional[Callable] = None
         self.sdf_regularizer_torch: Optional[Callable] = None
-        # seconds of the last __call__'s sub-phases, and SDF query chunks
-        # per extraction pass of the last decode
-        self.phase_seconds: dict[str, float] = {}
-        self.extract_stats: dict[str, int] = {}
+        self._phase_spans: list[Span] = []  # the last __call__'s
+        self._extract_span: Optional[Span] = None  # the last decode's last extraction
+
+    @property
+    def phase_seconds(self) -> dict[str, float]:
+        """Seconds of the last call's encode, dit_sample and decode."""
+        return {sp.name: sp.seconds for sp in self._phase_spans}
+
+    @property
+    def extract_stats(self) -> dict[str, int]:
+        """SDF query chunks per pass of the last extraction: ``{"prefilter":
+        n, "band": n, "dense": n, "fine": n}``."""
+        return dict(self._extract_span.counters) if self._extract_span is not None else {}
 
     @classmethod
     def from_pretrained(
@@ -325,35 +344,34 @@ class TripoSGPipeline:
         ``guidance_scale <= 0`` selects guidance-free sampling.
         """
         coarse_dtype(coarse_decode_dtype)  # a bad name raises before the DiT loop
-        t0 = time.perf_counter()
-        context = self.image_encoder.encode_images([image])  # (1, S, Dc)
-        self._sync()
-        t1 = time.perf_counter()
-        noise = initial_noise(
-            seed, (1, self.vae_cfg.num_tokens, self.vae_cfg.latent_channels),
-            self._dtype, self.device,
-        )
-        ts, dist = get_schedule(num_inference_steps, self._num_train_timesteps, self._shift)
-        latents = flow_sample(
-            self.dit_params, self.dit_cfg, noise, context.to(self._dtype), ts, dist,
-            guidance_scale=None if guidance_scale <= 0 else float(guidance_scale),
-            mesh=self.device_mesh,
-        )
-        self._sync()
-        t2 = time.perf_counter()
-        meshes = self.decode_latents(
-            latents,
-            bounds=bounds,
-            dense_octree_depth=dense_octree_depth,
-            hierarchical_octree_depth=hierarchical_octree_depth,
-            prefilter_octree_depth=prefilter_octree_depth,
-            coarse_decode_dtype=coarse_decode_dtype,
-        )
-        t3 = time.perf_counter()
-        self.phase_seconds = {"encode": t1 - t0, "dit_sample": t2 - t1, "decode": t3 - t2}
+        with span("encode") as encode:
+            context = self.image_encoder.encode_images([image])  # (1, S, Dc)
+            self._sync()
+        with span("dit_sample") as dit_sample:
+            noise = initial_noise(
+                seed, (1, self.vae_cfg.num_tokens, self.vae_cfg.latent_channels),
+                self._dtype, self.device,
+            )
+            ts, dist = get_schedule(num_inference_steps, self._num_train_timesteps, self._shift)
+            latents = flow_sample(
+                self.dit_params, self.dit_cfg, noise, context.to(self._dtype), ts, dist,
+                guidance_scale=None if guidance_scale <= 0 else float(guidance_scale),
+                mesh=self.device_mesh,
+            )
+            self._sync()
+        with span("decode") as decode:
+            meshes = self.decode_latents(
+                latents,
+                bounds=bounds,
+                dense_octree_depth=dense_octree_depth,
+                hierarchical_octree_depth=hierarchical_octree_depth,
+                prefilter_octree_depth=prefilter_octree_depth,
+                coarse_decode_dtype=coarse_decode_dtype,
+            )
+        self._phase_spans = [encode, dit_sample, decode]
         logger.info(
             "stage0 encode %.2fs, dit_sample (%d steps) %.2fs, decode %.2fs",
-            t1 - t0, num_inference_steps, t2 - t1, t3 - t2,
+            encode.seconds, num_inference_steps, dit_sample.seconds, decode.seconds,
         )
         return latents.float(), meshes[0]
 
@@ -402,7 +420,8 @@ class TripoSGPipeline:
         params, cfg, mesh = self.vae_params, self.vae_cfg, self.device_mesh
         meshes = []
         for b in range(latents.shape[0]):
-            kv = decode_kv(params, cfg, latents[b : b + 1])
+            with span("decode_kv"):
+                kv = decode_kv(params, cfg, latents[b : b + 1])
 
             def sdf_fn(pts: np.ndarray) -> np.ndarray:
                 pts_t = torch.as_tensor(pts, dtype=torch.float32, device=self.device)
@@ -438,19 +457,19 @@ class TripoSGPipeline:
                         compute_dtype=coarse_cd, mesh=mesh,
                     )
 
-            self.extract_stats = {}
-            v, f = hierarchical_extract_geometry(
-                sdf_fn,
-                bounds=bounds,
-                dense_octree_depth=dense_octree_depth,
-                hierarchical_octree_depth=hierarchical_octree_depth,
-                grid_inside_fn=grid_inside_fn,
-                ids_val_fn=ids_val_fn,
-                chunk=QUERY_CHUNK,  # the fast paths' chunk: ids are padded to it
-                prefilter_octree_depth=prefilter_octree_depth,
-                ids_val_coarse_fn=ids_val_coarse_fn,
-                stats=self.extract_stats,
-            )
+            with span("extract") as self._extract_span:
+                v, f = hierarchical_extract_geometry(
+                    sdf_fn,
+                    bounds=bounds,
+                    dense_octree_depth=dense_octree_depth,
+                    hierarchical_octree_depth=hierarchical_octree_depth,
+                    grid_inside_fn=grid_inside_fn,
+                    ids_val_fn=ids_val_fn,
+                    chunk=QUERY_CHUNK,  # the fast paths' chunk: ids are padded to it
+                    prefilter_octree_depth=prefilter_octree_depth,
+                    ids_val_coarse_fn=ids_val_coarse_fn,
+                    stats=self._extract_span.counters,
+                )
             if len(f) == 0:
                 logger.warning(
                     "SDF field has no zero crossing in bounds: an empty mesh (latent %d).", b

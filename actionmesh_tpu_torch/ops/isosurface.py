@@ -43,6 +43,7 @@ import numpy as np
 from actionmesh_tpu_torch.ops.mc_table import CUBE_CORNERS as _CUBE_CORNERS
 from actionmesh_tpu_torch.ops.mc_table import marching_cubes_cells_numpy
 from actionmesh_tpu_torch.utils import native
+from actionmesh_tpu_torch.utils.profiling import span
 
 METHODS = ("cubes", "tetrahedra", "cubes_numpy")
 EMPTY = np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
@@ -128,7 +129,7 @@ def extract_geometry_dense(
     lo, hi = np.array(bounds[:3]), np.array(bounds[3:])
     R = (1 << octree_depth) + 1
     pts = _grid_points(lo, hi, R)
-    vals = _eval_chunked(sdf_fn, pts.reshape(-1, 3), chunk).reshape(R, R, R)
+    vals = _eval_chunked(sdf_fn, pts.reshape(-1, 3), chunk, "sdf_fn:dense").reshape(R, R, R)
     return _triangulate_full_grid(pts, vals, level, method)
 
 
@@ -153,15 +154,17 @@ def _dilate_cells(mask: np.ndarray) -> np.ndarray:
     return out
 
 
-def _eval_chunked(sdf_fn, pts: np.ndarray, chunk: int) -> np.ndarray:
-    """Evaluate sdf_fn in fixed-size chunks, the tail padded with zeros."""
+def _eval_chunked(sdf_fn, pts: np.ndarray, chunk: int, name: str) -> np.ndarray:
+    """Evaluate sdf_fn in fixed-size chunks, the tail padded with zeros,
+    each call in a span ``name``."""
     n = pts.shape[0]
     out = np.empty((n,), np.float32)
     for s in range(0, n, chunk):
         block = pts[s : s + chunk]
         if block.shape[0] < chunk:
             block = np.concatenate([block, np.zeros((chunk - block.shape[0], 3), pts.dtype)])
-        vals = np.asarray(sdf_fn(block), np.float32).reshape(-1)
+        with span(name):
+            vals = np.asarray(sdf_fn(block), np.float32).reshape(-1)
         out[s : s + chunk] = vals[: min(chunk, n - s)]
     return out
 
@@ -202,6 +205,11 @@ def hierarchical_extract_geometry(
     vertices, always takes ``ids_val_fn``. ``stats``, when given, receives
     the number of SDF chunks each pass queried: ``{"prefilter": n, "band":
     n, "dense": n, "fine": n}``.
+
+    Each field query runs in a span named after the function and its pass,
+    ``<fn>:<pass>`` (``grid_inside_fn:prefilter``, ``ids_val_coarse_fn:band``,
+    ``ids_val_fn:fine``, ``sdf_fn:dense``, ...; ``utils/profiling.py``), so
+    the extraction's own host work is what lies outside them.
     """
     _check_method(method)
     stats = {} if stats is None else stats
@@ -211,10 +219,10 @@ def hierarchical_extract_geometry(
     step = (hi - lo) / (Rc - 1)
     n_coarse = Rc ** 3
 
-    def _vals_at_ids(ui, uj, uk, step_arr, fn, counter) -> np.ndarray:
+    def _vals_at_ids(ui, uj, uk, step_arr, fn, fn_name, counter) -> np.ndarray:
         """Field values at integer lattice ids on a grid of step ``step_arr``
-        anchored at ``lo``: through ``fn`` (a device fast path) when given,
-        else through ``sdf_fn`` on host points."""
+        anchored at ``lo``: through ``fn`` (a device fast path, named
+        ``fn_name``) when given, else through ``sdf_fn`` on host points."""
         m = len(ui)
         stats[counter] += -(-m // chunk)
         if fn is not None:
@@ -222,15 +230,17 @@ def hierarchical_extract_geometry(
             ijk[:m, 0] = ui
             ijk[:m, 1] = uj
             ijk[:m, 2] = uk
-            return np.asarray(fn(ijk, lo, step_arr), np.float32)[:m]
+            with span(f"{fn_name}:{counter}"):
+                return np.asarray(fn(ijk, lo, step_arr), np.float32)[:m]
         pts = np.empty((m, 3), np.float32)
         pts[:, 0] = lo[0] + np.asarray(ui) * step_arr[0]
         pts[:, 1] = lo[1] + np.asarray(uj) * step_arr[1]
         pts[:, 2] = lo[2] + np.asarray(uk) * step_arr[2]
-        return _eval_chunked(sdf_fn, pts, chunk)
+        return _eval_chunked(sdf_fn, pts, chunk, f"sdf_fn:{counter}")
 
     refine = hierarchical_octree_depth > dense_octree_depth
     coarse_fn = ids_val_coarse_fn or ids_val_fn
+    coarse_name = "ids_val_coarse_fn" if ids_val_coarse_fn is not None else "ids_val_fn"
     if refine and prefilter_octree_depth is not None and prefilter_octree_depth < dense_octree_depth:
         # Two-level coarse pass: depth-P dense signs -> band cells -> dense-
         # depth signs only inside the (dilated) band.
@@ -238,14 +248,13 @@ def hierarchical_extract_geometry(
         step_p = (hi - lo) / (Rp - 1)
         if grid_inside_fn is not None:
             stats["prefilter"] = -(-Rp ** 3 // chunk)
-            inside_p = (
-                np.asarray(grid_inside_fn(lo, step_p, Rp, level))[: Rp**3]
-                .reshape(Rp, Rp, Rp).astype(np.uint8)
-            )
+            with span("grid_inside_fn:prefilter"):
+                inside_p = np.asarray(grid_inside_fn(lo, step_p, Rp, level))
+            inside_p = inside_p[: Rp**3].reshape(Rp, Rp, Rp).astype(np.uint8)
         else:
             pvals = _vals_at_ids(
                 *np.unravel_index(np.arange(Rp**3), (Rp, Rp, Rp)), step_p,
-                fn=coarse_fn, counter="prefilter",
+                fn=coarse_fn, fn_name=coarse_name, counter="prefilter",
             )
             inside_p = (pvals.reshape(Rp, Rp, Rp) < level).view(np.uint8)
         band = _dilate_cells(_cell_crossing_mask(inside_p))
@@ -261,7 +270,7 @@ def hierarchical_extract_geometry(
         uniq_b, inv_b = np.unique(band_ids.reshape(-1), return_inverse=True)
         bvals = _vals_at_ids(
             uniq_b // (Rc * Rc), (uniq_b // Rc) % Rc, uniq_b % Rc, step,
-            fn=coarse_fn, counter="band",
+            fn=coarse_fn, fn_name=coarse_name, counter="band",
         )
         sub_in = (bvals[inv_b.reshape(-1)] < level).reshape(band_ids.shape)
         acc = np.zeros(sub_in.shape[:1] + (s0, s0, s0), np.uint8)
@@ -274,12 +283,13 @@ def hierarchical_extract_geometry(
         ci, cj, ck = ci[order], cj[order], ck[order]
     elif refine and grid_inside_fn is not None:
         stats["dense"] = -(-n_coarse // chunk)
-        inside = np.asarray(grid_inside_fn(lo, step, Rc, level))[:n_coarse]
+        with span("grid_inside_fn:dense"):
+            inside = np.asarray(grid_inside_fn(lo, step, Rc, level))[:n_coarse]
         ci, cj, ck = np.nonzero(_cell_crossing_mask(inside.reshape(Rc, Rc, Rc).astype(np.uint8)))
     else:
         coarse_vals = _vals_at_ids(
             *np.unravel_index(np.arange(n_coarse), (Rc, Rc, Rc)), step,
-            fn=None, counter="dense",
+            fn=None, fn_name="sdf_fn", counter="dense",
         ).reshape(Rc, Rc, Rc)
         if not refine:
             return _triangulate_full_grid(_grid_points(lo, hi, Rc), coarse_vals, level, method)
@@ -300,7 +310,7 @@ def hierarchical_extract_geometry(
     uniq_ids, inv = np.unique(fine_ids.reshape(-1), return_inverse=True)
     uniq_vals = _vals_at_ids(
         uniq_ids // (fine_R * fine_R), (uniq_ids // fine_R) % fine_R, uniq_ids % fine_R,
-        fine_step, fn=ids_val_fn, counter="fine",
+        fine_step, fn=ids_val_fn, fn_name="ids_val_fn", counter="fine",
     )
     fine_vals = uniq_vals[inv.reshape(-1)].reshape(fine_ids.shape).astype(np.float32)
     if method != "cubes_numpy":

@@ -10,10 +10,18 @@ Stage 0 (anchor latent + mesh) -> DINOv2 encode -> Stage I over AR windows
 family whose directory is absent runs on seeded random weights
 (development mode; without TripoSG, Stage 0 is the real TripoSG path with
 random weights, ``models/stage0.py:DevTripoSG``); one that is present but
-malformed raises. Each Stage-I and Stage-II window runs inside a
-``trace("stage1_window_<i>")`` / ``trace("stage2_window_<i>")`` span
-(``utils/profiling.py``). The per-call overrides of ``__call__`` hold for
-that call only.
+malformed raises. The per-call overrides of ``__call__`` hold for that
+call only.
+
+Every call is one span tree (``utils/profiling.py``): the root ``pipeline``,
+the five phases (``preprocess``, ``stage0``, ``encode``, ``stage1``,
+``stage2``), and below them the layer boundaries: ``matting`` and ``crop``;
+``image_to_3d`` (TripoSG's ``encode``, ``dit_sample``, ``decode``) and
+``process_mesh`` (``clean``, ``decimate``, ``floaters``); each Stage-I
+window ``stage1_window_<i>`` with a ``stage1_step`` span a step; each
+Stage-II window ``stage2_window_<i>`` with ``vertex_features``, an
+``autoencoder_chunk`` a target chunk, ``to_host`` and ``target_meshes``.
+``phase_seconds`` and ``stage0_seconds`` are views of the last call's tree.
 
 ``device_mesh`` (``parallel/mesh.py``) runs the pipeline as one SPMD program
 over ``torch.distributed``, one rank per card: Stage I/II and the TripoSG
@@ -31,7 +39,6 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -70,7 +77,7 @@ from actionmesh_tpu_torch.sampling.denoise_loop import denoise_window, get_noise
 from actionmesh_tpu_torch.sampling.flow_schedule import get_schedule
 from actionmesh_tpu_torch.sampling.guidance import make_guidance
 from actionmesh_tpu_torch.utils.banks import LatentBank, MeshBank
-from actionmesh_tpu_torch.utils.profiling import trace
+from actionmesh_tpu_torch.utils.profiling import Span, span, tree_seconds
 
 logger = logging.getLogger(__name__)
 
@@ -167,8 +174,7 @@ class ActionMeshPipeline:
         self._load_actionmesh_weights()
         self._shard_model_params()
         self._load_backends(image_encoder, image_to_3d)
-        self.phase_seconds: dict[str, float] = {}
-        self.stage0_seconds: dict[str, float] = {}
+        self.last_call: Optional[Span] = None  # the root span of the last call
 
     # -- weights ---------------------------------------------------------
 
@@ -277,6 +283,44 @@ class ActionMeshPipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- the last call's seconds ------------------------------------------
+
+    def _call_tree(self) -> dict[str, tuple[float, float]]:
+        return tree_seconds(self.last_call) if self.last_call is not None else {}
+
+    @property
+    def phase_seconds(self) -> dict[str, float]:
+        """The last call's seconds of each phase (preprocess, stage0,
+        encode, stage1, stage2), host clock, each ending in a device
+        synchronisation."""
+        return {k: total for k, (total, _) in self._call_tree().items() if "." not in k}
+
+    @property
+    def stage0_seconds(self) -> dict[str, float]:
+        """The last call's Stage-0 seconds by span below ``stage0``: each
+        child's seconds (the backend's own spans, TripoSG's ``encode``,
+        ``dit_sample``, ``decode``, stand for ``image_to_3d`` where it has
+        them; ``process_mesh``; {video + 3D}: ``sample``, ``vae_encode``),
+        and under a dotted path each deeper span's own seconds, outside its
+        child spans (``decode.extract``: the extraction's host work outside
+        its field queries; ``process_mesh.clean``, ``.decimate``,
+        ``.floaters``). Spans of one path add up."""
+        tree = {path[len("stage0."):]: secs for path, secs in self._call_tree().items()
+                if path.startswith("stage0.")}
+        if any(path.startswith("image_to_3d.") for path in tree):
+            tree = {path.removeprefix("image_to_3d."): secs for path, secs in tree.items()
+                    if path != "image_to_3d"}
+        return {path: own if "." in path else total for path, (total, own) in tree.items()}
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """One phase of a call: a span that ends in a device
+        synchronisation, logged."""
+        with span(name) as sp:
+            yield
+            self._sync()
+        logger.info("phase %s: %.2fs", name, sp.seconds)
+
     # -- Stage 0 ---------------------------------------------------------
 
     def init_banks_from_anchor(
@@ -284,8 +328,8 @@ class ActionMeshPipeline:
     ) -> tuple[LatentBank, MeshBank]:
         """Anchor frame -> 3D latent + mesh via the image-to-3D backend.
 
-        Keeps Stage 0's sub-phase seconds in ``self.stage0_seconds``: the
-        backend's own (TripoSG: encode, dit_sample, decode) and process_mesh.
+        The backend runs in the span ``image_to_3d``, the mesh processing
+        in ``process_mesh`` (``stage0_seconds`` reads them).
         """
         s0 = self.cfg.stage_0
         decode_kwargs = {}
@@ -293,25 +337,21 @@ class ActionMeshPipeline:
             decode_kwargs["prefilter_octree_depth"] = s0.prefilter_octree_depth
         if s0.coarse_decode_dtype is not None:
             decode_kwargs["coarse_decode_dtype"] = s0.coarse_decode_dtype
-        t0 = time.perf_counter()
-        anchor_latent, anchor_mesh = self.image_to_3d(
-            image=input.frames[self.cfg.anchor_idx],
-            seed=seed,
-            num_inference_steps=s0.num_inference_steps,
-            guidance_scale=s0.guidance_scale,
-            **decode_kwargs,
-        )
-        self._sync()
-        t1 = time.perf_counter()
-        anchor_mesh = self.mesh_process.process_mesh(anchor_mesh, seed=seed)
-        if self.device_mesh is not None:
-            # rank 0's anchor on every rank: its vertex count sets Stage II's shapes
-            latent_np, anchor_mesh = broadcast_object((anchor_latent.cpu().numpy(), anchor_mesh))
-            anchor_latent = torch.as_tensor(latent_np, device=self.device)
-        self.stage0_seconds = {
-            **(getattr(self.image_to_3d, "phase_seconds", None) or {"image_to_3d": t1 - t0}),
-            "process_mesh": time.perf_counter() - t1,
-        }
+        with span("image_to_3d"):
+            anchor_latent, anchor_mesh = self.image_to_3d(
+                image=input.frames[self.cfg.anchor_idx],
+                seed=seed,
+                num_inference_steps=s0.num_inference_steps,
+                guidance_scale=s0.guidance_scale,
+                **decode_kwargs,
+            )
+            self._sync()
+        with span("process_mesh"):
+            anchor_mesh = self.mesh_process.process_mesh(anchor_mesh, seed=seed)
+            if self.device_mesh is not None:
+                # rank 0's anchor on every rank: its vertex count sets Stage II's shapes
+                latent_np, anchor_mesh = broadcast_object((anchor_latent.cpu().numpy(), anchor_mesh))
+                anchor_latent = torch.as_tensor(latent_np, device=self.device)
         latent_bank = LatentBank(
             empty_dims=self.cfg.denoiser_latent_shape, device=self.device, verbose=True
         )
@@ -386,18 +426,15 @@ class ActionMeshPipeline:
         )
         for i, window_indices in enumerate(ar_windows):
             window_input = input.get(window_indices)
-            t0 = time.perf_counter()
-            with trace(f"stage1_window_{i}"):
+            with span(f"stage1_window_{i}") as window:
                 window_latents = self._denoise_latents(
                     input=window_input,
                     context=context[torch.as_tensor(window_indices, device=context.device)],
                     latent_bank=latent_bank,
                     seed=seed + i,
                 )
-            self._sync()
-            logger.info(
-                "Stage I window %d/%d: %.2fs", i + 1, len(ar_windows), time.perf_counter() - t0
-            )
+                self._sync()
+            logger.info("Stage I window %d/%d: %.2fs", i + 1, len(ar_windows), window.seconds)
             latent_bank.update(latents=window_latents.float(), timesteps=window_input.timesteps)
         return latent_bank
 
@@ -418,33 +455,36 @@ class ActionMeshPipeline:
                 "Anchor mesh is empty — Stage 0 produced no surface (check "
                 "the image-to-3D backend / SDF extraction level)."
             )
-        vertex_features = torch.as_tensor(
-            get_mesh_features(anchor_mesh, with_normals=True), device=self.device
-        )[None]
+        with span("vertex_features"):
+            vertex_features = torch.as_tensor(
+                get_mesh_features(anchor_mesh, with_normals=True), device=self.device
+            )[None]
         chunk = self.cfg.decode_target_chunk or n_targets
         dev = self.device
-        outs = [
-            autoencoder_forward(
-                self.autoencoder_params,
-                self.autoencoder_config,
-                latents.to(self._dtype),
-                torch.as_tensor(window_timesteps, device=dev),
-                torch.as_tensor(source_alpha, device=dev),
-                torch.as_tensor(target_alphas[:, start : start + chunk], device=dev),
-                vertex_features,
-                compute_dtype=self._dtype,
-                mesh=self.device_mesh,
+        outs = []
+        for start in range(0, n_targets, chunk):
+            with span("autoencoder_chunk"):
+                outs.append(autoencoder_forward(
+                    self.autoencoder_params,
+                    self.autoencoder_config,
+                    latents.to(self._dtype),
+                    torch.as_tensor(window_timesteps, device=dev),
+                    torch.as_tensor(source_alpha, device=dev),
+                    torch.as_tensor(target_alphas[:, start : start + chunk], device=dev),
+                    vertex_features,
+                    compute_dtype=self._dtype,
+                    mesh=self.device_mesh,
+                ))
+        with span("to_host"):
+            deformed = apply_displacement(
+                self.autoencoder_config, vertex_features[..., :3], torch.cat(outs, dim=1)
             )
-            for start in range(0, n_targets, chunk)
-        ]
-        deformed = apply_displacement(
-            self.autoencoder_config, vertex_features[..., :3], torch.cat(outs, dim=1)
-        )
-        deformed_np = deformed.float().cpu().numpy()
-        return [
-            Mesh(vertices=deformed_np[0, i], faces=anchor_mesh.faces)
-            for i in range(n_targets)
-        ]
+            deformed_np = deformed.float().cpu().numpy()
+        with span("target_meshes"):
+            return [
+                Mesh(vertices=deformed_np[0, i], faces=anchor_mesh.faces)
+                for i in range(n_targets)
+            ]
 
     def generate_mesh_animation(
         self, latent_bank: LatentBank, mesh_bank: MeshBank
@@ -477,8 +517,7 @@ class ActionMeshPipeline:
             t_min, t_range = get_scaling(window_timesteps)
             source_alpha = apply_scaling(window_timesteps[:, 0], t_min, t_range)
             target_alphas = apply_scaling(output_timesteps, t_min, t_range)
-            t0 = time.perf_counter()
-            with trace(f"stage2_window_{window_idx}"):
+            with span(f"stage2_window_{window_idx}") as window:
                 window_meshes = self._decode_displacement(
                     latents=window_latents,
                     window_timesteps=window_timesteps,
@@ -487,8 +526,7 @@ class ActionMeshPipeline:
                     anchor_mesh=anchor_mesh,
                 )
             logger.info(
-                "Stage II window %d/%d: %.2fs",
-                window_idx + 1, len(ar_windows), time.perf_counter() - t0,
+                "Stage II window %d/%d: %.2fs", window_idx + 1, len(ar_windows), window.seconds
             )
             mesh_bank.update(meshes=window_meshes, timesteps=output_timesteps[0])
         return mesh_bank
@@ -537,8 +575,10 @@ class ActionMeshPipeline:
         caller's frames keep their alpha. Under a mesh every rank takes rank
         0's frames."""
         input = ActionMeshInput(frames=list(input.frames), timesteps=input.timesteps.copy())
-        input.frames = self.background_removal.process_images(input.frames)
-        input.frames = self.image_process.process_images(input.frames)
+        with span("matting"):
+            input.frames = self.background_removal.process_images(input.frames)
+        with span("crop"):
+            input.frames = self.image_process.process_images(input.frames)
         if self.device_mesh is not None:
             input.frames = broadcast_object(input.frames)
         return input
@@ -558,8 +598,8 @@ class ActionMeshPipeline:
         """Run the video -> 4D pipeline. Returns meshes ordered by timestep.
 
         The overrides hold for this call only (``call_overrides``).
-        Per-phase wall times (device work synchronised) are logged and kept
-        in ``self.phase_seconds``.
+        Per-phase wall times (device work synchronised) are logged and read
+        from ``self.phase_seconds``.
         """
         with self.call_overrides(
             stage_0_steps=stage_0_steps, face_decimation=face_decimation,
@@ -569,26 +609,15 @@ class ActionMeshPipeline:
             return self._run(input, seed)
 
     def _run(self, input: ActionMeshInput, seed: int) -> list[Mesh]:
-        phases = {}
-        t = time.perf_counter()
-
-        def phase(name):
-            nonlocal t
-            self._sync()
-            now = time.perf_counter()
-            phases[name] = now - t
-            logger.info("phase %s: %.2fs", name, now - t)
-            t = now
-
-        input = self.preprocess(input)
-        phase("preprocess")
-        latent_bank, mesh_bank = self.init_banks_from_anchor(input, seed)
-        phase("stage0")
-        context = self.encode_all_frames(input)
-        phase("encode")
-        latent_bank = self.generate_3d_latents(input, context, latent_bank, seed=seed)
-        phase("stage1")
-        mesh_bank = self.generate_mesh_animation(latent_bank, mesh_bank)
-        phase("stage2")
-        self.phase_seconds = phases
+        with span("pipeline") as self.last_call:
+            with self._phase("preprocess"):
+                input = self.preprocess(input)
+            with self._phase("stage0"):
+                latent_bank, mesh_bank = self.init_banks_from_anchor(input, seed)
+            with self._phase("encode"):
+                context = self.encode_all_frames(input)
+            with self._phase("stage1"):
+                latent_bank = self.generate_3d_latents(input, context, latent_bank, seed=seed)
+            with self._phase("stage2"):
+                mesh_bank = self.generate_mesh_animation(latent_bank, mesh_bank)
         return mesh_bank.get_ordered()[0]

@@ -11,7 +11,6 @@ pre-merge faces, so the mesh's UV and texture topology survive.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Optional
 
 from actionmesh_tpu_torch.io.mesh import Mesh
@@ -24,6 +23,7 @@ from actionmesh_tpu_torch.preprocessing.mesh import (
     sample_surface,
 )
 from actionmesh_tpu_torch.utils.banks import LatentBank, MeshBank
+from actionmesh_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -57,17 +57,19 @@ class ActionMeshPipelineWithMeshInput(ActionMeshPipeline):
         """Encode the user's mesh: merge map -> normalise -> sample -> VAE.
 
         Returns (latent_bank, mesh_bank, (center, factor), vertex_merge_map,
-        pre_merge_faces); the seconds of the sampling (merge, normalise,
-        sample) and of the encode go to ``stage0_seconds``.
+        pre_merge_faces); the sampling (merge, normalise, sample) runs in
+        the span ``sample``, the encode in ``vae_encode`` (``stage0_seconds``
+        reads them).
         """
-        t0 = time.perf_counter()
-        merged, vertex_merge_map, pre_merge_faces = merge_and_clean_mesh(anchor_mesh)
-        normalized, center, factor = normalize_mesh(merged)
-        surface = sample_surface(normalized, n_points=self.surface_samples, seed=seed, with_normals=True)
-        t1 = time.perf_counter()
-        anchor_latent = self.vae.encode_to_latent(surface[None], seed=seed)
-        self._sync()
-        self.stage0_seconds = {"sample": t1 - t0, "vae_encode": time.perf_counter() - t1}
+        with span("sample"):
+            merged, vertex_merge_map, pre_merge_faces = merge_and_clean_mesh(anchor_mesh)
+            normalized, center, factor = normalize_mesh(merged)
+            surface = sample_surface(
+                normalized, n_points=self.surface_samples, seed=seed, with_normals=True
+            )
+        with span("vae_encode"):
+            anchor_latent = self.vae.encode_to_latent(surface[None], seed=seed)
+            self._sync()
 
         latent_bank = LatentBank(empty_dims=self.cfg.denoiser_latent_shape, device=self.device, verbose=True)
         mesh_bank = MeshBank(verbose=True)
@@ -90,8 +92,8 @@ class ActionMeshPipelineWithMeshInput(ActionMeshPipeline):
     ) -> list[Mesh]:
         """Run {video + 3D} -> 4D. The meshes keep the input's topology, uv
         and visual. The overrides hold for this call only. Per-phase seconds
-        go to ``self.phase_seconds`` (preprocess, stage0 = sampling + VAE
-        encode, encode, stage1, stage2)."""
+        are read from ``self.phase_seconds`` (preprocess, stage0 = sampling +
+        VAE encode, encode, stage1, stage2)."""
         with self.call_overrides(
             stage_0_steps=stage_0_steps, face_decimation=face_decimation,
             floaters_threshold=floaters_threshold, stage_1_steps=stage_1_steps,
@@ -100,30 +102,19 @@ class ActionMeshPipelineWithMeshInput(ActionMeshPipeline):
             return self._run_3d(input, anchor_mesh, seed)
 
     def _run_3d(self, input: ActionMeshInput, anchor_mesh: Mesh, seed: int) -> list[Mesh]:
-        phases = {}
-        t = time.perf_counter()
-
-        def phase(name):
-            nonlocal t
-            self._sync()
-            now = time.perf_counter()
-            phases[name] = now - t
-            logger.info("phase %s: %.2fs", name, now - t)
-            t = now
-
-        input = self.preprocess(input)
-        phase("preprocess")
-        latent_bank, mesh_bank, (center, factor), vertex_merge_map, pre_merge_faces = (
-            self.init_banks_from_anchor(input, anchor_mesh, seed)
-        )
-        phase("stage0")
-        context = self.encode_all_frames(input)
-        phase("encode")
-        latent_bank = self.generate_3d_latents(input, context, latent_bank, seed=seed)
-        phase("stage1")
-        mesh_bank = self.generate_mesh_animation(latent_bank, mesh_bank)
-        phase("stage2")
-        self.phase_seconds = phases
+        with span("pipeline") as self.last_call:
+            with self._phase("preprocess"):
+                input = self.preprocess(input)
+            with self._phase("stage0"):
+                latent_bank, mesh_bank, (center, factor), vertex_merge_map, pre_merge_faces = (
+                    self.init_banks_from_anchor(input, anchor_mesh, seed)
+                )
+            with self._phase("encode"):
+                context = self.encode_all_frames(input)
+            with self._phase("stage1"):
+                latent_bank = self.generate_3d_latents(input, context, latent_bank, seed=seed)
+            with self._phase("stage2"):
+                mesh_bank = self.generate_mesh_animation(latent_bank, mesh_bank)
         meshes = [denormalize_mesh(m, center, factor) for m in mesh_bank.get_ordered()[0]]
         return [
             Mesh(

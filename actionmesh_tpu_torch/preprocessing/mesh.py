@@ -18,6 +18,7 @@ import logging
 import numpy as np
 
 from actionmesh_tpu_torch.io.mesh import Mesh
+from actionmesh_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -190,18 +191,24 @@ def merge_and_clean_mesh(mesh: Mesh, merge_tol: float = 1e-6) -> tuple[Mesh, np.
 
 @dataclasses.dataclass
 class MeshPostprocessor:
-    """Post-Stage-0 cleanup: merge, clean, decimate, drop floaters."""
+    """Post-Stage-0 cleanup: merge, clean, decimate, drop floaters, in the
+    spans ``clean`` (merge, degenerate and duplicate faces, unreferenced
+    vertices), ``decimate`` (the cluster pre-pass and QEM, when the mesh has
+    more faces than ``face_decimation``) and ``floaters``."""
 
     face_decimation: int = 40000
     floaters_threshold: float = 0.02
 
     def process_mesh(self, mesh: Mesh, seed: int = 44) -> Mesh:
         with scoped_seed(seed):
-            mesh = merge_vertices(mesh)
-            mesh = remove_degenerate_and_duplicate_faces(mesh)
-            mesh = remove_unreferenced_vertices(mesh)
-            if self.face_decimation and mesh.n_faces > self.face_decimation:
-                mesh = decimate_mesh(mesh, self.face_decimation)
-            if self.floaters_threshold > 0:
-                mesh = remove_floaters(mesh, self.floaters_threshold)
+            with span("clean"):
+                mesh = merge_vertices(mesh)
+                mesh = remove_degenerate_and_duplicate_faces(mesh)
+                mesh = remove_unreferenced_vertices(mesh)
+            with span("decimate"):
+                if self.face_decimation and mesh.n_faces > self.face_decimation:
+                    mesh = decimate_mesh(mesh, self.face_decimation)
+            with span("floaters"):
+                if self.floaters_threshold > 0:
+                    mesh = remove_floaters(mesh, self.floaters_threshold)
         return mesh

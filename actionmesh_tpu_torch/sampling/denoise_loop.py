@@ -25,6 +25,7 @@ from actionmesh_tpu_torch.models.denoiser import (
     precompute_freqs_rot,
 )
 from actionmesh_tpu_torch.sampling.guidance import ClassifierFreeGuidance
+from actionmesh_tpu_torch.utils.profiling import span
 
 
 def get_noise(
@@ -80,6 +81,8 @@ def denoise_window(
     ``mesh``: a ``parallel/mesh.py`` device mesh and ``params`` this rank's
     ``shard_params`` slices; the inputs are the whole tensors, the same on
     every rank (the noise from one seeded generator), and so is the result.
+
+    Each step runs in a ``stage1_step`` span (``utils/profiling.py``).
     """
     B, T, N, _ = init_latent.shape
     compute_dtype = init_latent.dtype
@@ -95,42 +98,43 @@ def denoise_window(
 
     latents = init_latent
     for i in range(distances.shape[0]):
-        if split_cfg_batch and g > 1:
-            preds = []
-            for b in range(g):
-                sl = slice(b * B, (b + 1) * B)
-                preds.append(denoiser_forward(
+        with span("stage1_step"):
+            if split_cfg_batch and g > 1:
+                preds = []
+                for b in range(g):
+                    sl = slice(b * B, (b + 1) * B)
+                    preds.append(denoiser_forward(
+                        params,
+                        dcfg,
+                        latents,
+                        context_g[sl],
+                        framestep_g[sl],
+                        timesteps[i].expand(B),
+                        mask=mask_f[sl] if mask_f is not None else None,
+                        freqs_rot=tuple(f[sl] for f in freqs_rot),
+                        mesh=mesh,
+                    ))
+                pred = torch.cat(preds, dim=0)
+            else:
+                hidden = torch.cat([latents] * g, dim=0)
+                pred = denoiser_forward(
                     params,
                     dcfg,
-                    latents,
-                    context_g[sl],
-                    framestep_g[sl],
-                    timesteps[i].expand(B),
-                    mask=mask_f[sl] if mask_f is not None else None,
-                    freqs_rot=tuple(f[sl] for f in freqs_rot),
+                    hidden,
+                    context_g,
+                    framestep_g,
+                    timesteps[i].expand(g * B),
+                    mask=mask_f,
+                    freqs_rot=freqs_rot,
+                    uncond_batch=guidance.leading_uncond_image_branches * B,
                     mesh=mesh,
-                ))
-            pred = torch.cat(preds, dim=0)
-        else:
-            hidden = torch.cat([latents] * g, dim=0)
-            pred = denoiser_forward(
-                params,
-                dcfg,
-                hidden,
-                context_g,
-                framestep_g,
-                timesteps[i].expand(g * B),
-                mask=mask_f,
-                freqs_rot=freqs_rot,
-                uncond_batch=guidance.leading_uncond_image_branches * B,
-                mesh=mesh,
-            )
-        pred32 = guidance.aggregate_cfg(pred).float()
-        lat32 = latents.float()
-        sign = 1.0 if is_additive else -1.0
-        stepped = (lat32 + sign * distances[i] * pred32).to(compute_dtype)
-        if unobserved is not None:
-            latents = torch.where(unobserved[..., None, None], stepped, latents)
-        else:
-            latents = stepped
+                )
+            pred32 = guidance.aggregate_cfg(pred).float()
+            lat32 = latents.float()
+            sign = 1.0 if is_additive else -1.0
+            stepped = (lat32 + sign * distances[i] * pred32).to(compute_dtype)
+            if unobserved is not None:
+                latents = torch.where(unobserved[..., None, None], stepped, latents)
+            else:
+                latents = stepped
     return latents

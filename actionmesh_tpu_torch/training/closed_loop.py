@@ -593,10 +593,6 @@ class Stage0Adapter:
         self.dense_depth = dense_depth
         self.hier_depth = hier_depth
 
-    @property
-    def phase_seconds(self) -> dict:
-        return self.pipeline.phase_seconds
-
     def __call__(self, image, seed=44, num_inference_steps=16, guidance_scale=2.0, **decode_kwargs):
         latent, mesh = self.pipeline(
             image, seed=seed, num_inference_steps=num_inference_steps,

@@ -1,0 +1,14 @@
+"""``stage0.decimate_s``: seconds per clip of the mesh processing's decimation (the cluster
+pre-pass and QEM), the key ``process_mesh.decimate`` of
+``ActionMeshPipeline.stage0_seconds`` (the span's own seconds on the host clock, from
+the program's span tree), summed over the measured window's clips (untraced: the
+profiled clip after the window is not counted) and divided by their count. Nothing where
+the program records no such span: a cell whose Stage 0 has no extraction or mesh
+processing, or a program without the span tree."""
+
+
+def read(record: dict):
+    vals = [s.get("process_mesh.decimate") for s in record["stage0_seconds"]]
+    if not vals or any(v is None for v in vals):
+        return None
+    return sum(vals) / record["clips"]

@@ -343,3 +343,36 @@ def test_request_overrides_hold_for_that_request_only(tmp_path, monkeypatch):
         httpd.server_close()
     assert seen == [(1, (3.0,)), (2, (7.5,)), (3, (7.5,))]
     assert (pipe.cfg.scheduler.num_inference_steps, tuple(pipe.cfg.cf_guidance.guidance_scales)) == preset
+
+
+def test_reply_carries_the_calls_span_breakdown(tmp_path, served):
+    """A reply gives the pipeline call's id and its phase and Stage-0
+    seconds from the call's span tree; a pipeline without a span tree (the
+    fake) answers with none."""
+    pipe = tpipeline_mod.ActionMeshPipeline(
+        config_name="actionmesh", weights_dir=None, device=CPU, dtype=torch.float32,
+        config_updates=dict(TINY_UPDATES),
+        image_encoder=TImageEncoder(CPU, torch.float32, TDinoCfg(**TINY_DINO)),
+        image_to_3d=lambda image, **_: (torch.zeros(1, 16, 8), make_uv_sphere(n_lat=8, n_lon=16)),
+    )
+    frames = write_frames(tmp_path / "frames", make_frames())
+    url, httpd = start(serve.ActionMeshServer(pipe))
+    try:
+        body = {"input": frames, "output_dir": str(tmp_path / "out")}
+        replies = [_post(f"{url}/v1/video_to_4d", body) for _ in range(2)]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert [status for status, _ in replies] == [200, 200]
+    first, second = (reply for _, reply in replies)
+    assert isinstance(first["call_id"], int) and second["call_id"] == pipe.last_call.call != first["call_id"]
+    for reply in (first, second):
+        assert set(reply["phase_seconds"]) == {"preprocess", "stage0", "encode", "stage1", "stage2"}
+        assert sum(reply["phase_seconds"].values()) <= reply["generation_seconds"] + 0.01
+        assert {k for k in reply["stage0_seconds"] if "." not in k} == {"image_to_3d", "process_mesh"}
+        assert {"process_mesh.clean", "process_mesh.decimate", "process_mesh.floaters"} <= set(
+            reply["stage0_seconds"])
+    fake_url, _, fake_frames, out = served
+    status, reply = _post(f"{fake_url}/v1/video_to_4d", {"input": fake_frames, "output_dir": out})
+    assert status == 200 and reply["call_id"] is None
+    assert reply["phase_seconds"] == reply["stage0_seconds"] == {}
