@@ -20,34 +20,65 @@
 // above the card's ~295 flop/byte balance point, so it is bound by tensor-core
 // issue and by the exp/max/sum work of the softmax between the two products.
 //
-// bf16 and fp16 design: TMA + wgmma, warp-specialised (FA3's shape, first
-// version); one kernel template over the 16-bit element type T, whose
-// products, tensor maps and packing of P and O take T's PTX type (fp16 and
-// bf16 products run at the same rate).
+// bf16 and fp16 design: TMA + wgmma, warp-specialised, with the softmax
+// hidden under the tensor cores (FA3's schedule); one kernel template over
+// the 16-bit element type T, whose products, tensor maps and packing of P and
+// O take T's PTX type (fp16 and bf16 products run at the same rate).
 //   * One CTA per (128-query tile, head, batch), 3 warpgroups. Warpgroup 0 is
-//     the producer (setmaxnreg down to 24): one thread starts TMA loads of the
-//     Q tile once and of K and V tiles of 128 keys into a ring of kStages
-//     stages in shared memory, each stage guarded by a full/empty mbarrier
-//     pair. Warpgroups 1 and 2 are consumers (setmaxnreg up to 240), each
-//     owning 64 query rows.
+//     the producer (setmaxnreg down to 24): one thread loads the Q tile once,
+//     then K_0, then K_{j+1} and V_j by turns (the order the consumers read
+//     them), by TMA into two rings (K and V) of kStages = 2 slots, each slot
+//     guarded by a full/empty mbarrier pair. Warpgroups 1 and 2 are consumers
+//     (setmaxnreg up to 240), each owning 64 query rows.
+//   * Tiles (Tiles16, fixed by D at compile time): kBlockN = 160 keys at D =
+//     128, 128 at D = 64. Shared memory at D = 128: Q 32 KB + 2 x 2 x 40 KB =
+//     192 KB. On an H100 SXM (700 W) 160 keys beat 128, 144 and 176 at the
+//     Stage-I and Stage-II self shapes (176 is FA3's choice; here it was no
+//     faster), and a third ring slot at 128 keys gained nothing.
 //   * Tensor maps are rank 4 (D, S, H, B) with the caller's strides, so
-//     strided head views are read in place; boxes are 64 columns x 128 rows
-//     with the 128-byte swizzle (a D = 128 row is two such atoms). TMA fills
-//     rows beyond Sq or Sk with zeros; keys >= Sk are masked by bounds in the
-//     last tile only.
-//   * S = Q K^T: wgmma m64n128k16, Q and K both from shared memory,
-//     K-major. Softmax per accumulator element, the row max and sum across
-//     the 4 lanes of a row (the accumulator gives each thread rows g and
-//     g+8 of its warp's 16). O += P V: wgmma m64nDk16 with P from registers
-//     (the S accumulator packed pairwise to T is the A fragment) and V
-//     from shared memory, MN-major (the transpose bit).
-//   * Each product is waited for before its result is read; a consumer warp
-//     arrives on the stage's empty barrier after its last product reading
-//     the stage has completed. The epilogue rescales by 1/max(l, 1e-30) and
-//     stores O from registers.
-//   Not in this version (later work): overlap of a warpgroup's softmax with
-//   its next Q K^T, pingpong scheduling of the two consumers, a persistent
-//   tile scheduler, a TMA store of O.
+//     strided head views are read in place; boxes are 64 columns x 128 (Q) or
+//     kBlockN (K, V) rows with the 128-byte swizzle (a D = 128 row is two such
+//     atoms). TMA fills rows beyond Sq or Sk with zeros; keys >= Sk are masked
+//     by bounds in the last tile only.
+//   * S = Q K^T: wgmma m64n{kBlockN}k16, Q and K both from shared memory,
+//     K-major. O += P V: wgmma m64nDk16 with P from registers (the S
+//     accumulator packed pairwise to T is the A fragment) and V from shared
+//     memory, MN-major (the transpose bit).
+//   * The schedule (FA3's intra-warpgroup overlap): a consumer issues S_0
+//     alone; then in each turn it issues S_{j+1} = Q K_{j+1}^T and P_j V_j as
+//     two commit groups. wgmma_wait<1> retires S_{j+1} alone, whose softmax
+//     then runs on the CUDA cores while P_j V_j is in flight; wgmma_wait<0>
+//     retires P_j V_j, and only then is S_{j+1} packed into P and, before the
+//     next turn, O rescaled by exp(m_j - m_{j+1}): registers that a product
+//     owns are touched only after the wait that covers it. K_{j+1}'s slot is
+//     freed after the first wait, V_j's after the second. The last P V stands
+//     alone.
+//   * Pingpong: the consumers take turns at the tensor cores through named
+//     barriers 1 and 2 (bar.sync / bar.arrive over their 256 threads).
+//     Consumer c waits on its own barrier, issues its two products and
+//     arrives on the other's; consumer 0 has the first turn. So one
+//     warpgroup's softmax runs while the other's products hold the tensor
+//     cores. On the H100 the pingpong and the overlap took the Stage-I self
+//     shape from 28.7 ms with neither to 27.4 with the pingpong alone and
+//     26.2 with both.
+//   * Softmax (softmax_tile): a full tile of a call without kv_mask takes the
+//     row max on the raw scores (scaled once; rounding is monotonic, so that
+//     is the max of the scaled scores to the bit), then one FFMA and one ex2
+//     a score, exp2(s * scale*log2 e - m*log2 e). The ragged last tile and
+//     masked calls take the contract's scaled and masked scores. The two run
+//     in separate loops, so that the hot loop carries no branch of the other
+//     (with the branches inside one loop, register moves at their join cost
+//     about 3.5 ms at the Stage-I self shape and the wider tiles spilled).
+//   * Registers (a consumer thread, of 240): O 64 fp32, S 80 fp32, P 40
+//     packed pairs, the stats and the addresses; the Q tile's descriptors sit
+//     in uniform registers (the warpgroup index is read from lane 0, so the
+//     compiler knows it is warp-uniform). ptxas reports 0 spilled.
+//   * The epilogue rescales by 1/max(l, 1e-30) and stores O from registers.
+//   Not in this version (later work): a persistent tile scheduler and a TMA
+//   store of O (at Sk = 32,784 a CTA walks 205 key tiles, so its epilogue is
+//   under 0.5% of its time); a smaller last key tile for short Sk (at Sk =
+//   257 the last of two tiles holds 97 keys); the fp32 path below keeps the
+//   sequential schedule.
 //
 // fp32 design: split precision ("3xTF32") on the tensor cores, TMA + wgmma,
 // warp-specialised as the bf16 path. It serves the fp32 islands of the
@@ -83,8 +114,9 @@
 //     from the swizzled tile (conflict-free), split them in registers, 64
 //     columns (8 k-steps, 64 registers) at a time, K_hi and K_lo from
 //     shared memory. O += P V: m64nDk8 RS, P split in registers, V^T_hi
-//     and V^T_lo from shared memory. Softmax, masking, stats and epilogue
-//     as the bf16 path (online_softmax), with fp32 output.
+//     and V^T_lo from shared memory. Softmax (online_softmax, after each
+//     tile's products), masking, stats and epilogue as the contract states
+//     them, with fp32 output.
 //   * Accumulation: the tensor core's own fp32 sums truncate, so a chain of
 //     products over every key drifts (one accumulator for O over the 32,784
 //     keys of the vertex cross missed the 2e-5 bar of the output's range).
@@ -158,8 +190,9 @@ __device__ __forceinline__ float mask_score(float s, int col, const Params& p,
   return s * p.scale;
 }
 
-// Scale and mask one tile's scores, then the online-softmax update of a
-// consumer thread's two rows and the rescaling of its output accumulator.
+// The fp32 path's softmax: scale and mask one tile's scores, then the
+// online-softmax update of a consumer thread's two rows and the rescaling of
+// its output accumulator.
 // sc[4j + e] is key key0 + 8j + 2t + (e & 1) of row g (e < 2) or g+8
 // (e >= 2); on return it holds the fp32 probabilities. m0/m1 are the running
 // maxima, l0/l1 this thread's partial row sums.
@@ -235,79 +268,253 @@ __device__ __forceinline__ void store_stats(const Params& p, int b, int h, int r
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and fp16 path: TMA + wgmma, warp-specialised
+// bf16 and fp16 path: TMA + wgmma, warp-specialised, the softmax under the
+// tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockM = 128;        // query rows per CTA, 64 per consumer warpgroup
-constexpr int kBlockN = 128;        // keys per tile
-constexpr int kStages = 2;          // K/V ring depth
-constexpr int kThreads = 3 * 128;   // producer + 2 consumer warpgroups
-constexpr int kConsumerWarps = 8;   // arrivals that free a stage
-constexpr int kAtomBytes = 128 * 128;  // 128 rows x 64 16-bit values (one swizzle atom column)
+constexpr int kBlockM = 128;           // query rows per CTA, 64 per consumer warpgroup
+constexpr int kThreads = 3 * 128;      // producer + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;      // arrivals that free a stage
+constexpr int kConsumerThreads = 256;  // both consumer warpgroups: a turn barrier's count
+constexpr uint32_t kTurnBarrier = 1;   // named barriers 1, 2: consumer 0's, 1's turn
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (what __expf runs after its multiply by
+// log2 e); a result below the normal range flushes to zero.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The 16-bit kernel's tiles at head dim D, fixed at compile time: K and V
+// tiles of kBlockN keys in two rings of kStages slots each.
+template <int D>
+struct Tiles16 {
+  static constexpr int kBlockN = D == 128 ? 160 : 128;
+  static constexpr int kStages = 2;
+  static constexpr int kQAtom = kBlockM * 128;         // 128 rows x 64 16-bit values
+  static constexpr int kKVAtom = kBlockN * 128;        // kBlockN rows x 64 16-bit values
+  static constexpr int kKVBytes = (D / 64) * kKVAtom;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + (D / 64) * kQAtom;      // + slot * kKVBytes
+  static constexpr int kV = kK + kStages * kKVBytes;     // + slot * kKVBytes
+  static constexpr int kBars = kV + kStages * kKVBytes;  // q_full, full_k[], full_v[], empty_k[], empty_v[]
+  static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base to 1024 bytes
+  static_assert(kKVAtom % 1024 == 0, "a tile's atoms start on the swizzle's 1024-byte grid");
+  static_assert(kAlloc <= 232448, "shared memory above the 227 KB a block may use");
+};
+
+// The max of each of a consumer thread's two rows of s (a tile's
+// accumulator: row g at s[4j], s[4j + 1], row g+8 at s[4j + 2], s[4j + 3])
+// over the tile, in four partial maxima a row (short chains of dependent
+// operations), then over the 4 lanes that hold the same rows.
+template <int N>
+__device__ __forceinline__ void row_max(const float (&s)[N / 2], float& r0, float& r1) {
+  float a[4], c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = fmaxf(s[4 * j + 0], s[4 * j + 1]);
+    c[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+  }
+#pragma unroll
+  for (int j = 4; j < N / 8; ++j) {
+    a[j % 4] = fmaxf(a[j % 4], fmaxf(s[4 * j + 0], s[4 * j + 1]));
+    c[j % 4] = fmaxf(c[j % 4], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  r0 = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+  r1 = fmaxf(fmaxf(c[0], c[1]), fmaxf(c[2], c[3]));
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, off));
+    r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, off));
+  }
+}
+
+// One tile's online-softmax update on the 16-bit path. s[4j + e] is the raw
+// fp32 score (q.k) of key key0 + 8j + 2t + (e & 1), row g (e < 2) or g+8
+// (e >= 2); on return it holds the fp32 probabilities exp(s*scale - m).
+// m0/m1, the running maxima of the scaled scores, and l0/l1, this thread's
+// partial row sums, are updated; alpha0/alpha1 get exp(m_old - m), the
+// factor the output accumulator still owes (applied when no product owns
+// it).
+// kFull: a tile of N keys inside Sk, in a call without kv_mask and with a
+// positive scale. It takes the row's largest raw score and scales it once:
+// rounding is monotonic, so that is the max of the scaled scores to the bit;
+// each probability is then one FFMA and one ex2, exp2(s * scale*log2 e -
+// m*log2 e). Otherwise (the ragged last tile, every tile of a masked call)
+// the scores are scaled and masked as the contract states them (-1e30
+// masked, -inf beyond Sk) and each probability is exp2((s - m) * log2 e),
+// exactly 1 for a masked key of a row that has seen no valid key, so that
+// such a row averages v.
+template <int N, bool kFull>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], int key0, int t, const Params& p,
+                                             const int32_t* mask_row, float scale_log2,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float& alpha0, float& alpha1) {
+  float mx0, mx1;
+  if constexpr (kFull) {
+    row_max<N>(s, mx0, mx1);
+    mx0 *= p.scale;
+    mx1 *= p.scale;
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = key0 + j * 8 + 2 * t;
+      s[4 * j + 0] = mask_score(s[4 * j + 0], col, p, mask_row);
+      s[4 * j + 1] = mask_score(s[4 * j + 1], col + 1, p, mask_row);
+      s[4 * j + 2] = mask_score(s[4 * j + 2], col, p, mask_row);
+      s[4 * j + 3] = mask_score(s[4 * j + 3], col + 1, p, mask_row);
+    }
+    row_max<N>(s, mx0, mx1);
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  alpha0 = exp2_approx((m0 - mn0) * kLog2e);
+  alpha1 = exp2_approx((m1 - mn1) * kLog2e);
+  m0 = mn0;
+  m1 = mn1;
+  if constexpr (kFull) {
+    const float b0 = mn0 * kLog2e, b1 = mn1 * kLog2e;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      s[4 * j + 0] = exp2_approx(fmaf(s[4 * j + 0], scale_log2, -b0));
+      s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -b0));
+      s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -b1));
+      s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -b1));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      s[4 * j + 0] = exp2_approx((s[4 * j + 0] - mn0) * kLog2e);
+      s[4 * j + 1] = exp2_approx((s[4 * j + 1] - mn0) * kLog2e);
+      s[4 * j + 2] = exp2_approx((s[4 * j + 2] - mn1) * kLog2e);
+      s[4 * j + 3] = exp2_approx((s[4 * j + 3] - mn1) * kLog2e);
+    }
+  }
+  // the row sums in four partial sums a row, which shortens the chain of
+  // dependent adds
+  float ps0[4] = {0.f, 0.f, 0.f, 0.f}, ps1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    ps0[j % 4] += s[4 * j + 0] + s[4 * j + 1];
+    ps1[j % 4] += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + ((ps0[0] + ps0[1]) + (ps0[2] + ps0[3]));
+  l1 = l1 * alpha1 + ((ps1[0] + ps1[1]) + (ps1[2] + ps1[3]));
+}
+
+// S (+)= Q K^T for a consumer's 64 rows and one tile's N keys, over D in
+// steps of 16 (the first step overwrites S); Q and K both K-major in shared
+// memory.
+template <int D, typename T>
+__device__ __forceinline__ void qk_product(float (&s)[Tiles16<D>::kBlockN / 2], uint32_t q_addr,
+                                           uint32_t k_addr) {
+  using L = Tiles16<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss<L::kBlockN, T>(s, wgmma_desc(q_addr + (kk / 4) * L::kQAtom + (kk % 4) * 32, 16, 1024),
+                            wgmma_desc(k_addr + (kk / 4) * L::kKVAtom + (kk % 4) * 32, 16, 1024),
+                            kk > 0);
+  }
+}
+
+// O += P V: P (the probabilities rounded to T, the S accumulator packed
+// pairwise) as register A fragments, 16 keys a product, V from shared
+// memory, MN-major (the transpose bit).
+template <int D, typename T>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&pa)[Tiles16<D>::kBlockN / 16][4],
+                                           uint32_t v_addr) {
+  using L = Tiles16<D>;
+#pragma unroll
+  for (int kk = 0; kk < L::kBlockN / 16; ++kk)
+    wgmma_rs<D, T>(o, pa[kk], wgmma_desc(v_addr + kk * 16 * 128, L::kKVAtom, 1024), 1);
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 16][4], const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    pa[kk][0] = pack2<T>(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
 
 template <int D>
-struct SmemLayout {
-  static constexpr int kTileBytes = (D / 64) * kAtomBytes;  // 128 rows x D 16-bit values
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileBytes;               // + stage * kTileBytes
-  static constexpr int kV = kK + kStages * kTileBytes;     // + stage * kTileBytes
-  static constexpr int kBars = kV + kStages * kTileBytes;  // q_full, full[], empty[]
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
-  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base to 1024 bytes
-};
-static_assert(SmemLayout<128>::kAlloc <= 232448, "shared memory above the 227 KB a block may use");
+__device__ __forceinline__ void rescale_rows(float (&o)[D / 2], float alpha0, float alpha1) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j + 0] *= alpha0;
+    o[4 * j + 1] *= alpha0;
+    o[4 * j + 2] *= alpha1;
+    o[4 * j + 3] *= alpha1;
+  }
+}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_16bit_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using L = SmemLayout<D>;
+  using L = Tiles16<D>;
+  constexpr int N = L::kBlockN, S = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: atoms start on that grid
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* full_k = q_full + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty_k = full_v + S;
+  uint64_t* empty_v = empty_k + S;
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockM;
-  const int n_tiles = (p.Sk + kBlockN - 1) / kBlockN;
-  const int warpgroup = threadIdx.x / 128;
+  const int n_tiles = (p.Sk + N - 1) / N;
+  // read from lane 0, so that the compiler knows it is the same across the
+  // warp: the Q tile's descriptors, which depend on it, then live in uniform
+  // registers, beside those of K and V, and not in the consumers' own
+  const int warpgroup = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], kConsumerWarps);
+      mbar_init(&empty_v[s], kConsumerWarps);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   if (warpgroup == 0) {
-    // ---- producer: one thread keeps the ring of K/V tiles filled ----
+    // ---- producer: one thread loads Q, K_0, then K_{j+1} and V_j by turns,
+    // the order in which the consumers read them ----
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       tma_prefetch_desc(&tm_q);
       tma_prefetch_desc(&tm_k);
       tma_prefetch_desc(&tm_v);
-      mbar_arrive_expect_tx(q_full, L::kTileBytes);
+      mbar_arrive_expect_tx(q_full, (D / 64) * L::kQAtom);
 #pragma unroll
       for (int a = 0; a < D / 64; ++a)
-        tma_load_4d(smem + L::kQ + a * kAtomBytes, &tm_q, q_full, a * 64, q0, h, b);
-      for (int n = 0; n < n_tiles; ++n) {
-        const int s = n % kStages;
-        mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);  // the first round passes at once
-        mbar_arrive_expect_tx(&full[s], 2 * L::kTileBytes);
+        tma_load_4d(smem + L::kQ + a * L::kQAtom, &tm_q, q_full, a * 64, q0, h, b);
+      auto load = [&](const CUtensorMap* tm, int base, uint64_t* full, uint64_t* empty, int n) {
+        const int s = n % S;
+        mbar_wait(&empty[s], ((n / S) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(&full[s], L::kKVBytes);
 #pragma unroll
-        for (int a = 0; a < D / 64; ++a) {
-          tma_load_4d(smem + L::kK + s * L::kTileBytes + a * kAtomBytes, &tm_k, &full[s],
-                      a * 64, n * kBlockN, h, b);
-          tma_load_4d(smem + L::kV + s * L::kTileBytes + a * kAtomBytes, &tm_v, &full[s],
-                      a * 64, n * kBlockN, h, b);
-        }
+        for (int a = 0; a < D / 64; ++a)
+          tma_load_4d(smem + base + s * L::kKVBytes + a * L::kKVAtom, tm, &full[s], a * 64, n * N, h, b);
+      };
+      load(&tm_k, L::kK, full_k, empty_k, 0);
+      for (int n = 0; n < n_tiles; ++n) {
+        if (n + 1 < n_tiles) load(&tm_k, L::kK, full_k, empty_k, n + 1);
+        load(&tm_v, L::kV, full_v, empty_v, n);
       }
     }
   } else {
@@ -319,58 +526,93 @@ flash_fwd_16bit_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int ra = q0 + 64 * c + 16 * warp + g, rb = ra + 8;
     const int32_t* mask_row = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
     const uint32_t q_addr = smem_addr(smem + L::kQ) + c * 64 * 128;
+    const uint32_t k_addr = smem_addr(smem + L::kK), v_addr = smem_addr(smem + L::kV);
+    const float scale_log2 = p.scale * kLog2e;
+    // The consumers take turns at issuing their products: consumer c waits
+    // on barrier kTurnBarrier + c, then arrives on the other's. Consumer 0
+    // has the first turn; consumer 1 passes on all but its last, so every
+    // arrival is waited for.
+    const uint32_t my_turn = kTurnBarrier + c, next_turn = kTurnBarrier + (c ^ 1);
+    if (c == 0) named_barrier_arrive(my_turn, kConsumerThreads);
 
-    float o[D / 2];
+    float o[D / 2], s[N / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+    uint32_t pa[N / 16][4];
     float m0 = kMaskedScore, m1 = kMaskedScore;  // running max, rows g and g+8
     float l0 = 0.f, l1 = 0.f;                    // this thread's partial row sums
+    float alpha0, alpha1;                        // what O owes for the last max update
 
+    // Full tiles of a call without kv_mask and with a positive scale take
+    // softmax_tile's short arithmetic; the ragged last tile and every tile of
+    // any other call the contract's (a loop of each, so that neither carries
+    // the other's branches).
+    const bool plain = mask_row == nullptr && p.scale > 0.f;
+    const int n_full = plain ? p.Sk / N : 0;  // tiles 0 .. n_full - 1 are full
+
+    // tile 0: S_0 alone
     mbar_wait(q_full, 0);
-    for (int n = 0; n < n_tiles; ++n) {
-      const int s = n % kStages;
-      mbar_wait(&full[s], (n / kStages) & 1);
-      const uint32_t k_addr = smem_addr(smem + L::kK + s * L::kTileBytes);
-      const uint32_t v_addr = smem_addr(smem + L::kV + s * L::kTileBytes);
+    mbar_wait(&full_k[0], 0);
+    named_barrier_sync(my_turn, kConsumerThreads);
+    fence_regs(s);
+    wgmma_fence();
+    qk_product<D, T>(s, q_addr, k_addr);
+    wgmma_commit();
+    if (c == 0 || n_tiles > 1) named_barrier_arrive(next_turn, kConsumerThreads);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&empty_k[0]);
+    if (n_full > 0)
+      softmax_tile<N, true>(s, 0, t, p, mask_row, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+    else
+      softmax_tile<N, false>(s, 0, t, p, mask_row, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+    pack_p<N, T>(pa, s);
 
-      // S = Q K^T, 64 rows x 128 keys, over D in steps of 16
-      float sc[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-      fence_regs(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
-        wgmma_m64n128k16_ss<T>(sc, wgmma_desc(q_addr + off, 16, 1024),
-                            wgmma_desc(k_addr + off, 16, 1024), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-
-      online_softmax<kBlockN, D>(sc, o, n * kBlockN, t, p, mask_row, m0, m1, l0, l1);
-
-      // O += P V: P (rounded to T) as register A fragments, 16 keys per product
-      uint32_t pa[kBlockN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        pa[kk][0] = pack2<T>(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+    // tile n: S_n and P_{n-1} V_{n-1} in one turn; S_n's softmax runs while
+    // P_{n-1} V_{n-1} is in flight
+    auto step = [&](int n, auto full) {
+      const int sk = n % S, sv = (n - 1) % S;
+      mbar_wait(&full_k[sk], (n / S) & 1);
+      mbar_wait(&full_v[sv], ((n - 1) / S) & 1);
+      rescale_rows<D>(o, alpha0, alpha1);
+      named_barrier_sync(my_turn, kConsumerThreads);
+      fence_regs(s);
       fence_regs(o);
+      fence_frags(pa);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        wgmma_rs<D, T>(o, pa[kk], wgmma_desc(v_addr + kk * 16 * 128, kAtomBytes, 1024), 1);
-      }
+      qk_product<D, T>(s, q_addr, k_addr + sk * L::kKVBytes);
       wgmma_commit();
-      wgmma_wait<0>();
+      pv_product<D, T>(o, pa, v_addr + sv * L::kKVBytes);
+      wgmma_commit();
+      if (c == 0 || n + 1 < n_tiles) named_barrier_arrive(next_turn, kConsumerThreads);
+      wgmma_wait<1>();  // S_n
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(&empty_k[sk]);  // this warp is done with K_n
+      softmax_tile<N, decltype(full)::value>(s, n * N, t, p, mask_row, scale_log2, m0, m1, l0, l1,
+                                             alpha0, alpha1);
+      wgmma_wait<0>();  // P_{n-1} V_{n-1}
       fence_regs(o);
-      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
-    }
+      fence_frags(pa);
+      if (lane == 0) mbar_arrive(&empty_v[sv]);  // this warp is done with V_{n-1}
+      pack_p<N, T>(pa, s);
+    };
+    int n = 1;
+    for (; n < n_full; ++n) step(n, std::true_type{});
+    for (; n < n_tiles; ++n) step(n, std::false_type{});
+
+    // the last tile's P V alone
+    const int sv = (n_tiles - 1) % S;
+    mbar_wait(&full_v[sv], ((n_tiles - 1) / S) & 1);
+    rescale_rows<D>(o, alpha0, alpha1);
+    fence_regs(o);
+    fence_frags(pa);
+    wgmma_fence();
+    pv_product<D, T>(o, pa, v_addr + sv * L::kKVBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
 
     reduce_row_sums(l0, l1);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
@@ -391,12 +633,13 @@ flash_fwd_16bit_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D, typename T>
 int launch_16bit(const Params& p, cudaStream_t stream) {
+  using L = Tiles16<D>;
   CUtensorMap tq, tk, tv;
   int err = make_tensor_map<T>(&tq, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBlockM);
-  if (err == 0) err = make_tensor_map<T>(&tk, p.k, D, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb, kBlockN);
-  if (err == 0) err = make_tensor_map<T>(&tv, p.v, D, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb, kBlockN);
+  if (err == 0) err = make_tensor_map<T>(&tk, p.k, D, p.Sk, p.H, p.B, p.k_ss, p.k_sh, p.k_sb, L::kBlockN);
+  if (err == 0) err = make_tensor_map<T>(&tv, p.v, D, p.Sk, p.H, p.B, p.v_ss, p.v_sh, p.v_sb, L::kBlockN);
   if (err != 0) return err;
-  constexpr int smem = SmemLayout<D>::kAlloc;
+  constexpr int smem = L::kAlloc;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_16bit_kernel<D, T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;

@@ -1,6 +1,6 @@
 // sm_90a (Hopper) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor loads and the host-side tensor-map encoder, wgmma shared-memory
-// descriptors and products (bf16, fp16, TF32), setmaxnreg, bf16/fp16
+// descriptors and products (bf16, fp16, TF32), setmaxnreg, named barriers, bf16/fp16
 // packing and the TF32 split of split-precision (3xTF32) products. Inline PTX only
 // (no CUTLASS/CuTe), so a source that includes this header builds in
 // seconds. Compile with -gencode arch=compute_90a,code=sm_90a: wgmma and
@@ -210,6 +210,21 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // ---------------------------------------------------------------------------
+// Named barriers (id 0 is __syncthreads'); `threads` is a multiple of 32 and
+// counts every thread that arrives or waits, warp by warp
+// ---------------------------------------------------------------------------
+
+// Arrive at barrier `id` and wait until `threads` threads have arrived.
+__device__ __forceinline__ void named_barrier_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at barrier `id` without waiting.
+__device__ __forceinline__ void named_barrier_arrive(uint32_t id, uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
 
@@ -341,13 +356,37 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
   }
 }
 
-// The products above by output width N (64 or 128): D is 64 x N, N / 2
+#define AM_WGMMA_D80                                                                             \
+  AM_WGMMA_D64, "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),    \
+  "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),     \
+  "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+#define AM_REGS_80                                                                  \
+  AM_REGS_64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+// D (64 x 160) (+)= A (64 x 16, shared) * B (160 x 16, shared), both K-major.
+#define AM_SS_N160(ty)                                                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"                                                 \
+  "wgmma.mma_async.sync.aligned.m64n160k16.f32." ty "." ty " " AM_REGS_80 "}, "               \
+  "%80, %81, p, 1, 1, 0, 0;\n}\n"
+
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_m64n160k16_ss(float (&d)[80], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  if constexpr (kIsF16<T>) {
+    asm volatile(AM_SS_N160("f16") : AM_WGMMA_D80 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(AM_SS_N160("bf16") : AM_WGMMA_D80 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// The products above by output width N (64, 128 or 160): D is 64 x N, N / 2
 // accumulator registers a thread.
 template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-  if constexpr (N == 128) {
+  static_assert(N == 64 || N == 128 || N == 160, "wgmma_ss: N is 64, 128 or 160");
+  if constexpr (N == 160) {
+    wgmma_m64n160k16_ss<T>(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 128) {
     wgmma_m64n128k16_ss<T>(d, desc_a, desc_b, scale_d);
   } else {
     wgmma_m64n64k16_ss<T>(d, desc_a, desc_b, scale_d);

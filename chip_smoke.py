@@ -437,6 +437,17 @@ def phase_device() -> dict:
     return {"nvidia_smi": smi, "gxx": gxx}
 
 
+def serialized_in(text: str, kernel: str) -> list[str]:
+    """ptxas's lines on serialised wgmma that name ``kernel`` (a name in the
+    source: every instantiation of it) or fall in the compile block of one."""
+    lines = []
+    for block in text.split("Compiling entry function")[1:]:
+        head, _, rest = block.partition("\n")
+        lines += [line.strip() for line in rest.splitlines()
+                  if "serialized" in line and (kernel in head or kernel in line)]
+    return lines
+
+
 def phase_build() -> dict:
     """nvcc for every CUDA source and g++ for the native library, all at once."""
     from actionmesh_tpu_torch.ops.flash_attention import _bwd_library, _library
@@ -473,11 +484,12 @@ def phase_build() -> dict:
         log(f"ptxas {name}.cu: " + "; ".join(
             f"{r['kernel']} {r['registers']} registers, spills {r['spill_store_bytes']} B stored / "
             f"{r['spill_load_bytes']} B loaded" for r in rows))
-    # kernel A's fp32 path and its pre-pass, kernels C and D's fp32 path and
-    # its pre-pass, kernel E (and its yardstick) and kernel B's forward,
-    # backward and sums must not spill (a library built by an earlier run in
-    # this checkout leaves no report to read)
-    no_spill = {"flash_fwd": (("flash_fwd_tf32x3_kernel", "split_kv_kernel"), 4),
+    # kernel A's 16-bit path (bf16 and fp16 at D 64 and 128), its fp32 path
+    # and its pre-pass, kernels C and D's fp32 path and its pre-pass, kernel
+    # E (and its yardstick) and kernel B's forward, backward and sums must
+    # not spill (a library built by an earlier run in this checkout leaves no
+    # report to read)
+    no_spill = {"flash_fwd": (("flash_fwd_16bit_kernel", "flash_fwd_tf32x3_kernel", "split_kv_kernel"), 8),
                 "flash_bwd": (("flash_bwd_tf32x3_kernel", "split_bwd_kernel"), 6),
                 "nn_argmin": (("nn_argmin_tf32x3_kernel", "pack_y_kernel"), 4),
                 NN_YARDSTICK: (("nn_argmin_cuda_core_kernel",), 2),
@@ -497,6 +509,12 @@ def phase_build() -> dict:
                             if "serialized" in line]
         if serialized[name]:
             log(f"ptxas {name}.cu: " + " | ".join(serialized[name]))
+    # kernel A's 16-bit softmax runs while its products are in flight: a
+    # serialised wgmma there would undo that
+    if "flash_fwd" in cuda_build.ptxas_output:
+        bad = serialized_in(cuda_build.ptxas_output["flash_fwd"], "flash_fwd_16bit_kernel")
+        if bad:
+            raise AssertionError(f"flash_fwd.cu: ptxas serialises wgmma in the 16-bit kernel: {bad}")
     return {"seconds": seconds, "nvcc_seconds": nvcc_s, "gxx_seconds": gxx_s, "ptxas": ptxas,
             "wgmma_serialized": serialized}
 
@@ -808,6 +826,61 @@ def check_flash(gen, name, shape, dtype, reps=3, masked=False, stats=False,
     if stats:
         row["library_note"] = "SDPA at this shape, which gives no (m, l); the row's kernel call returns them"
     return row
+
+
+# Kernel A's 16-bit pipeline at its edges: key counts of one, two, three and
+# many tiles, each with a ragged last tile (a tile holds 160 keys at D = 128
+# and 128 at D = 64), over two query tiles with a ragged second.
+FLASH_EDGE_SK = (1, 127, 128, 129, 159, 160, 161, 256, 257, 320, 321, 32784)
+
+
+def phase_flash_edges() -> dict:
+    """Kernel A's 16-bit path against ``chunked_attention`` at
+    (2, 2, 200, Sk, D) for every Sk of FLASH_EDGE_SK, bf16 and fp16, D 64
+    and 128, with and without a kv_mask (a third of the keys masked at random,
+    the last batch entry's all) and with and without stats: the output within
+    ``attention_tol`` of the output's largest magnitude and finite, (m, l) as
+    ``check_flash`` holds them, and a fully masked row's m the plain
+    version's to the bit. Checks only, nothing timed."""
+    gen = torch.Generator(device="cuda").manual_seed(1236)
+    worst, fails, n = {}, [], 0
+    for dtype in (torch.bfloat16, torch.float16):
+        for D in (128, 64):
+            for Sk in FLASH_EDGE_SK:
+                q = heads_view(gen, 2, 200, 2, D, dtype)
+                k, v = (heads_view(gen, 2, Sk, 2, D, dtype) for _ in range(2))
+                for masked in (False, True):
+                    kv_mask = None
+                    if masked:
+                        kv_mask = torch.rand((2, Sk), generator=gen, device="cuda") > 0.3
+                        kv_mask[-1] = False
+                    ref, (m_ref, l_ref) = chunked_attention(q, k, v, kv_mask=kv_mask, return_stats=True)
+                    tol = attention_tol(dtype) * ref.float().abs().max().item()
+                    m_tol = 1e-4 * max(1.0, m_ref.abs().max().item())
+                    for stats in (False, True):
+                        out = flash_attention(q, k, v, kv_mask=kv_mask, return_stats=stats)
+                        case = f"{str(dtype)[6:]} D={D} Sk={Sk}" + " kv_mask" * masked + " stats" * stats
+                        errs = {}
+                        if stats:
+                            out, (m, l) = out
+                            errs = {"m": (m - m_ref).abs().max().item(),
+                                    "l_rel": ((l - l_ref).abs() / l_ref).max().item()}
+                            if errs["m"] > m_tol or errs["l_rel"] > 1e-4:
+                                fails.append(f"{case}: stats {errs}")
+                            if masked and not torch.equal(m[-1], m_ref[-1]):
+                                fails.append(f"{case}: a fully masked row's m differs")
+                        errs["out"] = (out.float() - ref.float()).abs().max().item() / tol
+                        if not (errs["out"] <= 1 and bool(torch.isfinite(out).all())):
+                            fails.append(f"{case}: max abs err {errs['out']:.3f} of the tolerance, or not finite")
+                        for key, e in errs.items():
+                            worst[key] = max(worst.get(key, 0.0), e)
+                        n += 1
+    log(f"flash edges: {n} cases, {len(fails)} failed; worst: output {worst['out']:.3f} of its "
+        f"tolerance, m {worst['m']:.3e}, l {worst['l_rel']:.3e} relative")
+    if fails:
+        raise AssertionError("flash edges:\n" + "\n".join(fails))
+    return {"cases": n, "sk": list(FLASH_EDGE_SK), "worst_err_over_tol": worst["out"],
+            "worst_m": worst["m"], "worst_l_rel": worst["l_rel"]}
 
 
 def rope_tables(gen, B, S, D, tables):
@@ -4286,6 +4359,7 @@ def main() -> None:
     ckpt = phase_checkpoints()
     v3d = phase_video_3d()
     flash, rope = phase_kernels(sl["anchor_vertices"])
+    flash_edges = phase_flash_edges()
     fused, fused_launches = phase_fused()
     bwd, rope_bwd = phase_backward()
     nn = phase_nn()
@@ -4421,7 +4495,7 @@ def main() -> None:
     kernels[6]["launches_note"] = "one launch counts a call: the pre-pass and kernel A's mainloop"
     for i in (0, 6):  # the head row's rates, as for ms and bound_ms
         kernels[i].update({k: kernels[i]["shapes"][0][k] for k in ("tflops", "bound_share", "vs_library")})
-    print(json.dumps({"kernels": kernels, "build": build,
+    print(json.dumps({"kernels": kernels, "build": build, "flash_edges": flash_edges,
                       "small_reference_max_abs_err": small_err, "small_stage0_reference": small_stage0,
                       "small_train_reference": small_train, "small_icp_reference": small_icp,
                       "small_checkpoint": small_ckpt, "checkpoints": ckpt, "video_3d": v3d,
