@@ -6,17 +6,13 @@ the timed path produced in the first clip of the window, stage by stage
 from the state the program handed on (see ``PERF.md``):
 
   enc      DINOv2 features of every frame;
-  s0_v     the TripoSG DiT's prediction (both CFG branches) at the last
-           sampling step and at one step drawn from the seed;
-  s0_step  the Euler update at those steps: the program's next latent
-           against its latent plus the step times the guided reference
-           prediction, relative to that update;
-  sdf      the SDF decode's field values at a sample of the fine pass's
-           queries, decoded from the program's anchor latent;
-  s0_vae   ({video + 3D}) the VAE's posterior sample of the user's mesh;
+  (s0_*)   Stage 0's numbers, which the cell's model family
+           (``families/<family>.py``) captures, recomputes and compares;
   s1_v     the Stage-I denoiser's prediction (every branch and frame) at
            one step per window drawn from the seed;
-  s1_step  the Euler update at that step, as s0_step;
+  s1_step  the Euler update at that step: the program's next latent
+           against its latent plus the step times the guided reference
+           prediction, relative to that update;
   s2       Stage II's deformed vertex positions for one target drawn from
            the seed in every Stage-II call (so every window and every
            chunk of targets) at vertices drawn from the seed, from the
@@ -39,8 +35,6 @@ same captured inputs, and reads the same numbers.
 
 from __future__ import annotations
 
-import sys
-
 import numpy as np
 import torch
 
@@ -57,20 +51,20 @@ def rel(a: torch.Tensor, r: torch.Tensor) -> float:
     return float((a - r).norm() / r.norm().clamp_min(1e-30))
 
 
-def plan(cfg: dict, mix: dict, limits: dict, seed: int) -> dict:
-    """Which steps, targets and rows the check reads, drawn from the seed."""
+def plan(cfg: dict, mix: dict, limits: dict, seed: int, family) -> dict:
+    """Which steps, targets and rows the check reads, drawn from the seed:
+    the family's Stage-0 draws first, then Stage I's and Stage II's."""
     rng = np.random.default_rng(derive(seed, "check"))
     p = cfg["pipeline"]
-    s0, s1 = p["stage_0.num_inference_steps"], p["scheduler.num_inference_steps"]
     n_windows = len(windows(mix["frames"], cfg["model"]["denoiser"]["temporal_context_size"],
                             p["sliding_window_denoiser"]))
-    dit = sorted({s0 - 1, int(rng.integers(0, max(s0 - 1, 1)))}) if mix["mode"] == "video" else []
-    return {"dit_steps": dit,
-            "s1_steps": {w: int(rng.integers(0, s1)) for w in range(n_windows)},
-            "sdf_rows": int(limits["sample"]["sdf_rows"]),
-            "s2_per_call": int(limits["sample"]["s2_targets_per_call"]),
-            "s2_vertices": int(limits["sample"]["s2_vertices"]),
-            "rng": derive(seed, "check-draws")}
+    out = family.plan(cfg, mix, limits, rng)
+    out.update(s1_steps={w: int(rng.integers(0, p["scheduler.num_inference_steps"]))
+                         for w in range(n_windows)},
+               s2_per_call=int(limits["sample"]["s2_targets_per_call"]),
+               s2_vertices=int(limits["sample"]["s2_vertices"]),
+               rng=derive(seed, "check-draws"))
+    return out
 
 
 def windows(total: int, size: int, slide: int) -> list[list[int]]:
@@ -96,45 +90,17 @@ def store(mode: str, latents: torch.Tensor) -> torch.Tensor:
     return fp8_round(latents) if mode == "fp8" else latents
 
 
-def reference(mode: str, cfg: dict, states: dict, cap: dict, frames, plan_: dict,
+def reference(mode: str, cfg: dict, states: dict, cap: dict, frames, plan_: dict, family,
               device) -> dict:
     """The reference's answers, in products of ``mode``, on the captured
     inputs."""
     m, p = cfg["model"], cfg["pipeline"]
-    out: dict = {}
     with precision(mode), torch.no_grad():
         feats = _frames_features(states["dinov2"], m["dinov2"], frames, device)
-        out["enc"] = feats
-        if cap["dit"]:
-            g = p["stage_0.guidance_scale"]
-            ctx = feats[p["anchor_idx"]][None, None]
-            ts, dist = RP.flow_schedule(p["stage_0.num_inference_steps"],
-                                        p["scheduler.num_train_timesteps"], p["scheduler.shift"])
-            out["dit"] = {}
-            for i, c in cap["dit"].items():
-                x = c["x"].float()
-                B = x.shape[0]
-                cfg_on = g > 0
-                lat = torch.cat([x, x]) if cfg_on else x
-                cx = torch.cat([torch.zeros_like(ctx), ctx]) if cfg_on else ctx
-                t = torch.full((lat.shape[0],), float(ts[i]), device=device)
-                v = R.flow_transformer(states["triposg_dit"], m["triposg_dit"], lat[:, None],
-                                       cx.expand(lat.shape[0], -1, -1, -1),
-                                       torch.zeros(lat.shape[0], 1, device=device), t,
-                                       inflated=False, uncond=B if cfg_on else 0)[:, 0]
-                guided = v[:B] + g * (v[B:] - v[:B]) if cfg_on else v
-                out["dit"][i] = {"v": v, "next": store(mode, x + float(dist[i]) * guided)}
-        if cap["decode_latent"] is not None and cap["sdf"]:
-            lat = cap["decode_latent"].float()
-            tok = R.vae_decode_tokens(states["triposg_vae"], m["triposg_vae"], lat)
-            pts = torch.cat([c["pts"] for c in cap["sdf"]])
-            out["sdf"] = torch.cat([R.vae_sdf(states["triposg_vae"], m["triposg_vae"], tok, pts[i:i + 16384])
-                                    for i in range(0, len(pts), 16384)])
-        if cap["vae"] is not None:
-            out["vae"] = _vae_encode(states["triposg_vae"], m["triposg_vae"], cap["vae"], device)
+        out = {"enc": feats, **family.reference(mode, cfg, states, cap, feats, device)}
         out["s1"] = []
         ts1, dist1 = RP.flow_schedule(p["scheduler.num_inference_steps"],
-                                    p["scheduler.num_train_timesteps"], p["scheduler.shift"])
+                                      p["scheduler.num_train_timesteps"], p["scheduler.shift"])
         flags = p["cf_guidance.guidance_at_inference"]
         uncond = next((i for i, f in enumerate(flags) if f[0]), len(flags))
         for w in cap["s1"]:
@@ -159,20 +125,6 @@ def reference(mode: str, cfg: dict, states: dict, cap: dict, frames, plan_: dict
             out["s1"].append({"v": v, "next": store(mode, nxt)})
         out["s2"] = _stage2(states["autoencoder"], m["autoencoder"], cap, plan_, device)
     return out
-
-
-def _vae_encode(state, vcfg, vae: dict, device) -> torch.Tensor:
-    """The seeded encode's draws, as the pipeline makes them from its seed
-    (one CPU generator: the presample, FPS's start, the posterior noise)."""
-    surface = torch.as_tensor(vae["surface"], device=device)
-    n, k = surface.shape[0], vcfg["num_tokens"]
-    n_pre = min(4 * k, n)
-    gen = torch.Generator().manual_seed(int(vae["seed"]))
-    pre = torch.randperm(n, generator=gen)[:n_pre] if n_pre < n else None
-    start = torch.randint(0, n_pre, (1,), generator=gen)
-    noise = torch.randn((1, k, vcfg["latent_channels"]), generator=gen)
-    return R.vae_encode(state, vcfg, surface, None if pre is None else pre.to(device),
-                        int(start[0]), noise.to(device))
 
 
 def s2_sample(cap: dict, plan_: dict) -> list[tuple[int, int, np.ndarray]]:
@@ -201,14 +153,9 @@ def _stage2(state, acfg, cap, plan_, device) -> list:
     return out
 
 
-def program(cap: dict, plan_: dict, acfg: dict) -> dict:
+def program(cap: dict, plan_: dict, acfg: dict, family) -> dict:
     """The program's answers, from the capture, in the reference's shapes."""
-    out = {"enc": cap["features"]}
-    out["dit"] = {i: {"v": c["v"], "next": c["x_next"]} for i, c in cap["dit"].items()}
-    if cap["sdf"]:
-        out["sdf"] = torch.cat([c["vals"] for c in cap["sdf"]])
-    if cap["vae"] is not None:
-        out["vae"] = cap["vae"]["latent"]
+    out = {"enc": cap["features"], **family.program(cap)}
     out["s1"] = [{"v": w["v"], "next": w["x_next"]} if "x" in w else None for w in cap["s1"]]
     s2 = []
     for c, j, ids in s2_sample(cap, plan_):
@@ -220,12 +167,12 @@ def program(cap: dict, plan_: dict, acfg: dict) -> dict:
     return out
 
 
-def _worst(gaps) -> float:
+def worst(gaps) -> float:
     gaps = list(gaps)
     return max(gaps) if gaps else MISSING
 
 
-def _rows(a: torch.Tensor, r: torch.Tensor):
+def rows(a: torch.Tensor, r: torch.Tensor):
     """Row by row gaps of ``a`` to ``r``, or one missing gap when the
     program's answer is not of the reference's shape."""
     if a.shape != r.shape:
@@ -233,22 +180,11 @@ def _rows(a: torch.Tensor, r: torch.Tensor):
     return [rel(a[b], r[b]) for b in range(r.shape[0])]
 
 
-def numbers(answer: dict, ref: dict, cap: dict, plan_: dict) -> dict:
+def numbers(answer: dict, ref: dict, cap: dict, plan_: dict, family) -> dict:
     """The compared numbers: the relative gaps of ``answer`` to ``ref``."""
     enc = answer["enc"]
-    out = {"enc": _worst(_rows(enc, ref["enc"])) if enc is not None else MISSING}
-    if plan_["dit_steps"]:
-        dit = ref.get("dit", {})
-        if len(dit) == len(plan_["dit_steps"]):
-            out["s0_v"] = _worst(g for i in dit for g in _rows(answer["dit"][i]["v"], dit[i]["v"]))
-            out["s0_step"] = _worst(
-                rel(answer["dit"][i]["next"].float() - c["x"].float(), dit[i]["next"] - c["x"].float())
-                for i, c in cap["dit"].items())
-        else:
-            out["s0_v"] = out["s0_step"] = MISSING
-        out["sdf"] = rel(answer["sdf"], ref["sdf"]) if "sdf" in ref else MISSING
-    if "vae" in ref:
-        out["s0_vae"] = rel(answer["vae"], ref["vae"])
+    out = {"enc": worst(rows(enc, ref["enc"])) if enc is not None else MISSING,
+           **family.numbers(answer, ref, cap, plan_)}
     s1v, s1s = [], []
     for win in plan_["s1_steps"]:
         r = ref["s1"][win] if win < len(ref["s1"]) else None
@@ -261,8 +197,8 @@ def numbers(answer: dict, ref: dict, cap: dict, plan_: dict) -> dict:
         s1v += [rel(v[b, f], r["v"][b, f]) for b in range(v.shape[0]) for f in range(v.shape[1])] \
             if v.shape == r["v"].shape else [MISSING]
         s1s.append(rel(a["next"].float() - x, r["next"] - x))
-    out["s1_v"], out["s1_step"] = _worst(s1v), _worst(s1s)
-    out["s2"] = _worst(rel(a, r) for a, r in zip(answer["s2"], ref["s2"]))
+    out["s1_v"], out["s1_step"] = worst(s1v), worst(s1s)
+    out["s2"] = worst(rel(a, r) for a, r in zip(answer["s2"], ref["s2"]))
     return out
 
 
@@ -306,21 +242,18 @@ def handoff(cap: dict, s2_windows: list[list[int]]) -> int:
     return bad
 
 
-def run(cfg: dict, states: dict, cap: dict, frames, plan_: dict, device,
+def run(cfg: dict, states: dict, cap: dict, frames, plan_: dict, device, family,
         with_control: bool = False) -> tuple[dict, dict | None]:
     """The program's numbers and, ``with_control``, the control's: the
     reference in fp8 put in the program's place on the same inputs."""
-    ref = reference("fp32", cfg, states, cap, frames, plan_, device)
-    prog = program(cap, plan_, cfg["model"]["autoencoder"])
-    vals = numbers(prog, ref, cap, plan_)
-    if "sdf" in ref:
-        r, d = ref["sdf"].float(), prog["sdf"].float().to(ref["sdf"].device) - ref["sdf"].float()
-        print(f"portbench sdf: reference mean {float(r.mean()):.4g} rms {float(r.square().mean().sqrt()):.4g}"
-              f" std {float(r.std()):.4g}; gap rms {float(d.square().mean().sqrt()):.4g}",
-              file=sys.stderr)
+    ref = reference("fp32", cfg, states, cap, frames, plan_, family, device)
+    prog = program(cap, plan_, cfg["model"]["autoencoder"], family)
+    vals = numbers(prog, ref, cap, plan_, family)
+    family.report(prog, ref)
     s2_windows = windows(len(frames), cfg["model"]["autoencoder"]["temporal_context_size"],
                          cfg["pipeline"]["sliding_window_autoencoder"])
     vals["handoff"] = handoff(cap, s2_windows)
     if not with_control:
         return vals, None
-    return vals, numbers(reference("fp8", cfg, states, cap, frames, plan_, device), ref, cap, plan_)
+    return vals, numbers(reference("fp8", cfg, states, cap, frames, plan_, family, device), ref,
+                         cap, plan_, family)

@@ -1,9 +1,10 @@
 """One run of one cell: set-up, warm-up, the measured window, the check.
 
 Set-up (timed from the process's start, ``setup_s``): the cell's traffic
-from the seed, the weights made on the device from the seed, the pipeline
-built on them, and a warm-up of one clip at the cell's shapes with one
-Stage-0 step and one Stage-I step. The window (``window.closed_loop``)
+from the seed, the weights of the model family's networks
+(``families/<family>.py``) made on the device from the seed, the pipeline
+the family builds on them, and a warm-up of one clip at the cell's shapes
+with one Stage-0 step and one Stage-I step. The window (``window.closed_loop``)
 then runs clips back to back, the same in every run. Without ``trace`` the
 end-to-end metrics report. With it the per-layer readers do: the stage
 seconds and ``clip_mfu`` from the window's clips, as untraced runs time
@@ -39,11 +40,6 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def families(mode: str) -> list[str]:
-    base = ["dinov2", "triposg_vae", "denoiser", "autoencoder"]
-    return base + ["triposg_dit"] if mode == "video" else base
-
-
 def clip_seed(seed: int, i: int) -> int:
     """The pipeline's sampling seed of clip i (below 2^31: the pipeline
     seeds numpy's legacy generator with it)."""
@@ -60,16 +56,18 @@ def run(root: Path, name: str, seed: int, seconds: float, trace: bool, t_start: 
     cfg = manifest.config(man, wl["config"], root)
     mix = manifest.traffic(wl["traffic"], root)
     limits = manifest.checks(name, root)
+    family = manifest.family(cfg["family"], root)
     mode = mix["mode"]
 
     frames = traffic.frames(mix, seed)
     mesh = traffic.mesh(mix, seed) if mode == "video_mesh" else None
-    states = make_states(cfg["model"], families(mode), seed, device, port.DTYPES[cfg["dtype"]])
+    states = make_states(family.layouts(cfg["model"], family.networks(mode)), seed, device,
+                         port.DTYPES[cfg["dtype"]])
     log(t_start, "weights made")
-    pipe = port.build(cfg, states, mode, device)
+    pipe = family.build(cfg, states, mode, device)
     log(t_start, "pipeline built")
-    plan = check.plan(cfg, mix, limits, seed)
-    hooks = port.Hooks(pipe, plan)
+    plan = check.plan(cfg, mix, limits, seed, family)
+    hooks = port.Hooks(pipe, plan, family)
     inp = port.make_input(frames)
     mesh_in = port.make_mesh(*mesh) if mesh is not None else None
 
@@ -123,7 +121,7 @@ def run(root: Path, name: str, seed: int, seconds: float, trace: bool, t_start: 
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    vals, ctrl = check.run(cfg, states, cap, frames, plan, device, with_control=control)
+    vals, ctrl = check.run(cfg, states, cap, frames, plan, device, family, with_control=control)
     log(t_start, "check done")
     lim = limits["limits"]
     compared = {k: {"value": v, "limit": lim[k]} for k, v in vals.items()}

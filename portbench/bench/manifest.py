@@ -4,9 +4,11 @@ the files beside it under ``portbench/``.
 A configuration is the file its manifest entry names; a traffic mix is
 ``traffic/<traffic>.json``; the limits of a cell's comparison are
 ``checks/<workload>.json``; a per-layer metric is the reader
-``metrics/<metric>.py``; the work count of a model family is
-``work/<family>.py``. A new cell, configuration, mix or metric is a new
-file and a new manifest entry.
+``metrics/<metric>.py``; a model family (the configuration's ``family``)
+is ``families/<family>.py``, its networks, the port's build and its
+Stage-0 capture and check, and ``work/<family>.py``, its work count. A new
+cell, configuration, mix, metric or family is new files and new manifest
+entries.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ def checks(workload_name: str, root: Path = ROOT) -> dict:
 
 
 def _module(path: Path, tag: str):
+    if not path.is_file():
+        raise FileNotFoundError(f"portbench: {path} is missing")
     spec = importlib.util.spec_from_file_location(f"portbench_{tag}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -66,6 +70,11 @@ def metric_reader(name: str, root: Path = ROOT):
 
 def work_model(family: str, root: Path = ROOT):
     return _module(bench_dir(root) / "work" / f"{family}.py", "work_" + family)
+
+
+def family(name: str, root: Path = ROOT):
+    """The model family ``families/<name>.py`` (see ``families/actionmesh.py``)."""
+    return _module(bench_dir(root) / "families" / f"{name}.py", "family_" + name)
 
 
 def metrics_of(manifest: dict, workload_name: str, per_layer: bool) -> list[dict]:

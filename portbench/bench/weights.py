@@ -1,7 +1,7 @@
 """Weights made from the seed, on the device, in the release's names and
 shapes (``reference/layout.py``), in the type they are served in.
 
-Each family is one flat buffer filled by one uniform draw in [-1, 1) from
+Each network is one flat buffer filled by one uniform draw in [-1, 1) from
 a device generator (in slices of 2^28 values), then cut into views, each
 starting on a 256-byte boundary, and scaled in place by its kind: a linear
 weight or bias to +-1/sqrt(fan_in), a norm weight to 1 +- 0.1, a norm bias
@@ -52,7 +52,7 @@ def make_state(lay: layout.Layout, seed: int, device, dtype: torch.dtype) -> dic
     return state
 
 
-def make_states(model: dict, families, seed: int, device, dtype: torch.dtype) -> dict:
-    """{family: state dict} for the configuration's model sizes."""
-    return {f: make_state(lay, derive(seed, f"weights:{f}"), device, dtype)
-            for f, lay in layout.layouts(model, families).items()}
+def make_states(layouts: dict[str, layout.Layout], seed: int, device, dtype: torch.dtype) -> dict:
+    """{network: state dict}, each network's draw seeded by its name."""
+    return {net: make_state(lay, derive(seed, f"weights:{net}"), device, dtype)
+            for net, lay in layouts.items()}

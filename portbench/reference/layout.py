@@ -14,7 +14,8 @@ the port shapes a random-weight field into a sphere perturbed by
 that surface's size, and with it the extraction's and the mesh
 processing's work, change from seed to seed. The reference
 (``reference/models.py``) reads these names; the port reads the same
-tensors through its own checkpoint converters.
+tensors through its own checkpoint converters. A model family
+(``families/<family>.py``) tables its networks' layouts from these.
 """
 
 from __future__ import annotations
@@ -160,16 +161,3 @@ def fan_in(shape: tuple[int, ...]) -> int:
     for s in shape[1:]:
         n *= s
     return n
-
-
-def layouts(model: dict, families) -> dict[str, Layout]:
-    """The layouts of ``families`` (names among the functions above) from a
-    configuration file's model sizes."""
-    makers = {
-        "dinov2": lambda: dinov2(model["dinov2"]),
-        "triposg_dit": lambda: flow_transformer(model["triposg_dit"]),
-        "triposg_vae": lambda: triposg_vae(model["triposg_vae"]),
-        "denoiser": lambda: flow_transformer(model["denoiser"]),
-        "autoencoder": lambda: autoencoder(model["autoencoder"]),
-    }
-    return {f: makers[f]() for f in families}
