@@ -2,13 +2,15 @@
 
     python -m actionmesh_tpu_torch.inference.video_to_animated_mesh --input DIR \
         [--output_dir OUT] [--fast | --low_ram | --distilled | --distilled4 | --turbo] \
-        [--dtype bfloat16|float16|float32] [--device cuda|cpu]
+        [--dtype bfloat16|float16|float32] [--device cuda|cpu] \
+        [--stage_0_model triposg|hunyuan3d-2.1]
 
 Counterpart of ``inference/video_to_animated_mesh.py`` with the same flags
 and preset precedence (``--turbo``, then ``--distilled4 --fast``,
 ``--distilled4``, ``--distilled``, ``--fast --low_ram``, ``--fast``,
 ``--low_ram``), plus ``--device``, which defaults to cuda and raises
-without a card. It writes ``mesh_XX.glb`` per frame,
+without a card, and ``--stage_0_model``, Stage 0's image-to-3D model
+(TripoSG, the default, or Hunyuan3D-2.1's shape model). It writes ``mesh_XX.glb`` per frame,
 ``deformations_{vertices,faces}.npy``, ``animated_mesh.glb`` (Blender with
 ``--blender_path``, else the built-in morph-target writer) and, unless
 ``--no_render``, the preview ``grid_normal.mp4`` (or ``.gif``). Preview
@@ -35,6 +37,7 @@ from actionmesh_tpu_torch.io.animated_glb import create_animated_glb_native
 from actionmesh_tpu_torch.io.glb_export import create_animated_glb
 from actionmesh_tpu_torch.io.mesh_io import save_deformation, save_meshes
 from actionmesh_tpu_torch.io.video_input import load_frames
+from actionmesh_tpu_torch.models.stage0 import STAGE0_MODELS
 from actionmesh_tpu_torch.pipeline import ActionMeshPipeline
 
 logger = logging.getLogger(__name__)
@@ -194,6 +197,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", type=str, choices=list(DTYPES), default="bfloat16")
     parser.add_argument("--no_render", action="store_true")
     parser.add_argument("--stage_0_steps", type=int, default=None)
+    parser.add_argument(
+        "--stage_0_model", type=str, choices=list(STAGE0_MODELS), default="triposg",
+        help="Stage 0's image-to-3D model (hunyuan3d-2.1: Hunyuan3D-2.1's shape model, "
+        "its checkpoint under WEIGHTS_DIR/Hunyuan3D-2.1).",
+    )
     parser.add_argument("--face_decimation", type=int, default=None)
     parser.add_argument("--floaters_threshold", type=float, default=None)
     parser.add_argument("--stage_1_steps", type=int, default=None)
@@ -235,6 +243,7 @@ def main(argv: Optional[list[str]] = None) -> dict:
         device=device,
         dtype=DTYPES[args.dtype],
         lazy_loading=args.low_ram,
+        stage_0_model=args.stage_0_model,
     )
     result = run_actionmesh(
         pipeline,

@@ -9,6 +9,13 @@ diffusion-time token, with the diffusion time zeroed on ground-truth frames.
 Under a device mesh the batch (the CFG branches) splits over dp, the frames
 over sp (the inflated self-attention then runs the ring) and the heads and
 MLP columns over tp (``parallel/mesh.py``).
+
+The same code is Hunyuan3D-2.1's shape DiT (``models/hunyuan3d/dit.py``)
+at an ``ExpertDenoiserConfig``: its last blocks (``moe_layers``) hold a
+sparse-expert feed-forward (``num_experts`` routed, ``moe_top_k`` a token,
+plus a shared one), its layer norms take ``norm_eps`` 1e-6 and its time
+embedding is [cos | sin] (``flip_sin_to_cos``). A ``DenoiserConfig`` has
+none of these: the Stage-I denoiser and TripoSG's DiT run as before.
 """
 
 from __future__ import annotations
@@ -61,6 +68,14 @@ class DenoiserConfig:
     cross_attention_dim: int = 1024
     inflated_layers: tuple[int, ...] = tuple(range(21))
     gelu_approx: bool = True
+    # no expert blocks, layer norms at eps 1e-5, a [sin | cos] time
+    # embedding: class attributes here, fields of ExpertDenoiserConfig, so
+    # that this config keeps the JAX package's fields
+    moe_layers = ()
+    num_experts = 0
+    moe_top_k = 2
+    norm_eps = 1e-5
+    flip_sin_to_cos = False
 
     @property
     def width_per_head(self) -> int:
@@ -69,6 +84,21 @@ class DenoiserConfig:
     @property
     def out_channels(self) -> int:
         return self.in_channels
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertDenoiserConfig(DenoiserConfig):
+    """The flow transformer with Hunyuan3D-2.1's options: the blocks
+    ``moe_layers`` hold ``num_experts`` routed experts (``moe_top_k`` a
+    token) and a shared one in place of the dense feed-forward, the layer
+    norms take ``norm_eps``, and ``flip_sin_to_cos`` orders the time
+    embedding [cos | sin]."""
+
+    moe_layers: tuple[int, ...] = ()
+    num_experts: int = 0
+    moe_top_k: int = 2
+    norm_eps: float = 1e-5
+    flip_sin_to_cos: bool = False
 
 
 def init_denoiser(
@@ -101,6 +131,7 @@ def init_denoiser(
                 attention_bias=False,
                 ff_inner_dim=int(w * cfg.mlp_ratio),
                 skip=layer > cfg.num_layers // 2,
+                num_experts=cfg.num_experts if layer in cfg.moe_layers else 0,
                 dtype=dtype,
                 device=device,
             )
@@ -191,7 +222,7 @@ def denoiser_forward(
     if mask is not None:
         dt = dt * (1.0 - merge_batch_time(mask).to(dt.dtype))
     dt_emb = sinusoidal_timestep_embedding(
-        dt, cfg.width, flip_sin_to_cos=False, downscale_freq_shift=0.0
+        dt, cfg.width, flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=0.0
     ).to(compute_dtype)
     # erf GELU here whatever gelu_approx says (actionmesh_tpu denoiser.py:210-212)
     dt_hidden = F.gelu(linear(params["time_proj"]["linear_1"], copy_to_tp(dt_emb, mesh)))
@@ -223,6 +254,8 @@ def denoiser_forward(
                 trainable=trainable,
                 mesh=mesh,
                 sequence_parallel=bool(f_axes),
+                norm_eps=cfg.norm_eps,
+                moe_top_k=cfg.moe_top_k,
             )
 
         args = (x, context_merged, freqs_rot if inflate is not None else None, skip)
@@ -233,7 +266,7 @@ def denoiser_forward(
         if layer < half:
             skips.append(x)
 
-    x = layer_norm(params["norm_out"], x)
+    x = layer_norm(params["norm_out"], x, cfg.norm_eps)
     x = linear(params["proj_out"], x[:, -N:])  # drop the time token
     out = split_batch_time(x, T)
     if mesh is not None:

@@ -10,6 +10,12 @@ Two JAX switches are not ported as switches: q, k and v are never
 concatenated into one projection, and the cross-attention of CFG branches
 with all-zero image context is skipped off a mesh (it is bitwise-exact).
 
+``moe_feed_forward`` is the sparse-expert feed-forward of Hunyuan3D-2.1's
+DiT, which the JAX package does not have: a softmax router's top-k of E
+experts per token, each expert's rows run as one grouped product per
+projection, and an always-on shared expert. It keeps the router's counts
+and offsets on the device (no host synchronisation).
+
 Under a device mesh (``parallel/mesh.py``) these functions take the rank's
 local shard: activations whole over tp, the rank's batch rows and frames;
 parameters cut by ``shard_params``. Column-parallel q/k/v and ``net_0`` give
@@ -41,6 +47,7 @@ from actionmesh_tpu_torch.parallel.mesh import (
     reduce_from_tp,
     tp_splits_heads,
 )
+from actionmesh_tpu_torch.utils.profiling import span
 
 Params = dict
 
@@ -89,18 +96,35 @@ def init_feed_forward(gen, dim, inner_dim, dtype, device) -> Params:
     }
 
 
+def init_moe_feed_forward(gen, dim, inner_dim, num_experts, dtype, device) -> Params:
+    """Router ``gate`` (E, dim), no bias; the routed experts' two
+    projections stacked over E (``weight`` (E, out, in), ``bias`` (E, out));
+    the ``shared`` expert as ``init_feed_forward``."""
+    experts = [init_feed_forward(gen, dim, inner_dim, dtype, device) for _ in range(num_experts)]
+    return {
+        "gate": {"weight": init_linear(gen, dim, num_experts, False, dtype, device)["weight"]},
+        "experts": {
+            net: {k: torch.stack([e[net][k] for e in experts]) for k in ("weight", "bias")}
+            for net in ("net_0", "net_2")
+        },
+        "shared": init_feed_forward(gen, dim, inner_dim, dtype, device),
+    }
+
+
 def init_attention(
     gen: torch.Generator,
     query_dim: int,
     heads: int,
     cross_attention_dim: Optional[int] = None,
-    qk_norm: bool = False,
+    qk_norm: bool | str = False,
     cross_norm: Optional[str] = None,
     bias: bool = False,
     out_bias: bool = True,
     dtype: torch.dtype = torch.float32,
     device: Optional[torch.device] = None,
 ) -> Params:
+    """``qk_norm``: True for a per-head rms-norm on q and k, ``"layer_norm"``
+    for a per-head layer norm."""
     kv_dim = cross_attention_dim if cross_attention_dim is not None else query_dim
     dim_head = query_dim // heads
     params: Params = {
@@ -110,8 +134,9 @@ def init_attention(
         "to_out": init_linear(gen, query_dim, query_dim, out_bias, dtype, device),
     }
     if qk_norm:
-        params["norm_q"] = init_rms_norm(dim_head, device)
-        params["norm_k"] = init_rms_norm(dim_head, device)
+        init_norm = init_layer_norm if qk_norm == "layer_norm" else init_rms_norm
+        params["norm_q"] = init_norm(dim_head, device)
+        params["norm_k"] = init_norm(dim_head, device)
     if cross_norm == "layer_norm":
         params["norm_cross"] = init_layer_norm(kv_dim, device)
     return params
@@ -125,14 +150,17 @@ def init_flow_matching_block(
     use_cross_attention: bool = True,
     cross_attention_dim: Optional[int] = None,
     cross_attention_norm: Optional[str] = None,
-    attention_qk_norm: bool = True,
+    attention_qk_norm: bool | str = True,
     attention_bias: bool = True,
     attention_out_bias: bool = True,
     ff_inner_dim: Optional[int] = None,
     skip: bool = False,
+    num_experts: int = 0,
     dtype: torch.dtype = torch.float32,
     device: Optional[torch.device] = None,
 ) -> Params:
+    """``num_experts`` > 0: the sparse-expert feed-forward ``moe`` in place
+    of the dense ``ff``."""
     params: Params = {}
     if use_self_attention:
         params["norm_s_attn"] = init_layer_norm(dim, device)
@@ -151,10 +179,11 @@ def init_flow_matching_block(
             dtype=dtype, device=device,
         )
     params["norm_ff"] = init_layer_norm(dim, device)
-    params["ff"] = init_feed_forward(
-        gen, dim, ff_inner_dim if ff_inner_dim is not None else 4 * dim,
-        dtype, device,
-    )
+    inner = ff_inner_dim if ff_inner_dim is not None else 4 * dim
+    if num_experts:
+        params["moe"] = init_moe_feed_forward(gen, dim, inner, num_experts, dtype, device)
+    else:
+        params["ff"] = init_feed_forward(gen, dim, inner, dtype, device)
     if skip:
         params["norm_skip"] = init_layer_norm(dim, device)
         params["linear_skip"] = init_linear(gen, 2 * dim, dim, True, dtype, device)
@@ -206,6 +235,71 @@ def feed_forward(
     return linear(params["net_2"], h)
 
 
+def moe_route(gate: torch.Tensor, h: torch.Tensor, top_k: int):
+    """The router: softmax over E of ``h`` (n, W) against ``gate`` (E, W),
+    in fp32, and each row's top ``top_k`` experts. Returns (scores (n, E),
+    weights (n, k), experts (n, k)); the weights are the selected scores,
+    not renormalised."""
+    scores = torch.softmax(F.linear(h.float(), gate.float()), dim=-1)
+    weights, experts = torch.topk(scores, top_k, dim=-1)
+    return scores, weights, experts
+
+
+def moe_dispatch(experts: torch.Tensor, num_experts: int):
+    """The token-expert pairs ``experts`` (n, k) sorted by expert on the
+    device (a stable sort). Returns (order: the flat pair indices in that
+    order, so ``order // k`` is each row's token; expert_of_row; counts
+    (E,) int64; offsets (E,) int32, where expert e's rows end). No host
+    synchronisation: the counts are a scatter-add into E slots
+    (``torch.bincount`` reads its input's maximum on the host)."""
+    flat = experts.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    return order, flat.index_select(0, order), counts, torch.cumsum(counts, 0).to(torch.int32)
+
+
+def grouped_linear(x: torch.Tensor, params: Params, offsets: torch.Tensor,
+                   expert_of_row: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` (m, in) sorted by expert, expert e's rows ending at
+    ``offsets[e]``, through each one's linear (``weight`` (E, out, in),
+    ``bias`` (E, out)): one grouped product for all experts."""
+    w = params["weight"]
+    y = torch._grouped_mm(x.to(w.dtype), w.transpose(-2, -1), offs=offsets)
+    return y + params["bias"].index_select(0, expert_of_row)
+
+
+def moe_feed_forward(params: Params, x: torch.Tensor, top_k: int,
+                     gelu_approx: bool = False) -> torch.Tensor:
+    """Sparse-expert feed-forward on (..., W): every token's ``top_k``
+    routed experts weighted by their router scores (not renormalised), plus
+    the shared expert, computed once per token. No token is dropped.
+
+    The token-expert pairs are sorted by expert on the device
+    (``moe_dispatch``), the counts and offsets stay there, and each expert
+    projection is one ``torch._grouped_mm`` over all experts. Runs in a
+    ``moe`` span whose counter ``routed_rows`` is the rows each expert took
+    (a device tensor (E,), read only after the call)."""
+    shape = x.shape
+    h = x.reshape(-1, shape[-1])
+    with span("moe") as sp:
+        gate = params["gate"]["weight"]
+        _, weights, experts = moe_route(gate, h, top_k)
+        order, expert_of_row, counts, offsets = moe_dispatch(experts, gate.shape[0])
+        sp.counters["routed_rows"] = counts
+        token = order // top_k
+        hid = F.gelu(grouped_linear(h.index_select(0, token), params["experts"]["net_0"], offsets,
+                                    expert_of_row), approximate="tanh" if gelu_approx else "none")
+        out = grouped_linear(hid, params["experts"]["net_2"], offsets, expert_of_row)
+        # each pair's weighted output back at its (token, choice) place: a
+        # fixed order of the sum over choices, so the layer is deterministic
+        routed = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+        routed[order] = out.float() * weights.reshape(-1)[order, None]
+        y = routed.view(h.shape[0], top_k, -1).sum(1)
+        y = y + feed_forward(params["shared"], h, gelu_approx=gelu_approx).float()
+    return y.to(x.dtype).reshape(shape)
+
+
 def attention(
     params: Params,
     hidden_states: torch.Tensor,
@@ -217,11 +311,15 @@ def attention(
     trainable: bool = False,
     mesh=None,
     sequence_parallel: bool = False,
+    norm_eps: float = 1e-5,
 ) -> torch.Tensor:
     """Multi-head (self or cross) attention on (B, S, D) activations.
 
     Optional per-head rms qk-norm and half-layout RoPE on q and k (one fused
-    kernel per tensor), flash attention, output projection. ``trainable``
+    kernel per tensor), or a per-head layer norm on q and k (``norm_q``
+    with a ``bias``; no RoPE with it), flash attention, output projection.
+    ``norm_eps``: the epsilon of the layer norms (``norm_cross``, a layer
+    qk-norm). ``trainable``
     takes the attention with the O(S)-memory flash backward (JAX's
     ``attn_impl="auto_train"``).
 
@@ -255,6 +353,7 @@ def attention(
             freqs_rot=freqs_rot,
             kv_mask=kv_mask[uncond_prefix:] if kv_mask is not None else None,
             trainable=trainable,
+            norm_eps=norm_eps,
         )
         out_bias = params["to_out"].get("bias")
         if out_bias is None:
@@ -265,7 +364,7 @@ def attention(
 
     kv_src = hidden_states if encoder_hidden_states is None else encoder_hidden_states
     if encoder_hidden_states is not None and "norm_cross" in params:
-        kv_src = layer_norm(params["norm_cross"], kv_src)
+        kv_src = layer_norm(params["norm_cross"], kv_src, norm_eps)
 
     split_heads = tp_splits_heads(heads, axis_size(mesh, "tp"))
     if split_heads:
@@ -284,7 +383,10 @@ def attention(
     v = v.view(B, -1, heads, dim_head).transpose(1, 2)
 
     has_norm = "norm_q" in params
-    if has_norm or freqs_rot is not None:
+    if has_norm and "bias" in params["norm_q"]:
+        q = layer_norm(params["norm_q"], q, norm_eps)
+        k = layer_norm(params["norm_k"], k, norm_eps)
+    elif has_norm or freqs_rot is not None:
         cos, sin = freqs_rot if freqs_rot is not None else (None, None)
         scale_q = scale_k = None
         if has_norm:
@@ -317,8 +419,14 @@ def flow_matching_block(
     trainable: bool = False,
     mesh=None,
     sequence_parallel: bool = False,
+    norm_eps: float = 1e-5,
+    moe_top_k: int = 2,
 ) -> torch.Tensor:
     """Pre-norm transformer block with optional U-skip concat.
+
+    ``norm_eps``: the layer norms' epsilon (the attentions' too). A block whose params hold
+    ``moe`` runs ``moe_feed_forward`` (``moe_top_k`` experts a token) in
+    place of the dense feed-forward (off a mesh only).
 
     With ``inflate_n_frames=T`` the self-attention runs over the cross-frame
     sequence (B, T*N, D) built from the per-frame layout (B*T, N, D);
@@ -336,15 +444,15 @@ def flow_matching_block(
         if skip is None:
             raise ValueError("a skip block needs its U-skip input")
         cat = torch.cat([skip, hidden_states], dim=-1)
-        hidden_states = layer_norm(params["norm_skip"], linear(params["linear_skip"], cat))
+        hidden_states = layer_norm(params["norm_skip"], linear(params["linear_skip"], cat), norm_eps)
 
     if "s_attn" in params:
-        normed = layer_norm(params["norm_s_attn"], hidden_states)
+        normed = layer_norm(params["norm_s_attn"], hidden_states, norm_eps)
         if inflate_n_frames is not None:
             normed = flat_batch_to_flat_seq(normed, inflate_n_frames)
         att = attention(
             params["s_attn"], normed, heads=num_attention_heads, freqs_rot=freqs_rot,
-            trainable=trainable, mesh=mesh, sequence_parallel=sequence_parallel,
+            trainable=trainable, mesh=mesh, sequence_parallel=sequence_parallel, norm_eps=norm_eps,
         )
         if inflate_n_frames is not None:
             att = flat_seq_to_flat_batch(att, inflate_n_frames)
@@ -353,17 +461,18 @@ def flow_matching_block(
     if "x_attn" in params:
         hidden_states = hidden_states + attention(
             params["x_attn"],
-            layer_norm(params["norm_x_attn"], hidden_states),
+            layer_norm(params["norm_x_attn"], hidden_states, norm_eps),
             heads=num_attention_heads,
             encoder_hidden_states=encoder_hidden_states,
             uncond_prefix=uncond_prefix,
             trainable=trainable,
             mesh=mesh,
+            norm_eps=norm_eps,
         )
 
-    return hidden_states + feed_forward(
-        params["ff"],
-        layer_norm(params["norm_ff"], hidden_states),
-        gelu_approx=gelu_approx,
-        mesh=mesh,
-    )
+    normed = layer_norm(params["norm_ff"], hidden_states, norm_eps)
+    if "moe" in params:
+        if mesh is not None:
+            raise NotImplementedError("the sparse-expert feed-forward runs off a mesh only")
+        return hidden_states + moe_feed_forward(params["moe"], normed, moe_top_k, gelu_approx)
+    return hidden_states + feed_forward(params["ff"], normed, gelu_approx=gelu_approx, mesh=mesh)

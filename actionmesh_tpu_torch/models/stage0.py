@@ -7,6 +7,10 @@ checkpoint when there is one. Without weights the pipeline runs ``DevTripoSG``,
 the same code path with random weights, at the production latent shape
 (2048, 64); at any other shape, or with ``ACTIONMESH_DEV_STAGE0=stub``, it
 runs the deterministic stub (a seeded latent and a UV sphere).
+
+``model="hunyuan3d-2.1"`` selects Hunyuan3D-2.1's shape model instead
+(``models/hunyuan3d/``), which hands Stage I a TripoSG latent of its mesh;
+without its weights ``DevHunyuan3D``, the same path on random weights.
 """
 
 from __future__ import annotations
@@ -115,6 +119,43 @@ class DevTripoSG:
         return self.pipeline.encode_to_latent(surface, seed=seed)
 
 
+def dev_hunyuan3d_configs(latent_shape: tuple[int, int]) -> dict:
+    """``Hunyuan3DPipeline.from_random``'s configurations for the
+    development path: the published widths, and the handoff's TripoSG VAE
+    at Stage I's latent shape."""
+    from actionmesh_tpu_torch.models.triposg.vae import TripoSGVAEConfig
+
+    return {"handoff_cfg": TripoSGVAEConfig(num_tokens=latent_shape[0], latent_channels=latent_shape[1])}
+
+
+class DevHunyuan3D(DevTripoSG):
+    """Development Stage 0 with Hunyuan3D-2.1's shape model: its path on
+    random weights (``Hunyuan3DPipeline.from_random`` at
+    ``dev_hunyuan3d_configs``), built at the first call, with the same SDF
+    regulariser as ``DevTripoSG``. ``handoff``: the TripoSG VAE's encode
+    path to hand over with (random weights when None)."""
+
+    def __init__(self, device: torch.device, latent_shape: tuple[int, int],
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0, handoff=None):
+        super().__init__(device, dtype=dtype, seed=seed)
+        self._latent_shape = tuple(latent_shape)
+        self._handoff = handoff
+
+    @property
+    def pipeline(self):
+        if self._pipe is None:
+            from actionmesh_tpu_torch.models.hunyuan3d.pipeline import Hunyuan3DPipeline
+
+            logger.info("Building the random-weight Hunyuan3D-2.1 pipeline (development mode)")
+            self._pipe = Hunyuan3DPipeline.from_random(
+                seed=self._seed, dtype=self._dtype, device=self.device, handoff=self._handoff,
+                **dev_hunyuan3d_configs(self._latent_shape),
+            )
+            self._pipe.sdf_regularizer = _dev_sdf_regularizer
+            self._pipe.sdf_regularizer_torch = _dev_sdf_regularizer_torch
+        return self._pipe
+
+
 def _dev_sdf_regularizer(pts: np.ndarray, vals: np.ndarray) -> np.ndarray:
     """Noisy-sphere SDF for random-weight runs: the decoded values perturb a
     sphere of radius 0.65 instead of being the field (inside negative)."""
@@ -129,6 +170,10 @@ def _dev_sdf_regularizer_torch(pts: torch.Tensor, vals: torch.Tensor) -> torch.T
     return (r - 0.65) + 0.12 * torch.tanh(vals.float())
 
 
+# Stage-0 model -> its checkpoint's directory under the pipeline's weights_dir
+STAGE0_MODELS = {"triposg": "TripoSG", "hunyuan3d-2.1": "Hunyuan3D-2.1"}
+
+
 def make_image_to_3d(
     weights_dir: Optional[Path],
     latent_shape: tuple[int, int],
@@ -136,12 +181,23 @@ def make_image_to_3d(
     dtype: torch.dtype = torch.bfloat16,
     image_encoder=None,
     device_mesh=None,
+    model: str = "triposg",
+    handoff_dir: Optional[Path] = None,
 ):
     """TripoSG from the checkpoint in ``weights_dir`` if that exists (its
     DINOv2 is ``image_encoder`` if given, else the checkpoint beside it);
     without weights ``DevTripoSG`` at the production latent shape unless
     ``ACTIONMESH_DEV_STAGE0=stub``; the stub otherwise. ``device_mesh``:
-    TripoSG's (``TripoSGPipeline``)."""
+    TripoSG's (``TripoSGPipeline``).
+
+    ``model="hunyuan3d-2.1"``: Hunyuan3D-2.1 from ``weights_dir`` if that
+    exists, else ``DevHunyuan3D``; its handoff encodes with TripoSG's VAE
+    from ``handoff_dir`` (TripoSG's checkpoint) if that exists, else with a
+    random one. It runs on one device (no ``device_mesh``)."""
+    if model not in STAGE0_MODELS:
+        raise ValueError(f"unknown Stage-0 model {model!r}; one of {tuple(STAGE0_MODELS)}")
+    if model == "hunyuan3d-2.1":
+        return _make_hunyuan3d(weights_dir, latent_shape, device, dtype, device_mesh, handoff_dir)
     if weights_dir is not None and Path(weights_dir).exists():
         from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline
 
@@ -163,3 +219,33 @@ def make_image_to_3d(
         weights_dir,
     )
     return StubImageTo3D(latent_shape, device)
+
+
+def _make_hunyuan3d(weights_dir, latent_shape, device, dtype, device_mesh, handoff_dir):
+    if device_mesh is not None:
+        raise NotImplementedError("the Hunyuan3D-2.1 Stage 0 runs on one device (no device mesh)")
+    handoff = None
+    if handoff_dir is not None and Path(handoff_dir).exists():
+        from actionmesh_tpu_torch.models.triposg.pipeline import TripoSGPipeline, triposg_configs
+        from actionmesh_tpu_torch.utils import weights as weights_util
+
+        logger.info("Loading TripoSG's VAE for the handoff from %s", handoff_dir)
+        _, vae_cfg = triposg_configs(Path(handoff_dir))
+        vae = weights_util.convert_triposg_vae(
+            weights_util.load_safetensors_dir(Path(handoff_dir) / "vae"), vae_cfg, dtype)
+        handoff = TripoSGPipeline(None, weights_util.params_from_jax(vae, device), None,
+                                  vae_cfg=vae_cfg, dtype=dtype, device=device)
+    if weights_dir is not None and Path(weights_dir).exists():
+        from actionmesh_tpu_torch.models.hunyuan3d.pipeline import Hunyuan3DPipeline
+
+        if handoff is None:
+            raise FileNotFoundError(
+                f"Hunyuan3D-2.1 weights in {weights_dir} need TripoSG's VAE for the handoff "
+                f"({handoff_dir} is missing)")
+        logger.info("Loading Hunyuan3D-2.1 weights from %s", weights_dir)
+        return Hunyuan3DPipeline.from_pretrained(Path(weights_dir), handoff, dtype=dtype, device=device)
+    logger.warning(
+        "Hunyuan3D-2.1 weights not found (%s) — running its path with random weights "
+        "(development mode, dev SDF regularizer).", weights_dir,
+    )
+    return DevHunyuan3D(device, latent_shape, dtype=dtype, handoff=handoff)

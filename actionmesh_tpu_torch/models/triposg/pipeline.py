@@ -326,6 +326,11 @@ class TripoSGPipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def schedule(self, num_inference_steps: int) -> tuple[np.ndarray, np.ndarray]:
+        """(the DiT's diffusion time at each of the steps + 1 points, the
+        Euler distances (steps,)): the shifted rectified-flow schedule."""
+        return get_schedule(num_inference_steps, self._num_train_timesteps, self._shift)
+
     @torch.no_grad()
     def __call__(
         self,
@@ -352,7 +357,7 @@ class TripoSGPipeline:
                 seed, (1, self.vae_cfg.num_tokens, self.vae_cfg.latent_channels),
                 self._dtype, self.device,
             )
-            ts, dist = get_schedule(num_inference_steps, self._num_train_timesteps, self._shift)
+            ts, dist = self.schedule(num_inference_steps)
             latents = flow_sample(
                 self.dit_params, self.dit_cfg, noise, context.to(self._dtype), ts, dist,
                 guidance_scale=None if guidance_scale <= 0 else float(guidance_scale),

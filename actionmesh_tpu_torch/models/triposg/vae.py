@@ -18,6 +18,15 @@ sign-only coarse passes) runs the query cross-attention in that dtype.
 that the weight bridge sees the JAX package's keys; the query-side
 projections (``proj_query``, ``dec_cross_attn``, ``dec_proj_out``) stay fp32
 whatever the model dtype.
+
+Hunyuan3D-2.1's ShapeVAE decoder is this decoder at a ``ShapeVAEConfig``
+(``models/hunyuan3d/pipeline.py``): 4,096 latents, 16 heads of 64, a
+per-head layer norm on q and k in its self blocks and its query
+cross-attention (``decoder_qk_norm``), biased attention output projections
+(``decoder_out_bias``), its blocks' layer norms at ``decoder_norm_eps``, a
+feed-forward after the query cross-attention (``decoder_query_mlp``: the
+release's ``ResidualCrossAttentionBlock`` ``ln_3`` and ``mlp``), and
+latents divided by ``scale_factor`` before the decoder.
 """
 
 from __future__ import annotations
@@ -31,8 +40,10 @@ import torch
 from actionmesh_tpu_torch.models.layers import (
     Params,
     attention,
+    feed_forward,
     flow_matching_block,
     init_attention,
+    init_feed_forward,
     init_flow_matching_block,
     init_layer_norm,
     init_linear,
@@ -62,10 +73,34 @@ class TripoSGVAEConfig:
     decoder_width: int = 1024
     decoder_layers: int = 16
     decoder_heads: int = 8
+    # class attributes here, fields of ShapeVAEConfig, so that this config
+    # keeps the JAX package's fields
+    decoder_qk_norm = False
+    decoder_out_bias = False
+    decoder_norm_eps = 1e-5
+    decoder_query_mlp = False
+    scale_factor = 1.0
 
     @property
     def point_feat_dim(self) -> int:
         return frequency_embedding_out_dim(self.in_channels, self.embed_frequency) + self.extra_channels
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeVAEConfig(TripoSGVAEConfig):
+    """The decoder with Hunyuan3D-2.1's options: a per-head layer norm on q
+    and k (``decoder_qk_norm``), biased attention output projections
+    (``decoder_out_bias``), the epsilon of the decoder blocks' layer norms
+    (``decoder_norm_eps``; the final ``dec_norm_out`` keeps 1e-5), a
+    pre-norm erf-GELU feed-forward of 4x the width after the query
+    cross-attention (``decoder_query_mlp``) and latents divided by
+    ``scale_factor``."""
+
+    decoder_qk_norm: bool = False
+    decoder_out_bias: bool = False
+    decoder_norm_eps: float = 1e-5
+    decoder_query_mlp: bool = False
+    scale_factor: float = 1.0
 
 
 def init_triposg_vae(
@@ -77,18 +112,19 @@ def init_triposg_vae(
     """Random development weights drawn from ``gen`` (the JAX tree's keys)."""
     f32 = torch.float32
 
-    def blocks(width, heads, n):
+    def blocks(width, heads, n, qk_norm: bool | str = False, out_bias=False):
         return [
             init_flow_matching_block(
                 gen, dim=width, num_attention_heads=heads, use_self_attention=True,
-                use_cross_attention=False, attention_qk_norm=False, attention_bias=False,
-                attention_out_bias=False, dtype=dtype, device=device,
+                use_cross_attention=False, attention_qk_norm=qk_norm, attention_bias=False,
+                attention_out_bias=out_bias, dtype=dtype, device=device,
             )
             for _ in range(n)
         ]
 
     query_dim = frequency_embedding_out_dim(cfg.in_channels, cfg.embed_frequency)
-    return {
+    qk_norm = "layer_norm" if cfg.decoder_qk_norm else False
+    params = {
         "proj_point": init_linear(gen, cfg.point_feat_dim, cfg.encoder_width, dtype=dtype, device=device),
         "enc_cross_attn": init_attention(
             gen, cfg.encoder_width, cfg.encoder_heads, cross_attention_dim=cfg.encoder_width,
@@ -101,17 +137,23 @@ def init_triposg_vae(
             gen, cfg.encoder_width, 2 * cfg.latent_channels, dtype=dtype, device=device
         ),
         "post_quant": init_linear(gen, cfg.latent_channels, cfg.decoder_width, dtype=dtype, device=device),
-        "dec_blocks": blocks(cfg.decoder_width, cfg.decoder_heads, cfg.decoder_layers),
+        "dec_blocks": blocks(cfg.decoder_width, cfg.decoder_heads, cfg.decoder_layers,
+                             qk_norm, cfg.decoder_out_bias),
         "proj_query": init_linear(gen, query_dim, cfg.decoder_width, dtype=f32, device=device),
         "dec_cross_attn": init_attention(
             gen, cfg.decoder_width, cfg.decoder_heads, cross_attention_dim=cfg.decoder_width,
-            cross_norm="layer_norm", qk_norm=False, bias=False, out_bias=False,
+            cross_norm="layer_norm", qk_norm=qk_norm, bias=False,
+            out_bias=cfg.decoder_out_bias,
             dtype=f32, device=device,
         ),
         "dec_norm_cross_q": init_layer_norm(cfg.decoder_width, device),
         "dec_norm_out": init_layer_norm(cfg.decoder_width, device),
         "dec_proj_out": init_linear(gen, cfg.decoder_width, 1, dtype=f32, device=device),
     }
+    if cfg.decoder_query_mlp:
+        params["dec_norm_ff"] = init_layer_norm(cfg.decoder_width, device)
+        params["dec_ff"] = init_feed_forward(gen, cfg.decoder_width, 4 * cfg.decoder_width, f32, device)
+    return params
 
 
 def _embed_points(cfg: TripoSGVAEConfig, xyz: torch.Tensor) -> torch.Tensor:
@@ -190,9 +232,12 @@ def decode_kv(
 ) -> torch.Tensor:
     """Latent (B, K, C) -> decoded KV set (B, K, W). Query-independent.
     ``trainable``: as for ``encode_moments``."""
+    if cfg.scale_factor != 1.0:
+        latents = latents / cfg.scale_factor
     x = linear(params["post_quant"], latents)
     for block in params["dec_blocks"]:
-        x = flow_matching_block(block, x, num_attention_heads=cfg.decoder_heads, trainable=trainable)
+        x = flow_matching_block(block, x, num_attention_heads=cfg.decoder_heads, trainable=trainable,
+                                norm_eps=cfg.decoder_norm_eps)
     return x
 
 
@@ -207,26 +252,33 @@ def _query_core(
     """SDF field query body: points (B, Q, 3) -> (B, Q) values (fp32).
 
     ``compute_dtype`` (e.g. bf16): the query cross-attention's four
-    projections and its attention (kernel A's path of that dtype) run in
-    it, on the decoded set cast to it; the point embedding, ``proj_query``,
-    the layer norms and ``dec_proj_out`` stay fp32, as does the residual.
-    Only the coarse passes, which read signs, take it.
+    projections and its attention (kernel A's path of that dtype), and the
+    feed-forward after it where the decoder has one, run in it, on the
+    decoded set cast to it; the point embedding, ``proj_query``, the layer
+    norms and ``dec_proj_out`` stay fp32, as does the residual. Only the
+    coarse passes, which read signs, take it.
     """
+    def cast(tree):
+        return {key: {k: w.to(compute_dtype) for k, w in leaf.items()}
+                if key in ("to_q", "to_k", "to_v", "to_out", "net_0", "net_2") else leaf  # norms stay fp32
+                for key, leaf in tree.items()}
+
     attn_params = params["dec_cross_attn"]
     if compute_dtype is not None:
-        attn_params = {
-            key: {k: w.to(compute_dtype) for k, w in leaf.items()}
-            if key in ("to_q", "to_k", "to_v", "to_out") else leaf  # the norms stay fp32
-            for key, leaf in attn_params.items()
-        }
+        attn_params = cast(attn_params)
+    eps = cfg.decoder_norm_eps
     q = linear(params["proj_query"], _embed_points(cfg, points))
     h = q + attention(
         attn_params,
-        layer_norm(params["dec_norm_cross_q"], q),
+        layer_norm(params["dec_norm_cross_q"], q, eps),
         heads=cfg.decoder_heads,
         encoder_hidden_states=kv.to(compute_dtype or torch.float32),
         trainable=trainable,
+        norm_eps=eps,
     ).float()
+    if "dec_ff" in params:
+        ff = cast(params["dec_ff"]) if compute_dtype is not None else params["dec_ff"]
+        h = h + feed_forward(ff, layer_norm(params["dec_norm_ff"], h, eps)).float()
     out = linear(params["dec_proj_out"], layer_norm(params["dec_norm_out"], h))
     return out[..., 0]
 

@@ -56,7 +56,7 @@ from actionmesh_tpu_torch.models.autoencoder import (
 )
 from actionmesh_tpu_torch.models.denoiser import DenoiserConfig, init_denoiser
 from actionmesh_tpu_torch.models.image_encoder import ImageEncoder
-from actionmesh_tpu_torch.models.stage0 import make_image_to_3d
+from actionmesh_tpu_torch.models.stage0 import STAGE0_MODELS, make_image_to_3d
 from actionmesh_tpu_torch.ops.chunking import chunk_from
 from actionmesh_tpu_torch.ops.embeddings import (
     apply_scaling,
@@ -106,6 +106,7 @@ class ActionMeshPipeline:
         image_encoder: Optional[ImageEncoder] = None,
         image_to_3d=None,
         device_mesh="auto",
+        stage_0_model: str = "triposg",
     ):
         """``config_name``: one of ``config.PRESETS``; ``dtype``: bf16, fp16 or
         fp32 compute (the fp32 islands stay fp32). ``lazy_loading`` (the
@@ -119,8 +120,13 @@ class ActionMeshPipeline:
         device), or "auto": ``make_mesh()``'s default mesh when
         ``torch.distributed`` is initialised with more than one rank, else
         None. With a mesh on cuda, ``device`` must be this rank's card, the
-        current device (``init_distributed`` sets it)."""
+        current device (``init_distributed`` sets it).
+
+        ``stage_0_model``: the image-to-3D model of Stage 0, "triposg" or
+        "hunyuan3d-2.1" (``models/stage0.py:make_image_to_3d``; its
+        checkpoint under ``weights_dir/Hunyuan3D-2.1``)."""
         del lazy_loading
+        self.stage_0_model = stage_0_model
         self.cfg: PipelineConfig = load_config(config_name, updates=config_updates)
         self.device_mesh = default_mesh() if device_mesh == "auto" else device_mesh
         self.device = torch.device(device)
@@ -246,12 +252,14 @@ class ActionMeshPipeline:
         # TripoSG conditions on this same encoder (the JAX package builds a
         # second one from the same weights)
         self.image_to_3d = image_to_3d or make_image_to_3d(
-            self._family_dir("TripoSG"),
+            self._family_dir(STAGE0_MODELS.get(self.stage_0_model, "TripoSG")),
             latent_shape=self.cfg.denoiser_latent_shape,
             device=self.device,
             dtype=self._dtype,
             image_encoder=self.image_encoder,
             device_mesh=self.device_mesh,
+            model=self.stage_0_model,
+            handoff_dir=self._family_dir("TripoSG"),
         )
         self.background_removal = BackgroundRemover(self._family_dir("RMBG"), self.device)
 

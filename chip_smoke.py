@@ -3,11 +3,20 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cli "--fast" "--distilled4" "--dtype float16"
     python3 chip_smoke.py --distributed
+    python3 chip_smoke.py --hunyuan3d
 
 The second form runs only the CLI phase (4 below), once per quoted set of
 flags, and prints its results: every set runs and is reported, and the
 script exits non-zero when any of them failed. The third runs only the
-device mesh's phase (20 below), on every card up to 4.
+device mesh's phase (20 below), on every card up to 4. The fourth runs
+only Hunyuan3D-2.1's phase (``phase_hunyuan3d``, after the kernel rows in
+the full run): kernel A at the shapes of its DiT (4,097 tokens, cross to
+1,370), its VAE decoder (4,096 latents, 16 heads of 64) and its SDF query
+chunk (fp32 and bf16); its sparse-expert layer's two grouped products at
+the DiT's shape against a loop over the experts and against their bound,
+and the whole layer; one CFG step of its DiT at the published widths,
+which must make no host synchronisation; and one whole Stage-0 call at the
+published widths with the kernels' launch counters read around it.
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card (nvidia-smi name, power limit)
@@ -290,6 +299,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from actionmesh_tpu_torch.actionbench import evaluate_dataset as ab_eval
 from actionmesh_tpu_torch.actionbench import icp as icp_module
@@ -1046,6 +1056,169 @@ def phase_kernels(n_vertices: int) -> tuple[list, list]:
         rope.append(check_rms_rope(name, shape, norm, tables, dtype, rope_in.pop(name),
                                    prof[f"rms_rope {name}"]["device_ms"]))
     return flash, rope
+
+
+# Hunyuan3D-2.1's Stage 0 (models/hunyuan3d/): the DiT over 4,097 tokens
+# (2 CFG branches self, the conditional one cross to DINOv2-L at 518^2:
+# 1,370 tokens), its VAE decoder over 4,096 latents with 16 heads of 64,
+# and one 2^18-point SDF query chunk onto them, fp32 (the fine pass) and
+# bf16 (the coarse passes)
+HUNYUAN_FLASH_CASES = [
+    ("hunyuan_dit_self", (2, 16, 4097, 4097, 128), torch.bfloat16),
+    ("hunyuan_dit_cross", (1, 16, 4097, 1370, 128), torch.bfloat16),
+    ("hunyuan_vae_self", (1, 16, 4096, 4096, 64), torch.bfloat16),
+    ("hunyuan_sdf_query", (1, 16, 1 << 18, 4096, 64), torch.float32),
+    ("hunyuan_sdf_query_coarse", (1, 16, 1 << 18, 4096, 64), torch.bfloat16),
+]
+
+
+def check_moe(gen) -> dict:
+    """The sparse-expert feed-forward at the DiT's shape (2 CFG branches x
+    4,097 tokens, width 2,048, 8 experts of 8,192, top 2, bf16): its two
+    grouped products over the routed rows against a loop of ``F.linear``
+    over the experts (host sizes, the plain way), each timed, and the
+    whole layer (router, permutation, the products, the shared expert).
+    Bound of the products: 2 rows x 2 x 2048 x 8192 FLOPs at the bf16 peak
+    against the bytes of the 9 experts' weights; of the layer: the shared
+    expert's products added."""
+    from actionmesh_tpu_torch.models.layers import (
+        grouped_linear,
+        init_moe_feed_forward,
+        moe_dispatch,
+        moe_feed_forward,
+        moe_route,
+    )
+
+    W, Fi, E, k, n = 2048, 8192, 8, 2, 2 * 4097
+    params = init_moe_feed_forward(torch.Generator(device="cuda").manual_seed(7), W, Fi, E,
+                                   torch.bfloat16, torch.device("cuda"))
+    h = torch.randn((n, W), generator=gen, device="cuda").to(torch.bfloat16)
+    _, _, experts = moe_route(params["gate"]["weight"], h, k)
+    order, eid, counts, offsets = moe_dispatch(experts, E)
+    rows = h[order // k]
+    net0, net2 = params["experts"]["net_0"], params["experts"]["net_2"]
+    hid = F.gelu(grouped_linear(rows, net0, offsets, eid))
+    sizes = counts.tolist()
+
+    def loop(x, net):
+        outs, a = [], 0
+        for e, c in enumerate(sizes):
+            outs.append(F.linear(x[a:a + c], net["weight"][e], net["bias"][e]))
+            a += c
+        return torch.cat(outs)
+
+    errs = {}
+    for name, x, net in (("net_0", rows, net0), ("net_2", hid, net2)):
+        got, want = grouped_linear(x, net, offsets, eid), loop(x, net)
+        # bf16 products summed in another order: within a bf16 rounding of the largest value
+        errs[name] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                      "tol": 2 ** -7 * want.float().abs().max().item()}
+        if not errs[name]["max_abs_err"] <= errs[name]["tol"]:
+            raise AssertionError(f"grouped {name}: {errs[name]}")
+    ms = cuda_ms(lambda: (grouped_linear(rows, net0, offsets, eid), grouped_linear(hid, net2, offsets, eid)), 5)
+    loop_ms = cuda_ms(lambda: (loop(rows, net0), loop(hid, net2)), 5)
+    layer_ms = cuda_ms(lambda: moe_feed_forward(params, h, k), 5)
+    m = n * k
+    flop = 2.0 * m * 2 * W * Fi
+    nbytes = (E + 1) * 2 * W * Fi * 2
+    bnd = bound(flop, BF16_FLOPS, nbytes)
+    layer_bnd = bound(flop + 2.0 * n * 2 * W * Fi, BF16_FLOPS, nbytes)
+    row = {"name": "moe_grouped", "rows": m, "routed_rows_per_expert": sizes, "ms": ms,
+           "loop_ms": loop_ms, "tflops": flop / ms / 1e9, **bnd,
+           "bound_share": bnd["bound_ms"] / ms, "layer_ms": layer_ms,
+           "layer_bound_ms": layer_bnd["bound_ms"], "layer_bound_share": layer_bnd["bound_ms"] / layer_ms,
+           "errors": errs}
+    log(f"moe grouped products ({m} routed rows, {sizes}): {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s, "
+        f"{100 * row['bound_share']:.1f}% of the bound {bnd['bound_ms']:.3f} ms, {bnd['bound_by']}) | "
+        f"loop over experts {loop_ms:.3f} ms | whole layer {layer_ms:.3f} ms "
+        f"({100 * row['layer_bound_share']:.1f}% of {layer_bnd['bound_ms']:.3f} ms) | {errs}")
+    return row
+
+
+def hunyuan_dit_step() -> dict:
+    """One CFG step of Hunyuan3D-2.1's DiT at its published widths (random
+    weights): no host synchronisation inside it
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one), and its
+    time against 33.73 TFLOP at the bf16 peak (``portbench/work/hunyuan3d21.py``)."""
+    from actionmesh_tpu_torch.models.hunyuan3d.dit import hunyuan3d_dit_config
+    from actionmesh_tpu_torch.models.triposg.dit import init_triposg_dit, triposg_dit_forward
+
+    cfg = hunyuan3d_dit_config()
+    params = init_triposg_dit(torch.Generator(device="cuda").manual_seed(3), cfg, torch.bfloat16,
+                              torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((1, 4096, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((1, 1370, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    lat, cx = torch.cat([x, x]), torch.cat([torch.zeros_like(ctx), ctx])
+    t = torch.full((2,), 0.5, device="cuda")
+
+    def step():
+        return triposg_dit_forward(params, cfg, lat, cx, t, uncond_batch=1)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    finite = bool(torch.isfinite(out).all())
+    ms = cuda_ms(step, 3)
+    flop = 33.72663488512e12
+    row = {"sync_free": True, "finite": finite, "ms": ms, "tflops": flop / ms / 1e9,
+           "mfu": flop / ms / 1e9 / (BF16_FLOPS / 1e12)}
+    log(f"hunyuan DiT step (CFG, bf16): no host synchronisation; {ms:.2f} ms, "
+        f"{row['tflops']:.1f} TFLOP/s ({100 * row['mfu']:.1f}% of the bf16 peak)")
+    if not finite:
+        raise AssertionError("hunyuan DiT step: non-finite output")
+    return row
+
+
+def hunyuan_stage0_launches(steps: int = 50) -> dict:
+    """One Stage-0 call of Hunyuan3D-2.1 at its published widths (random
+    weights, ``models/stage0.py:DevHunyuan3D``; ``steps`` CFG steps and the
+    fast preset's decode, as the benchmark's ``hunyuan3d21_fast`` runs it)
+    with the launch counters zeroed just before it: what its path launches.
+    Kernel B runs only in the DiT (per-head rms-norm on q and k of both
+    attentions: 4 a block-step); the ShapeVAE's qk-norm is a layer norm."""
+    from actionmesh_tpu_torch.models.stage0 import DevHunyuan3D
+
+    s0 = DevHunyuan3D(torch.device("cuda"), (2048, 64), dtype=torch.bfloat16, seed=5)
+    pipe = s0.pipeline  # built outside the count
+    rgba = make_frames()[0]
+    image = np.where(rgba[..., 3:] > 0, rgba[..., :3], 255).astype(np.uint8)
+    reset_counters()
+    s0(image, seed=3, num_inference_steps=steps, guidance_scale=5.0, prefilter_octree_depth=6)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    blocks = pipe.dit_cfg.num_layers
+    dit_flash = 2 * blocks * steps  # self (both CFG branches in one launch) and cross (the conditional one)
+    row = {"steps": steps, "launches": launches, "dit_flash_fwd": dit_flash,
+           "chunks": pipe.extract_stats, "seconds": pipe.phase_seconds}
+    log(f"hunyuan Stage 0 ({steps} steps): launches {launches} (the DiT's kernel A {dit_flash}); "
+        f"chunks {pipe.extract_stats}")
+    if launches["fused_rms_rope"] != 4 * blocks * steps or launches["flash_fwd"] <= dit_flash:
+        raise AssertionError(f"hunyuan Stage 0 launches {launches}")
+    return row
+
+
+def phase_hunyuan3d() -> dict:
+    """Hunyuan3D-2.1's Stage 0: kernel A at its five rows, the grouped
+    expert products, one DiT step with no host synchronisation and the
+    launches of one Stage-0 call."""
+    gen = torch.Generator(device="cuda").manual_seed(2201)
+    one_block = "actionmesh_tpu/ops/flash_attention.py:612"
+    flash = []
+    for name, shape, dtype in HUNYUAN_FLASH_CASES:
+        flash.append(dict(check_flash(gen, name, shape, dtype), replaces=one_block))
+        torch.cuda.empty_cache()
+    moe = check_moe(gen)
+    torch.cuda.empty_cache()
+    step = hunyuan_dit_step()
+    torch.cuda.empty_cache()
+    stage0 = hunyuan_stage0_launches()
+    torch.cuda.empty_cache()
+    return {"flash": flash, "moe": moe, "dit_step": step, "stage0": stage0}
 
 
 # Kernel F: the Stage-I self shape with interleaved tables from centred
@@ -4359,6 +4532,7 @@ def main() -> None:
     ckpt = phase_checkpoints()
     v3d = phase_video_3d()
     flash, rope = phase_kernels(sl["anchor_vertices"])
+    hunyuan = phase_hunyuan3d()
     flash_edges = phase_flash_edges()
     fused, fused_launches = phase_fused()
     bwd, rope_bwd = phase_backward()
@@ -4415,7 +4589,8 @@ def main() -> None:
                 "cli_checkpoints": ckpt["launches"][name], "cli_video": ckpt["video"]["launches"][name],
                 "video_3d": v3d["launches"][name], "prepare_clips": prep["launches"][name],
                 "serve": served["launches"][name], "coarse_bf16": coarse["launches"][name],
-                "extraction": extraction["launches"][name], "distributed": dist["launches"][name]}
+                "extraction": extraction["launches"][name], "distributed": dist["launches"][name],
+                "hunyuan3d": hunyuan["stage0"]["launches"][name]}
 
     def cli_launches(name):  # the entry points' paths: CLIs, clip preparation, the server
         return (sum(cli_runs[preset]["launches"][name] for preset in CLI_PRESETS)
@@ -4445,11 +4620,12 @@ def main() -> None:
         summary("flash_fwd", "actionmesh_tpu_torch/csrc/flash_fwd.cu",
                 "actionmesh_tpu/ops/flash_attention.py:302", flash,
                 sl["launches"]["flash_fwd"] + trained("flash_fwd") + cli_launches("flash_fwd")
-                + decode_launches("flash_fwd")),
+                + decode_launches("flash_fwd") + hunyuan["stage0"]["launches"]["flash_fwd"]),
         summary("fused_rms_rope", "actionmesh_tpu_torch/csrc/rms_rope.cu",
                 "actionmesh_tpu/ops/rope_norm.py:94", rope,
                 sl["launches"]["rms_rope"] + trained("fused_rms_rope")
-                + cli_launches("fused_rms_rope") + decode_launches("fused_rms_rope")),
+                + cli_launches("fused_rms_rope") + decode_launches("fused_rms_rope")
+                + hunyuan["stage0"]["launches"]["fused_rms_rope"]),
         bwd_summary("flash_bwd_dkv", "actionmesh_tpu/ops/flash_attention_bwd.py:261", ("dkv", ("dk", "dv"))),
         bwd_summary("flash_bwd_dq", "actionmesh_tpu/ops/flash_attention_bwd.py:287", ("dq", ("dq",))),
         summary("nn_argmin", "actionmesh_tpu_torch/csrc/nn_argmin.cu",
@@ -4504,7 +4680,7 @@ def main() -> None:
                       "train_stage0_dit": dit, "train_vae": vae, "prepare_clips": prep,
                       "closed_loop": loop, "serve": served, "coarse_bf16": coarse,
                       "extraction": extraction, "distributed": dist,
-                      "actionbench": ab,
+                      "actionbench": ab, "hunyuan3d": hunyuan,
                       "card": info["nvidia_smi"]}),
           flush=True)
     # a short line the tool's tail always keeps: the long line above can
@@ -4552,9 +4728,23 @@ def main_distributed() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def main_hunyuan3d() -> None:
+    """``chip_smoke.py --hunyuan3d``: only Hunyuan3D-2.1's phase, checked as
+    in the full run; prints its results, then the device line."""
+    logging.basicConfig(level=logging.WARNING)
+    info = phase_device()
+    phase_build()
+    print(json.dumps({"hunyuan3d": phase_hunyuan3d(), "card": info["nvidia_smi"]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli"]:
         main_cli_runs(sys.argv[2:])
+    elif sys.argv[1:] == ["--hunyuan3d"]:
+        main_hunyuan3d()
     elif sys.argv[1:] == ["--distributed"]:
         main_distributed()
     else:

@@ -212,9 +212,10 @@ def tiny_factory(monkeypatch):
     """The CLI's pipeline at tiny widths (its preset's values otherwise)."""
     real = cli.ActionMeshPipeline
 
-    def make(config_name, weights_dir, device, dtype, lazy_loading):
+    def make(config_name, weights_dir, device, dtype, lazy_loading, stage_0_model):
         pipe = real(config_name=config_name, weights_dir=None, device=device, dtype=dtype,
-                    config_updates=dict(TINY_UPDATES), lazy_loading=lazy_loading)
+                    config_updates=dict(TINY_UPDATES), lazy_loading=lazy_loading,
+                    stage_0_model=stage_0_model)
         pipe.image_encoder = TImageEncoder(device, dtype, TDinoCfg(**TINY_DINO))
         pipe.image_to_3d = lambda image, **_: (
             torch.from_numpy(np.random.default_rng(1).standard_normal((1, 16, 8)).astype(np.float32)),
@@ -232,6 +233,7 @@ def test_main_runs_on_the_cpu(monkeypatch, tmp_path):
     result = cli.main(["--input", str(frames_dir), "--output_dir", str(out), "--device", "cpu",
                        "--turbo", "--dtype", "float32"])
     assert result["preset"] == "actionmesh_turbo"
+    assert result["pipeline"].stage_0_model == "triposg"
     assert result["pipeline"].cfg.stage_0.guidance_scale == 0.0
     assert sorted(p.name for p in out.glob("mesh_*.glb")) == [f"mesh_{i:02d}.glb" for i in range(N)]
     for name in ("deformations_vertices.npy", "deformations_faces.npy", "animated_mesh.glb"):
